@@ -1,0 +1,437 @@
+"""Flat sorted-run TT lookup pipeline (tt_ndim 2-4), forward, in PyTorch.
+
+Counterpart of the host glue of ``fbtt_embedding_tpu/ops/pallas/tt_flat.py``.
+For tt_ndim == 3 (2 and 4 generalise: one sort and one kernel pass per
+middle/last core)::
+
+  sort lookups by i1 and by i2             stable sorts of the keys
+  span tables = searchsorted(keys, j)      core row j <-> span of rows
+  z0   = G0f[i0_s1]                        gather [nza, q0*r1]
+  Z1   = seg_transform(z0, G1)             [nza, q0*q1*r2]      (kernel B1)
+  Z1'  = Z1[perm12]                        gather, s1 -> s2 order
+  rows = seg_transform(Z1', G2bd)          [nza, D]             (kernel B1)
+  out  = onehot(rowidx_s2) @ rows          pooling, float32
+
+``G2bd`` is the last core expanded block-diagonally over the accumulated
+middle digits (``_bd_widths``). In pair mode (``_pair_gate``: nza >= 16384
+and the pair table fits) a ``[T*p0*p1 + 1, q0*q1*r2]`` table of
+``G0[i0] @ G1[i1]`` replaces the z0 gather, the first pass and the s1 -> s2
+permute: ``Z1' = G01[pair_s2]``, and only the last pass runs.
+
+Dead lookups (cache-served: ``dead_mask`` or positions past
+``live_count``) and padding get a sentinel key ``T*p_t``; they sort into the
+final span, which the kernel fills with zeros.
+
+Numerics: float32 master cores; intermediates staged in ``compute_dtype``
+(bfloat16 by default on the card, float32 on the CPU or when asked);
+products accumulate in float32 and pooling is float32.
+
+The segment length ``SEG`` is this port's choice for Hopper (one CTA of
+the kernel per segment); the TPU's seg/sb/spp grid policies and knobs are
+not carried over. ``jax.lax.sort`` over several operands becomes a stable
+``torch.sort`` of the key plus gathers of the carried operands.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from fbtt_embedding_tpu_torch.ops.indexing import tt_strides
+from fbtt_embedding_tpu_torch.ops.kernels.seg_transform import seg_transform
+from fbtt_embedding_tpu_torch.ops.kernels.tt_kernel import kernel_core_layouts
+
+SEG = 64  # lookups per segment: one CTA of the transform kernel each
+# empty spans appended to every span table (and zero slabs to every pass
+# table), kept from the JAX package so plans compare entry for entry
+SPAN_BLOCK = 4
+# cap on the G0xG1 pair-product table (rebuilt per call from the cores)
+_PAIR_TABLE_BYTES = 96 * 1024 * 1024
+# one-hot pooling up to this many pooled rows, index_add_ above
+_POOL_ONEHOT_MAX_TB = 4096
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _full_ranks(p, r):
+    r = list(r)
+    return [1] + r + [1] if len(r) == len(p) - 1 else r
+
+
+def pair_structural_ok(num_tables: int, p, q, r, itemsize: int) -> bool:
+    """Whether a G0xG1 pair-product table is buildable: tt_ndim >= 3, pair
+    ids fit int32, table under ``_PAIR_TABLE_BYTES``."""
+    if len(p) < 3:
+        return False
+    r = _full_ranks(p, r)
+    rows = num_tables * p[0] * p[1]
+    width = q[0] * q[1] * r[2]
+    return rows + 1 < 2 ** 31 and \
+        (rows + 1) * width * itemsize <= _PAIR_TABLE_BYTES
+
+
+def _pair_gate(nza: int, num_tables: int, p, q, r, itemsize: int) -> bool:
+    """Pair mode when structurally possible and nza >= 16384, where the
+    per-call table build amortises (the JAX package's threshold)."""
+    return pair_structural_ok(num_tables, p, q, r, itemsize) and \
+        nza >= 16384
+
+
+def _bd_widths(tt_q_shapes, ranks):
+    """Per-core (mm, bw_in, bw_out): the state before core t has q0
+    lane-blocks of width mm_t * r_t (mm_t = q1*..*q_{t-1}); core t applies
+    as the block-diagonal expansion of shape [mm_t*r_t, mm_t*q_t*r_{t+1}]."""
+    out = []
+    mm = 1
+    for t in range(1, len(tt_q_shapes)):
+        out.append((mm, mm * ranks[t], mm * tt_q_shapes[t] * ranks[t + 1]))
+        mm *= tt_q_shapes[t]
+    return out
+
+
+def flat_available(tt_p_shapes, tt_q_shapes, tt_ranks, num_tables: int,
+                   batch_size: int) -> bool:
+    """Whether the flat pipeline takes this config unpadded: tt_ndim 2-4
+    and every staged lane-block width a multiple of 8 (16-byte rows in
+    bfloat16). The TPU's VMEM budget and span-count cap do not apply: the
+    kernel streams spans and slabs from device memory."""
+    ndim = len(tt_p_shapes)
+    if ndim not in (2, 3, 4):
+        return False
+    q = list(tt_q_shapes)
+    r = _full_ranks(tt_p_shapes, tt_ranks)
+    if (q[0] * r[1]) % 8 != 0:
+        return False
+    for _, bw_in, bw_out in _bd_widths(q, r):
+        if bw_in % 8 != 0 or bw_out % 8 != 0:
+            return False
+    return (num_tables * batch_size) % 8 == 0
+
+
+@dataclass
+class FlatPlan:
+    """Sorted orders, span tables and permutations of one batch. Every
+    per-lookup array has nza entries (nnz padded to whole segments; pad
+    rows carry sentinel keys).
+
+    Pass t (1-based core index) lives in sort space ``s_t``; entry ``t-1``
+    of ``runs``/``first``/``cnt`` is its span table. ``perm_fwd[t-1]``
+    maps positions of ``s_{t+1}`` to positions of ``s_t``; ``perm_bwd`` is
+    the inverse chain."""
+
+    i0_s1: torch.Tensor                 # [nza] first-core rows (combined)
+    alive1: torch.Tensor                # [nza] bool, real and live, s1
+    runs: Tuple[torch.Tensor, ...]      # per pass [T*p_t + 1 + SPAN_BLOCK]
+    first: Tuple[torch.Tensor, ...]     # per pass [nseg]
+    cnt: Tuple[torch.Tensor, ...]       # per pass [nseg]
+    perm_fwd: Tuple[Optional[torch.Tensor], ...]
+    perm_bwd: Tuple[torch.Tensor, ...]
+    rowidx_last: torch.Tensor           # [nza] pooled rows, last space
+    w_last: Optional[torch.Tensor]
+    pair_s2: Optional[torch.Tensor] = None  # pair mode: (i0, i1) ids, s2
+
+
+def _span_table(key_sorted: torch.Tensor, p_rows: int, nseg: int, seg=SEG):
+    """(span starts by core row, first span of each segment, span count of
+    each segment) from the sorted keys, all by searchsorted. ``runs``
+    carries ``SPAN_BLOCK`` extra empty spans at its tail."""
+    dev = key_sorted.device
+    edges = torch.arange(p_rows + SPAN_BLOCK + 1, dtype=torch.int32,
+                         device=dev)
+    runs = torch.searchsorted(key_sorted.to(torch.int32).contiguous(), edges,
+                              out_int32=True)
+    seg_starts = torch.arange(nseg, dtype=torch.int32, device=dev) * seg
+    first = torch.searchsorted(runs, seg_starts, right=True,
+                               out_int32=True) - 1
+    last = torch.searchsorted(runs, seg_starts + (seg - 1), right=True,
+                              out_int32=True) - 1
+    return runs, first, last - first + 1
+
+
+def _invert_perm(perm: torch.Tensor) -> torch.Tensor:
+    """Inverse permutation by one scatter."""
+    inv = torch.empty_like(perm)
+    inv[perm.long()] = torch.arange(perm.shape[0], dtype=perm.dtype,
+                                    device=perm.device)
+    return inv
+
+
+def _stable_sort(key, *carry):
+    """``jax.lax.sort([key, *carry], num_keys=1, is_stable=True)``."""
+    k_s, order = torch.sort(key, stable=True)
+    return (k_s,) + tuple(c[order] for c in carry)
+
+
+def _pad(a: torch.Tensor, n: int, value) -> torch.Tensor:
+    if n == a.shape[0]:
+        return a
+    return torch.cat([a, torch.full((n - a.shape[0],), value, dtype=a.dtype,
+                                    device=a.device)])
+
+
+def _build_plan(indices, rowidx, tableidx, weights, live_count, tt_p_shapes,
+                num_tables, batch_size, dead_mask=None, idx_parts=None,
+                seg=SEG, pair=False):
+    """-> (FlatPlan, nza). Same arrays as the JAX package's ``_build_plan``
+    at the same ``seg``."""
+    p = list(tt_p_shapes)
+    ndim = len(p)
+    nnz = rowidx.shape[0]
+    nza = _cdiv(nnz, seg) * seg
+    nseg = nza // seg
+    dev = rowidx.device
+    i32 = torch.int32
+
+    if idx_parts is not None:
+        parts = [p_.to(i32) for p_ in idx_parts]
+    else:
+        strides = tt_strides(p)
+        idx32 = indices.to(i32)
+        parts = [torch.div(idx32, int(strides[t]), rounding_mode="floor")
+                 % p[t] for t in range(ndim)]
+    # (i0, i1) pair id: the flat [T, p0, p1] index
+    pairc = parts[0] * p[1] + parts[1] if pair else None
+    if tableidx is not None and num_tables > 1:
+        t32 = tableidx.to(i32)
+        parts = [p_ + t32 * p[t] for t, p_ in enumerate(parts)]
+        rowc = rowidx.to(i32) + t32 * batch_size
+        if pair:
+            pairc = pairc + t32 * (p[0] * p[1])
+    else:
+        rowc = rowidx.to(i32)
+
+    sents = [num_tables * p_ for p_ in p]
+    if dead_mask is not None:
+        dead = dead_mask.to(device=dev, dtype=torch.bool)
+    elif live_count is not None:
+        pos = torch.arange(nnz, dtype=i32, device=dev)
+        dead = pos >= live_count.to(device=dev, dtype=i32).reshape(())
+    else:
+        dead = None
+    pairp = None
+    if pair:
+        sent_pair = num_tables * p[0] * p[1]
+        if dead is not None:
+            pairc = torch.where(dead, torch.full_like(pairc, sent_pair),
+                                pairc)
+        pairp = _pad(pairc, nza, sent_pair)
+    keys = []
+    for t in range(1, ndim):
+        k = parts[t]
+        if dead is not None:
+            k = torch.where(dead, torch.full_like(k, sents[t]), k)
+        keys.append(_pad(k, nza, sents[t]))
+
+    i0p = _pad(parts[0], nza, 0)
+    rowp = _pad(rowc, nza, -1)
+    posp = torch.arange(nza, dtype=i32, device=dev)
+    wp = (_pad(weights.to(torch.float32), nza, 0.0)
+          if weights is not None else None)
+
+    if pair and ndim == 3:
+        # one sort fewer: sort by i2 first carrying pair ids, pooling
+        # arrays and positions, invert the positions once (orig -> s2
+        # slot), and let the i1 sort carry those slots: perm_bwd falls
+        # out sorted
+        carry = [pairp, rowp] + ([wp] if wp is not None else []) + [posp]
+        res2 = _stable_sort(keys[1], *carry)
+        k2_s, pair_s2, row_s = res2[0], res2[1], res2[2]
+        w_s = res2[3] if wp is not None else None
+        slot2_of_orig = _invert_perm(res2[-1])
+        runs2, first2, cnt2 = _span_table(k2_s, sents[2], nseg, seg=seg)
+        k1_s, i0_s1, perm_bwd0 = _stable_sort(keys[0], i0p, slot2_of_orig)
+        runs1, first1, cnt1 = _span_table(k1_s, sents[1], nseg, seg=seg)
+        return FlatPlan(
+            i0_s1=i0_s1, alive1=k1_s < sents[1],
+            runs=(runs1, runs2), first=(first1, first2), cnt=(cnt1, cnt2),
+            perm_fwd=(None,), perm_bwd=(perm_bwd0,),
+            rowidx_last=row_s, w_last=w_s, pair_s2=pair_s2,
+        ), nza
+
+    # chain of stable sorts, one per middle/last core, each on the
+    # original-order keys; each carries the previous space's orig -> slot
+    # map (so the gap permutation falls out sorted) and the positions;
+    # the last carries the pooling arrays
+    runs_l, first_l, cnt_l, perm_fwd, perm_bwd = [], [], [], [], []
+    i0_s1 = alive1 = row_s = w_s = pair_s2 = None
+    inv_prev = None  # orig position -> slot in the previous space
+    for t in range(1, ndim):
+        is_last = t == ndim - 1
+        carry = [i0p if t == 1 else inv_prev]
+        if not is_last:
+            carry.append(posp)
+        else:
+            carry.append(rowp)
+            if wp is not None:
+                carry.append(wp)
+        if pair and t == 2:
+            carry.append(pairp)
+        res = _stable_sort(keys[t - 1], *carry)
+        if pair and t == 2:
+            pair_s2 = res[-1]
+            res = res[:-1]
+        k_s, second = res[0], res[1]
+        if t == 1:
+            i0_s1 = second
+            alive1 = k_s < sents[1]
+        else:
+            perm_fwd.append(second)  # slot_t -> slot_{t-1}
+            perm_bwd.append(_invert_perm(second))
+        if is_last:
+            row_s = res[2]
+            w_s = res[3] if wp is not None else None
+        else:
+            inv_prev = _invert_perm(res[2])  # orig -> slot_t
+        r_, f_, c_ = _span_table(k_s, sents[t], nseg, seg=seg)
+        runs_l.append(r_)
+        first_l.append(f_)
+        cnt_l.append(c_)
+
+    return FlatPlan(
+        i0_s1=i0_s1, alive1=alive1,
+        runs=tuple(runs_l), first=tuple(first_l), cnt=tuple(cnt_l),
+        perm_fwd=tuple(perm_fwd), perm_bwd=tuple(perm_bwd),
+        rowidx_last=row_s, w_last=w_s, pair_s2=pair_s2,
+    ), nza
+
+
+def _bd_table(gk_t: torch.Tensor, mm: int, dt) -> torch.Tensor:
+    """Core t ``[tp, r_t, q_t*r_{t+1}]`` -> block-diagonal expansion over
+    the ``mm`` accumulated middle digits, ``[tp, mm*r_t, mm*q_t*r_{t+1}]``."""
+    if mm == 1:
+        return gk_t.to(dt)
+    tp, r_t, w_t = gk_t.shape
+    eye = torch.eye(mm, dtype=dt, device=gk_t.device)
+    bd = eye[None, :, None, :, None] * gk_t.to(dt)[:, None, :, None, :]
+    return bd.reshape(tp, mm * r_t, mm * w_t)
+
+
+def _pool_flat(rows: torch.Tensor, plan: FlatPlan, tb: int, dt):
+    """Pool per-lookup rows (last sort space) into float32 ``[tb, d]``: a
+    one-hot product for small batches, ``index_add_`` above
+    ``_POOL_ONEHOT_MAX_TB``. The one-hot weights are rounded to the
+    staging dtype and the product is float32, as in the JAX package."""
+    if tb <= _POOL_ONEHOT_MAX_TB:
+        iota_b = torch.arange(tb, dtype=torch.int32, device=rows.device)
+        hit = plan.rowidx_last[None, :] == iota_b[:, None]
+        if plan.w_last is not None:
+            w = plan.w_last.to(dt).float()
+            oh = torch.where(hit, w[None, :],
+                             torch.zeros((), device=rows.device))
+        else:
+            oh = hit.float()
+        return torch.matmul(oh, rows.float())
+    rows_f = rows.float()
+    if plan.w_last is not None:
+        rows_f = rows_f * plan.w_last[:, None]
+    seg = torch.where(plan.rowidx_last >= 0, plan.rowidx_last,
+                      torch.full_like(plan.rowidx_last, tb))
+    out = torch.zeros((tb + 1, rows.shape[1]), dtype=torch.float32,
+                      device=rows.device)
+    out.index_add_(0, seg.long(), rows_f)
+    return out[:tb]
+
+
+def _flat_setup(cores, p, q, r, dt):
+    """(g0f with a zero row appended, kernel layouts, per-pass stacked
+    tables ``[(T*p_t + SPAN_BLOCK) * bw_in, bw_out]``, widths)."""
+    t = cores[0].shape[0]
+    gk = kernel_core_layouts(cores, p, q, r)
+    dev = cores[0].device
+    g0f = torch.cat([
+        gk[0].reshape(t * p[0], q[0] * r[1]).float(),
+        torch.zeros((1, q[0] * r[1]), dtype=torch.float32, device=dev),
+    ]).to(dt)
+    widths = _bd_widths(list(q), list(r))
+    tables = []
+    for ti in range(1, len(p)):
+        mm, bw_in, bw_out = widths[ti - 1]
+        bd = _bd_table(gk[ti], mm, dt)
+        tables.append(torch.cat([
+            bd.reshape(bd.shape[0] * bw_in, bw_out),
+            torch.zeros((SPAN_BLOCK * bw_in, bw_out), dtype=dt, device=dev),
+        ]))
+    return g0f, gk, tables, widths
+
+
+def _pair_table(gk, p, q, r, t, dt):
+    """Pair-product table ``[T*p0*p1 + 1, q0*q1*r2]`` (zero sentinel row
+    last): ``G01[(t, k, j)] = G0[t, k] @ G1[t, j]`` per q0 lane-block, with
+    inputs rounded to the staging dtype, a float32 product and the result
+    rounded once, like a kernel pass."""
+    w1 = q[1] * r[2]
+    g0 = gk[0].reshape(t, p[0], q[0], r[1]).to(dt).float()
+    g1 = gk[1].reshape(t, p[1], r[1], w1).to(dt).float()
+    g01 = torch.einsum("tkar,tjrw->tkjaw", g0, g1)
+    g01 = g01.reshape(t * p[0] * p[1], q[0] * w1).to(dt)
+    return torch.cat([g01, torch.zeros((1, q[0] * w1), dtype=dt,
+                                       device=g01.device)])
+
+
+def flat_lookup_forward(cores, tt_p_shapes, tt_q_shapes, tt_ranks,
+                        batch_size, plan: FlatPlan, nza,
+                        compute_dtype=torch.float32, seg=SEG):
+    """Pooled forward -> (``[T, B, D]`` float32, staged states). The staged
+    states (each pass's input, in its sort space; None for a pass that
+    pair mode skipped) are what a backward would reuse."""
+    p, q, r = tuple(tt_p_shapes), tuple(tt_q_shapes), tuple(tt_ranks)
+    ndim = len(p)
+    t = cores[0].shape[0]
+    tb = t * batch_size
+    d = int(np.prod(q))
+    dt = compute_dtype
+    g0f, gk, tables, widths = _flat_setup(cores, p, q, r, dt)
+
+    stages = []
+    if plan.pair_s2 is not None:
+        state = _pair_table(gk, p, q, r, t, dt)[plan.pair_s2.long()]
+        stages.append(None)
+        start_ti = 2
+    else:
+        i0c = torch.where(plan.alive1, plan.i0_s1,
+                          torch.full_like(plan.i0_s1, t * p[0]))
+        state = g0f[i0c.long()]  # [nza, q0*r1], s1 order
+        start_ti = 1
+    for ti in range(start_ti, ndim):
+        _, bw_in, bw_out = widths[ti - 1]
+        stages.append(state)
+        state = seg_transform(
+            plan.runs[ti - 1], plan.first[ti - 1], plan.cnt[ti - 1],
+            state, tables[ti - 1], blocks=q[0], bw_in=bw_in, bw_out=bw_out,
+            p_rows=t * p[ti], seg=seg, out_dtype=dt)
+        if ti < ndim - 1:
+            state = state[plan.perm_fwd[ti - 1].long()]  # s_ti -> s_ti+1
+
+    out = _pool_flat(state, plan, tb, dt)
+    return out.reshape(t, batch_size, d), tuple(stages)
+
+
+def flat_forward(cores: Sequence[torch.Tensor], indices, rowidx, tableidx,
+                 weights, live, tt_p_shapes, tt_q_shapes, tt_ranks,
+                 num_tables: int, batch_size: int,
+                 compute_dtype=torch.float32, live_is_mask: bool = False,
+                 parts_mode: bool = False) -> torch.Tensor:
+    """The forward of the JAX package's ``make_flat_vjp``: plan (pair mode
+    when ``_pair_gate`` allows) then :func:`flat_lookup_forward`.
+
+    ``indices`` is a tuple of per-core parts when ``parts_mode``; ``live``
+    is a ``[nnz]`` dead mask when ``live_is_mask``, else a ``[1]`` live
+    count (or None)."""
+    p, q, r = list(tt_p_shapes), list(tt_q_shapes), list(tt_ranks)
+    seg = SEG
+    nza_est = _cdiv(rowidx.shape[0], seg) * seg
+    itemsize = torch.empty((), dtype=compute_dtype).element_size()
+    pair = _pair_gate(nza_est, num_tables, p, q, r, itemsize)
+    plan, nza = _build_plan(
+        None if parts_mode else indices, rowidx, tableidx, weights,
+        None if live_is_mask else live, p, num_tables, batch_size,
+        dead_mask=live if live_is_mask else None,
+        idx_parts=indices if parts_mode else None, seg=seg, pair=pair)
+    out, _ = flat_lookup_forward(cores, p, q, r, batch_size, plan, nza,
+                                 compute_dtype=compute_dtype, seg=seg)
+    return out

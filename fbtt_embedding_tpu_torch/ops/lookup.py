@@ -1,0 +1,179 @@
+"""Pooled TT-embedding lookup, forward, in PyTorch.
+
+Counterpart of ``fbtt_embedding_tpu.ops.lookup``: sum pooling, the
+odd-rank padding that lets any tt_ndim 2-4 config take the flat pipeline,
+and the ``pooled_tt_lookup`` dispatch between the flat sorted-run pipeline
+(``ops/kernels/tt_flat.py``, kernel B1) and the plain ``tt_rows`` path.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+
+from fbtt_embedding_tpu_torch.ops.contraction import tt_rows, validate_tt_shapes
+from fbtt_embedding_tpu_torch.ops.kernels.tt_flat import (
+    flat_available,
+    flat_forward,
+)
+
+
+def pool_rows(rows: torch.Tensor, rowidx: torch.Tensor,
+              tableidx: Optional[torch.Tensor], num_tables: int,
+              batch_size: int) -> torch.Tensor:
+    """Sum-pool per-lookup rows into ``[num_tables, B, D]`` bags."""
+    d = rows.shape[-1]
+    seg = rowidx.long()
+    if num_tables > 1 and tableidx is not None:
+        seg = tableidx.long() * batch_size + seg
+    pooled = torch.zeros((num_tables * batch_size, d), dtype=rows.dtype,
+                         device=rows.device)
+    pooled.index_add_(0, seg, rows)
+    return pooled.reshape(num_tables, batch_size, d)
+
+
+def _pad_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def flat_pad_plan(tt_p_shapes, tt_q_shapes, ranks, batch_size):
+    """Padded ``(full_ranks, q_last, B)`` meeting the flat pipeline's
+    multiple-of-8 width gates, or None when no padding is needed.
+
+    Zero-padding ranks, the last q-dim and the batch is exact. Core t's
+    input is staged as q0 lane-blocks of width ``mm_t * r_t``
+    (``mm_t = q1*..*q_{t-1}``); padding ``r_t`` to ``ceil8(mm_t*r_t)/mm_t``
+    fixes pass t's input and pass t-1's output, and padding the last q-dim
+    fixes the final pass's output."""
+    ndim = len(tt_p_shapes)
+    q = list(tt_q_shapes)
+    r = list(ranks)  # full boundary ranks, len ndim + 1
+    rp = list(r)
+    mm = 1
+    for t in range(1, ndim):
+        rp[t] = _pad_up(r[t], 8 // math.gcd(mm, 8))
+        mm *= q[t]
+    mm_last = mm // q[ndim - 1]
+    qlp = _pad_up(q[ndim - 1], 8 // math.gcd(mm_last, 8))
+    bp = _pad_up(batch_size, 8)
+    if (tuple(rp), qlp, bp) == (tuple(r), q[ndim - 1], batch_size):
+        return None
+    return tuple(rp), qlp, bp
+
+
+def pad_cores_for_flat(tt_cores, tt_p_shapes, tt_q_shapes, ranks, plan):
+    """Zero-pad cores (module layout ``[T, p_t, r_t*q_t*r_{t+1}]``) to a
+    :func:`flat_pad_plan`'s ranks and last q-dim."""
+    rp, qlp, _ = plan
+    ndim = len(tt_p_shapes)
+    t = tt_cores[0].shape[0]
+    out = []
+    for ti in range(ndim):
+        q_t = tt_q_shapes[ti] if ti < ndim - 1 else qlp
+        c = tt_cores[ti].reshape(t, tt_p_shapes[ti], ranks[ti],
+                                 tt_q_shapes[ti], ranks[ti + 1])
+        # F.pad lists (before, after) pairs from the last dim backwards
+        c = F.pad(c, (0, rp[ti + 1] - ranks[ti + 1], 0, q_t - tt_q_shapes[ti],
+                      0, rp[ti] - ranks[ti]))
+        out.append(c.reshape(t, tt_p_shapes[ti], rp[ti] * q_t * rp[ti + 1]))
+    return tuple(out)
+
+
+def flat_servable(tt_p_shapes, tt_q_shapes, ranks, num_tables,
+                  batch_size) -> bool:
+    """Whether the flat pipeline takes this config, padded if need be."""
+    if flat_available(tt_p_shapes, tt_q_shapes, ranks, num_tables,
+                      batch_size):
+        return True
+    pad = flat_pad_plan(tt_p_shapes, tt_q_shapes, ranks, batch_size)
+    return pad is not None and flat_available(
+        tt_p_shapes, tuple(tt_q_shapes[:-1]) + (pad[1],), pad[0], num_tables,
+        pad[2])
+
+
+def staging_dtype(device: torch.device, precision: Optional[str]):
+    """float32 staging on the CPU or when ``precision == "highest"``,
+    bfloat16 otherwise (float32 master cores and accumulation either
+    way)."""
+    if torch.device(device).type == "cpu" or precision == "highest":
+        return torch.float32
+    return torch.bfloat16
+
+
+def pooled_tt_lookup(
+    tt_cores: Sequence[torch.Tensor],
+    tt_p_shapes: Sequence[int],
+    tt_q_shapes: Sequence[int],
+    tt_ranks: Sequence[int],
+    batch_size: int,
+    indices: Optional[torch.Tensor],
+    rowidx: torch.Tensor,
+    tableidx: Optional[torch.Tensor] = None,
+    weights: Optional[torch.Tensor] = None,
+    precision: Optional[str] = None,
+    impl: str = "auto",
+    live_count: Optional[torch.Tensor] = None,
+    dead_mask: Optional[torch.Tensor] = None,
+    idx_parts: Optional[Sequence[torch.Tensor]] = None,
+) -> torch.Tensor:
+    """Pooled TT-embedding lookup ``[num_tables, B, D]`` (float32).
+
+    ``impl``: "auto" and "pallas_sorted" take the flat sorted-run pipeline
+    (its kernel on a CUDA tensor, the kernel's plain version on a CPU
+    tensor), zero-padding odd ranks to its width gates; "pallas_sorted"
+    raises where even padding cannot serve the config, "auto" then takes
+    the plain path. "xla" is the plain ``tt_rows`` gather-and-chain path
+    (names as in the JAX package).
+
+    ``precision``: None stages intermediates in bfloat16 on the card;
+    "highest" stages them in float32. ``live_count`` ([1]) and
+    ``dead_mask`` ([nnz] bool) mark cache-served lookups, which the flat
+    path sorts into its zero-filled sentinel span; the plain path ignores
+    them (its caller zeroes such lookups' weights)."""
+    ranks = validate_tt_shapes(tt_p_shapes, tt_q_shapes, tt_ranks)
+    num_tables = tt_cores[0].shape[0]
+    if impl not in ("auto", "pallas_sorted", "xla"):
+        raise ValueError(f"unknown impl {impl!r}")
+    if impl == "auto":
+        impl = ("pallas_sorted" if flat_servable(
+            tt_p_shapes, tt_q_shapes, ranks, num_tables, batch_size)
+            else "xla")
+    if impl == "xla":
+        rows = tt_rows(tt_cores, tt_p_shapes, tt_q_shapes, ranks, indices,
+                       tableidx, idx_parts=idx_parts)
+        if weights is not None:
+            rows = rows * weights[:, None].to(rows.dtype)
+        return pool_rows(rows, rowidx, tableidx, num_tables, batch_size)
+
+    cdt = staging_dtype(rowidx.device, precision)
+    aux = dead_mask if dead_mask is not None else live_count
+    use_q, use_r, use_b = tuple(tt_q_shapes), tuple(ranks), batch_size
+    pad = None
+    if not flat_available(tt_p_shapes, use_q, use_r, num_tables, batch_size):
+        if not flat_servable(tt_p_shapes, tt_q_shapes, ranks, num_tables,
+                             batch_size):
+            raise ValueError(
+                "impl='pallas_sorted' cannot serve this config even with "
+                f"rank/dim padding (p={tt_p_shapes}, q={tt_q_shapes}, "
+                f"ranks={ranks}, T={num_tables}, B={batch_size})")
+        pad = flat_pad_plan(tt_p_shapes, tt_q_shapes, ranks, batch_size)
+        cores_use = pad_cores_for_flat(tt_cores, tt_p_shapes, tt_q_shapes,
+                                       ranks, pad)
+        use_q = tuple(tt_q_shapes[:-1]) + (pad[1],)
+        use_r, use_b = tuple(pad[0]), pad[2]
+    else:
+        cores_use = tuple(tt_cores)
+    key_in = tuple(idx_parts) if idx_parts is not None else indices
+    out = flat_forward(
+        cores_use, key_in, rowidx, tableidx, weights, aux, tt_p_shapes,
+        use_q, use_r, num_tables, use_b, compute_dtype=cdt,
+        live_is_mask=dead_mask is not None,
+        parts_mode=idx_parts is not None)
+    if pad is not None:
+        out = out[:, :batch_size].reshape(
+            (num_tables, batch_size) + use_q
+        )[..., :tt_q_shapes[-1]].reshape(num_tables, batch_size, -1)
+    return out

@@ -6,18 +6,31 @@ CUDA card and ``nvcc``). Phases, each printing its own lines:
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: compile every kernel of ``fbtt_embedding_tpu_torch/csrc`` into
-   ``build/`` and load it;
-3. kernel vs plain: the segment-transform kernel (B1) against its plain
-   PyTorch version on the card, at both headline pass shapes in float32
-   and bfloat16, and at one tt_ndim-2 and one tt_ndim-4 pass;
+   ``build/`` (one ``nvcc`` per source, all at once) and load it;
+3. kernels vs plain: the segment-transform kernel (B1) at both headline
+   pass shapes in float32 and bfloat16, and at one tt_ndim-2 and one
+   tt_ndim-4 pass; the fused last-core training pass (B2) and the gradient
+   pass (B3) at the headline training pass shapes and at two tt_ndim-4
+   passes whose slabs take several staging chunks, in float32 and bfloat16
+   (B3 with float32 and bfloat16 z), on Zipf-skewed span tables with a
+   sentinel tail, each run twice and required bitwise equal;
 4. serve: the headline model (p=[200,220,250], q=[4,4,4], ranks [32,32]:
    E=11M, D=64) with random cores from seed 0 serves five requests of
    B=512 at pooling 20 (uniform and Zipf 1.05 row ids) and one of B=1024
    (pair mode), each held against the plain ``tt_rows`` path in float32,
    with the kernel's launch count checked per request;
-5. times (CUDA events / host clock, medians): each pass's kernel beside
-   its bound and its plain version, the serve per request, and
-   ``torch.nn.EmbeddingBag(11M, 64, mode="sum")`` on the same batch.
+5. train: the same model trains with fused SGD: five steps of B=512 at
+   pooling 20 (uniform and Zipf 1.05), one of B=1024 (pair mode) and one
+   of B=2048 (nnz 40960: autograd through the flat lookup), then one
+   Adagrad step of B=512; each step's output and updated cores are held
+   against the plain float32 step (``impl="xla", precision="highest"``)
+   run from the same params, with the launches of B1, B2 and B3 checked
+   per step, and TF32 checked off;
+6. times (CUDA events / host clock, medians): each kernel pass beside its
+   bound and its plain version, the serve per request, the training step
+   per call at B=512, 1024 and 2048, ``torch.nn.EmbeddingBag(11M, 64,
+   mode="sum")`` forward on the serve's batch and, sparse, forward +
+   backward + ``torch.optim.SGD`` step on the training batch.
 
 Prints a JSON line of the kernels, then as its last line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero.
@@ -36,8 +49,20 @@ B, POOL = 512, 20
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 PEAK_FLOPS = {"float32": 67e12,    # CUDA cores, no tensor cores
               "bfloat16": 989e12}  # dense tensor-core rate
-SOURCE = "fbtt_embedding_tpu_torch/csrc/seg_transform.cu"
-REPLACES = "fbtt_embedding_tpu/ops/pallas/tt_flat.py:338"
+CSRC = "fbtt_embedding_tpu_torch/csrc/"
+TT_FLAT = "fbtt_embedding_tpu/ops/pallas/tt_flat.py"
+# (source, TPU kernel replaced) per kernel wrapper
+KERNELS = {
+    "seg_transform": (CSRC + "seg_transform.cu", TT_FLAT + ":338"),
+    "seg_fused_i2": (CSRC + "seg_fused_i2.cu", TT_FLAT + ":774"),
+    "seg_accum": (CSRC + "seg_accum.cu", TT_FLAT + ":436"),
+}
+LR, EPS = 0.005, 1.0        # training steps of the check (EPS: Adagrad)
+# bf16 staging against the float32 plain step: outputs within 5e-3 of
+# max|out| (the serve's limit); each core's update within 3e-2 of its
+# largest element (CPU rehearsal at B=64-128: up to 1.2e-2 under Zipf)
+OUT_TOL, UPDATE_TOL = 5e-3, 3e-2
+V100_US_PER_LOOKUP = 0.416  # BASELINE.md: the reference's published figure
 
 
 def fail(msg):
@@ -89,10 +114,12 @@ def host_ms(fn, reps=25):
     return statistics.median(samples)
 
 
-def span_case(rng, nza, blocks, bw_in, bw_out, p_rows, dtype, seg):
+def span_case(rng, nza, blocks, bw_in, bw_out, p_rows, dtype, seg,
+              y_width=None):
     """Kernel inputs with duplicate-heavy sorted keys (Zipf over the core
     rows, so many rows own no span), a sentinel tail of dead rows, and
-    random x and table scaled so that outputs are of unit size."""
+    random x (and y, ``y_width`` wide) and table scaled so that outputs,
+    and the hottest span's gradient sum, are of unit size."""
     import numpy as np
     import torch
 
@@ -103,15 +130,26 @@ def span_case(rng, nza, blocks, bw_in, bw_out, p_rows, dtype, seg):
 
     keys = (rng.zipf(1.3, size=nza) - 1) % p_rows
     keys[rng.random(nza) < 0.05] = p_rows  # dead lookups: sentinel span
-    keys = torch.as_tensor(np.sort(keys).astype(np.int32), device="cuda")
+    keys = np.sort(keys)
+    # x and y rows scale so that the hottest span's sum of x^T y is ~1
+    # (y only when there is one; B1's x stays unit-size, as before)
+    hot = np.bincount(keys[keys < p_rows]).max() * blocks
+    sx = hot ** -0.25 if y_width else 1.0
+    keys = torch.as_tensor(keys.astype(np.int32), device="cuda")
     runs, first, cnt = _span_table(keys, p_rows, nza // seg, seg=seg)
-    x = torch.as_tensor(rng.standard_normal((nza, blocks * bw_in)),
-                        dtype=torch.float32, device="cuda").to(dtype)
-    table = torch.as_tensor(
-        rng.standard_normal(((p_rows + SPAN_BLOCK) * bw_in, bw_out))
-        / np.sqrt(bw_in), dtype=torch.float32, device="cuda")
+
+    def draw(shape, scale):
+        return torch.as_tensor(rng.standard_normal(shape) * scale,
+                               dtype=torch.float32, device="cuda")
+
+    x = draw((nza, blocks * bw_in), sx).to(dtype)
+    table = draw(((p_rows + SPAN_BLOCK) * bw_in, bw_out),
+                 1 / (sx * np.sqrt(max(bw_in, bw_out) if y_width else bw_in)))
     table[p_rows * bw_in:] = 0
-    return runs, first, cnt, x, table.to(dtype)
+    if y_width is None:
+        return runs, first, cnt, x, table.to(dtype)
+    y = draw((nza, blocks * y_width), sx).to(dtype)
+    return runs, first, cnt, x, y, table.to(dtype)
 
 
 def pass_bound(runs, nseg, x, blocks, bw_in, bw_out, p_rows, out_dtype):
@@ -136,6 +174,44 @@ def pass_bound(runs, nseg, x, blocks, bw_in, bw_out, p_rows, out_dtype):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def grad_pass_bound(runs, nseg, x, blocks, bw_x, bw_y, p_rows, z_dtype,
+                    rows_out):
+    """(least ms, bound_by) for one B3 (or, with ``rows_out``, B2) pass on
+    these inputs: x and y read once, z (and rows) written once, each live
+    slab read once, acc written once, the span tables read once;
+    multiply-adds of the live rows only (two products, three for B2)."""
+    import torch
+
+    nza = x.shape[0]
+    spans = runs[1:p_rows + 1] - runs[:p_rows]
+    live_rows = int(spans.sum())
+    live_slabs = int((spans > 0).sum())
+    isz = x.element_size()
+    zsz = torch.empty((), dtype=z_dtype).element_size()
+    nbytes = (nza * blocks * (bw_x + bw_y) * isz + nza * blocks * bw_x * zsz
+              + (nza * blocks * bw_y * isz if rows_out else 0)
+              + live_slabs * bw_x * bw_y * isz + p_rows * bw_x * bw_y * 4
+              + (runs.numel() + 2 * nseg) * 4)
+    flops = 2.0 * live_rows * blocks * bw_x * bw_y * (3 if rows_out else 2)
+    peak = PEAK_FLOPS[str(x.dtype).replace("torch.", "")]
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_close(name, got, want, tol):
+    """max |got - want| after asserting closeness at ``tol``."""
+    import torch
+
+    err = (got.float() - want.float()).abs().max().item() \
+        if got.numel() else 0.0
+    try:
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+    except AssertionError as e:
+        fail(f"{name}: kernel disagrees with its plain version: {e}")
+    return err
+
+
 def main():
     import torch
 
@@ -148,6 +224,14 @@ def main():
     import fbtt_embedding_tpu_torch as fbt
     from fbtt_embedding_tpu_torch.ops.kernels import _build
     from fbtt_embedding_tpu_torch.ops.kernels import tt_flat
+    from fbtt_embedding_tpu_torch.ops.kernels.seg_accum import (
+        seg_accum,
+        seg_accum_plain,
+    )
+    from fbtt_embedding_tpu_torch.ops.kernels.seg_fused_i2 import (
+        seg_fused_i2,
+        seg_fused_i2_plain,
+    )
     from fbtt_embedding_tpu_torch.ops.kernels.seg_transform import (
         seg_transform,
         seg_transform_plain,
@@ -155,6 +239,15 @@ def main():
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    wrappers = {"seg_transform": seg_transform, "seg_fused_i2": seg_fused_i2,
+                "seg_accum": seg_accum}
+
+    def zero_counts():
+        for fn in wrappers.values():
+            fn.launches = 0
+
+    def counts():
+        return {name: fn.launches for name, fn in wrappers.items()}
 
     # 1. device
     card = card_line()
@@ -176,16 +269,18 @@ def main():
             if "registers" in line or "spill" in line:
                 print(f"[build] {stem}: {line.strip()}")
 
-    # 3. kernel vs plain
+    # 3. kernels vs plain
     rng = np.random.default_rng(0)
     seg = tt_flat.SEG
+    f32_tol = dict(rtol=1e-5, atol=1e-5)
+    bf16_tol = dict(rtol=8e-3, atol=1e-4)  # f32 sums rounded once: 1 ulp
+    max_err = dict.fromkeys(wrappers, 0.0)
     cases = [  # name, blocks, bw_in, bw_out, p_rows, nza
         ("headline i1", 4, 32, 128, 220, 10240),
         ("headline i2", 4, 128, 16, 250, 10240),
         ("ndim2 q=[8,8] r=[32]", 8, 32, 8, 1000, 4096),
         ("ndim4 q=[4]*4 r=[32]*3 pass 2", 4, 128, 512, 90, 2048),
     ]
-    max_err = 0.0
     for name, blocks, bw_in, bw_out, p_rows, nza in cases:
         for dtype in (torch.float32, torch.bfloat16):
             runs, first, cnt, x, table = span_case(
@@ -195,19 +290,67 @@ def main():
             y = seg_transform(runs, first, cnt, x, table, **kw)
             torch.cuda.synchronize()
             ref = seg_transform_plain(runs, first, cnt, x, table, **kw)
-            if dtype == torch.float32:
-                tol = dict(rtol=1e-5, atol=1e-5)
-            else:  # f32 sums in another order, rounded once: <= 1 bf16 ulp
-                tol = dict(rtol=8e-3, atol=1e-4)
-            err = (y.float() - ref.float()).abs().max().item()
+            tol = f32_tol if dtype == torch.float32 else bf16_tol
             dead = runs[p_rows].item()
             if dead < nza and y[dead:].abs().max().item() != 0:
                 fail(f"{name} {dtype}: sentinel rows are not zero")
-            torch.testing.assert_close(y.float(), ref.float(), **tol)
-            max_err = max(max_err, err)
+            err = check_close(f"seg_transform {name}", y, ref, tol)
+            max_err["seg_transform"] = max(max_err["seg_transform"], err)
             print(f"[kernel] seg_transform {name} {str(dtype)[6:]}: "
                   f"max_abs_err {err:.3e} (rtol {tol['rtol']}, "
                   f"atol {tol['atol']}) ok")
+
+    # B2 and B3 at the headline training passes (B3: i1 with float32 z as
+    # in the fused step, i2 as in the two-pass backward) and at two wider
+    # passes, twice each
+    grad_cases = [  # kernel, name, blocks, bw_x, bw_y, p_rows, nza
+        ("seg_fused_i2", "headline i2", 4, 128, 16, 250, 10240),
+        ("seg_accum", "headline i1", 4, 32, 128, 220, 10240),
+        ("seg_accum", "headline i2", 4, 128, 16, 250, 10240),
+        # slabs past one 64 KB staging chunk: tt_ndim 4, ranks 32
+        ("seg_fused_i2", "ndim4 q=[4]*4 r=[32]*3 pass 3", 4, 512, 64, 90,
+         2048),
+        ("seg_accum", "ndim4 q=[4]*4 r=[32]*3 pass 2", 4, 128, 512, 90,
+         2048),
+    ]
+    for kname, name, blocks, bw_x, bw_y, p_rows, nza in grad_cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            runs, first, cnt, x, y, table = span_case(
+                rng, nza, blocks, bw_x, bw_y, p_rows, dtype, seg,
+                y_width=bw_y)
+            kw = dict(blocks=blocks, bw_x=bw_x, bw_y=bw_y, p_rows=p_rows,
+                      seg=seg)
+            variants = ([{}] if kname == "seg_fused_i2" else
+                        [dict(z_dtype=torch.float32),
+                         dict(z_dtype=torch.bfloat16)])
+            for extra in variants:
+                fn = wrappers[kname]
+                ref_fn = (seg_fused_i2_plain if kname == "seg_fused_i2"
+                          else seg_accum_plain)
+                got = fn(runs, first, cnt, x, y, table, **kw, **extra)
+                again = fn(runs, first, cnt, x, y, table, **kw, **extra)
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                    fail(f"{kname} {name}: two runs differ (not bitwise "
+                         "repeatable)")
+                want = ref_fn(runs, first, cnt, x, y, table, **kw, **extra)
+                dead = runs[p_rows].item()
+                for out in got[1:]:
+                    if dead < nza and out[dead:].abs().max().item() != 0:
+                        fail(f"{kname} {name}: sentinel rows are not zero")
+                errs = [check_close(f"{kname} {name} acc", got[0], want[0],
+                                    f32_tol)]
+                for g, w in zip(got[1:], want[1:]):
+                    tol = f32_tol if g.dtype == torch.float32 else bf16_tol
+                    errs.append(check_close(f"{kname} {name}", g, w, tol))
+                max_err[kname] = max(max_err[kname], *errs)
+                outs = "acc, z" + (", rows" if len(got) == 3 else "")
+                zdt = str(got[1].dtype)[6:]
+                print(f"[kernel] {kname} {name} {str(dtype)[6:]} (z {zdt}):"
+                      f" max_abs_err {outs} "
+                      + ", ".join(f"{e:.3e}" for e in errs)
+                      + " (acc rtol = atol = 1e-5; float32 outputs the same,"
+                      " bfloat16 one ulp), bitwise repeatable, ok")
 
     # 4. serve at full width
     cores = fbt.init_tt_cores(np.random.default_rng(0), "uniform", 1, E, D,
@@ -235,7 +378,7 @@ def main():
     torch.cuda.synchronize()
 
     outs = []
-    seg_transform.launches = 0
+    zero_counts()
     for b, _, idx, offs in requests:
         before = seg_transform.launches
         out = (serve if b == B else serve_big)(params, idx, offs)
@@ -245,7 +388,7 @@ def main():
             fail(f"B={b}: {seg_transform.launches - before} kernel launches,"
                  f" expected {want}")
     torch.cuda.synchronize()
-    launches = seg_transform.launches
+    serve_launches = counts()
     for (b, zipf, idx, offs), out in zip(requests, outs):
         ref = (plain if b == B else plain_big)(params, idx, offs)
         if out.shape != (1, b, D) or not torch.isfinite(out).all():
@@ -255,42 +398,172 @@ def main():
         mode = "pair" if b != B else "two-pass"
         print(f"[serve] B={b} pooling {POOL} "
               f"{'zipf1.05' if zipf else 'uniform'} ({mode}): max_abs_err "
-              f"{err:.3e} vs plain f32, limit {5e-3 * scale:.3e} "
-              f"(5e-3 x max|out| {scale:.3e})")
-        if not err <= 5e-3 * scale:
+              f"{err:.3e} vs plain f32, limit {OUT_TOL * scale:.3e} "
+              f"({OUT_TOL} x max|out| {scale:.3e})")
+        if not err <= OUT_TOL * scale:
             fail(f"B={b}: serve disagrees with the plain path")
-    print(f"[serve] seg_transform launches on the main path: {launches}")
+    print(f"[serve] launches on the serving path: {serve_launches}")
 
-    # 5. times, on the inputs the B=512 serve hands the kernel
+    # 5. train at full width
+    def clone(prm):
+        return fbt.TTEmbeddingParams(
+            tuple(c.clone() for c in prm.tt_cores),
+            tuple(s_.clone() for s_ in prm.optimizer_state), None)
+
+    def train_batch(b, zipf):
+        idx, offs = request(b, zipf)
+        d_out = torch.as_tensor(req_rng.standard_normal((1, b, D)),
+                                dtype=torch.float32, device="cuda")
+        return idx, offs, d_out
+
+    sgd_steps = {b: fbt.make_fused_train_step(P, Q, R, 1, b, device="cuda")
+                 for b in (B, 2 * B, 4 * B)}
+    sgd_plain = {b: fbt.make_fused_train_step(
+        P, Q, R, 1, b, impl="xla", precision="highest", device="cuda")
+        for b in (B, 2 * B, 4 * B)}
+    ada = fbt.OptimType.EXACT_ADAGRAD
+    ada_step = fbt.make_fused_train_step(P, Q, R, 1, B, optimizer=ada,
+                                         device="cuda")
+    ada_plain = fbt.make_fused_train_step(P, Q, R, 1, B, optimizer=ada,
+                                          impl="xla", precision="highest",
+                                          device="cuda")
+    expect = {  # launches per step: (B1, B2, B3)
+        "fused": (1, 1, 1), "fused, pair": (0, 1, 1), "autograd": (1, 0, 2)}
+    plan = [(B, z, "sgd", "fused")
+            for z in (False, True, False, True, False)]
+    plan += [(2 * B, False, "sgd", "fused, pair"),
+             (4 * B, False, "sgd", "autograd"), (B, False, "adagrad",
+                                                 "fused")]
+    batches = [train_batch(b, z) for b, z, _, _ in plan]
+    tparams = fbt.params_from_jax(cores, device="cuda")
+    aparams = None
+    torch.cuda.synchronize()
+    train_launches = dict.fromkeys(wrappers, 0)
+    for (b, zipf, opt, path), (idx, offs, d_out) in zip(plan, batches):
+        if opt == "adagrad":
+            state = [torch.zeros_like(c) for c in tparams.tt_cores]
+            aparams = fbt.TTEmbeddingParams(
+                tuple(c.clone() for c in tparams.tt_cores), tuple(state),
+                None)
+            prm, kstep, pstep = aparams, ada_step, ada_plain
+        else:
+            prm, kstep, pstep = tparams, sgd_steps[b], sgd_plain[b]
+        old = clone(prm)
+        zero_counts()
+        out, new = kstep(prm, idx, offs, d_out, (LR, EPS))
+        torch.cuda.synchronize()
+        got = counts()
+        ref_out, ref = pstep(clone(old), idx, offs, d_out, (LR, EPS))
+        for k in wrappers:
+            train_launches[k] += got[k]
+        want = dict(zip(("seg_transform", "seg_fused_i2", "seg_accum"),
+                        expect[path]))
+        if got != want:
+            fail(f"train B={b} ({path}): launches {got}, expected {want}")
+        if out.shape != (1, b, D) or not torch.isfinite(out).all():
+            fail(f"train B={b}: bad output {tuple(out.shape)}")
+        scale = ref_out.abs().max().item()
+        err = (out - ref_out).abs().max().item()
+        line = (f"[train] {opt} B={b} pooling {POOL} "
+                f"{'zipf1.05' if zipf else 'uniform'} ({path}): launches "
+                f"B1 {got['seg_transform']} B2 {got['seg_fused_i2']} "
+                f"B3 {got['seg_accum']}; output max_abs_err {err:.3e} "
+                f"(limit {OUT_TOL} x {scale:.3e})")
+        if not err <= OUT_TOL * scale:
+            fail(f"train B={b}: output disagrees with the plain step")
+        for t, (c_new, c_ref, c_old) in enumerate(zip(
+                new.tt_cores, ref.tt_cores, old.tt_cores)):
+            upd = (c_ref - c_old).abs().max().item()
+            cerr = (c_new - c_ref).abs().max().item()
+            line += (f"; core {t} max|dcore - dcore_plain| {cerr:.3e} "
+                     f"(limit {UPDATE_TOL} x max|dcore_plain| {upd:.3e})")
+            if not (torch.isfinite(c_new).all() and cerr <= UPDATE_TOL * upd):
+                fail(f"train B={b} {opt}: core {t} update disagrees with "
+                     "the plain step")
+        print(line)
+        if opt != "adagrad":
+            tparams = new
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.get_float32_matmul_precision())
+    if tf32 != (False, "highest"):
+        fail(f"TF32 is on after training: allow_tf32, precision = {tf32}")
+    print(f"[train] TF32 off: matmul.allow_tf32 {tf32[0]}, float32 matmul "
+          f"precision {tf32[1]!r}")
+    print(f"[train] launches on the training path: {train_launches}")
+
+    # 6. times, on the inputs the B=512 uniform serve hands the kernels
     idx, offs = requests[0][2], requests[0][3]
     rowidx, _ = fbt.rowidx_from_offsets(offs, idx.shape[0], 1, B)
-    plan, nza = tt_flat._build_plan(idx, rowidx, None, None, None, P, 1, B,
-                                    seg=seg)
+    plan0, nza = tt_flat._build_plan(idx, rowidx, None, None, None, P, 1, B,
+                                     seg=seg)
     dt = torch.bfloat16
-    g0f, _, tables, widths = tt_flat._flat_setup(params.tt_cores, P, Q, R, dt)
-    i0c = torch.where(plan.alive1, plan.i0_s1,
-                      torch.full_like(plan.i0_s1, P[0]))
-    x = g0f[i0c.long()]
-    rows = []
+    tcores = fbt.params_from_jax(cores, device="cuda").tt_cores
+    g0f, _, tables, widths = tt_flat._flat_setup(tcores, P, Q, R, dt)
+    x = tt_flat._z0(plan0, g0f, P[0])
+    times = {}
     for ti in (1, 2):
         _, bw_in, bw_out = widths[ti - 1]
-        args = (plan.runs[ti - 1], plan.first[ti - 1], plan.cnt[ti - 1], x,
-                tables[ti - 1])
+        args = (plan0.runs[ti - 1], plan0.first[ti - 1], plan0.cnt[ti - 1],
+                x, tables[ti - 1])
         kw = dict(blocks=Q[0], bw_in=bw_in, bw_out=bw_out, p_rows=P[ti],
                   seg=seg, out_dtype=dt)
         k_ms = cuda_ms(lambda: seg_transform(*args, **kw))
         p_ms = cuda_ms(lambda: seg_transform_plain(*args, **kw))
-        b_ms, b_by = pass_bound(plan.runs[ti - 1], plan.first[ti - 1].numel(),
-                                x, Q[0], bw_in, bw_out,
-                                P[ti], dt)
-        rows.append((k_ms, p_ms, b_ms, b_by))
+        b_ms, b_by = pass_bound(plan0.runs[ti - 1],
+                                plan0.first[ti - 1].numel(), x, Q[0], bw_in,
+                                bw_out, P[ti], dt)
+        times.setdefault("seg_transform", []).append((k_ms, p_ms, b_ms, b_by))
         print(f"[time] seg_transform pass i{ti} (x {tuple(x.shape)} bf16, "
               f"bw {bw_in}->{bw_out}): kernel {k_ms * 1e3:.2f} us, bound "
               f"{b_ms * 1e3:.2f} us ({b_by}), plain {p_ms * 1e3:.2f} us "
               f"[{card}]")
         y = seg_transform(*args, **kw)
         if ti == 1:
-            x = y[plan.perm_fwd[0].long()]
+            x = y[plan0.perm_fwd[0].long()]
+
+    # the training step's B2 (i2) and B3 (i1, float32 z), on a uniform and
+    # a Zipf(1.05) B=512 batch (the first two serve requests); the uniform
+    # one's times go into the kernels' line
+    d_out = batches[0][2]
+    for label, (ridx, roffs) in (("uniform", requests[0][2:4]),
+                                 ("zipf1.05", requests[1][2:4])):
+        rrow, _ = fbt.rowidx_from_offsets(roffs, ridx.shape[0], 1, B)
+        rplan, _ = tt_flat._build_plan(ridx, rrow, None, None, None, P, 1, B,
+                                       seg=seg)
+        z0 = tt_flat._z0(rplan, g0f, P[0])
+        _, bw_in, bw_out = widths[0]
+        x1 = seg_transform(
+            rplan.runs[0], rplan.first[0], rplan.cnt[0], z0, tables[0],
+            blocks=Q[0], bw_in=bw_in, bw_out=bw_out, p_rows=P[1], seg=seg,
+            out_dtype=dt)[rplan.perm_fwd[0].long()]
+        dz = tt_flat._row_cotangents(d_out, rplan, B, D, dt)
+        for kname, ti in (("seg_fused_i2", 2), ("seg_accum", 1)):
+            _, bw_x, bw_y = widths[ti - 1]
+            xs, ys = (x1, dz) if ti == 2 else (z0, dz)
+            args = (rplan.runs[ti - 1], rplan.first[ti - 1],
+                    rplan.cnt[ti - 1], xs, ys, tables[ti - 1])
+            kw = dict(blocks=Q[0], bw_x=bw_x, bw_y=bw_y, p_rows=P[ti],
+                      seg=seg)
+            if kname == "seg_accum":
+                kw["z_dtype"] = torch.float32
+            fn = wrappers[kname]
+            ref_fn = seg_fused_i2_plain if kname == "seg_fused_i2" \
+                else seg_accum_plain
+            k_ms = cuda_ms(lambda: fn(*args, **kw))
+            p_ms = cuda_ms(lambda: ref_fn(*args, **kw))
+            b_ms, b_by = grad_pass_bound(
+                rplan.runs[ti - 1], rplan.first[ti - 1].numel(), xs, Q[0],
+                bw_x, bw_y, P[ti], kw.get("z_dtype", dt),
+                kname == "seg_fused_i2")
+            if label == "uniform":
+                times[kname] = [(k_ms, p_ms, b_ms, b_by)]
+            if kname == "seg_fused_i2":  # dZ1, s2 -> s1: B3's y
+                dz = fn(*args, **kw)[1][rplan.perm_bwd[0].long()]
+            print(f"[time] {kname} pass i{ti}, {label} batch (x "
+                  f"{tuple(xs.shape)}, y {tuple(ys.shape)} bf16, bw "
+                  f"{bw_x}x{bw_y}): kernel {k_ms * 1e3:.2f} us, bound "
+                  f"{b_ms * 1e3:.2f} us ({b_by}), plain {p_ms * 1e3:.2f} us "
+                  f"[{card}]")
 
     serve_ms = host_ms(lambda: serve(params, idx, offs))
     big_ms = host_ms(lambda: serve_big(params, *requests[-1][2:]))
@@ -300,36 +573,71 @@ def main():
           f"{big_ms:.3f} ms/request, "
           f"{big_ms * 1e3 / requests[-1][2].shape[0]:.4f} us/lookup [{card}]")
 
+    # the training step per call; a small learning rate keeps the repeated
+    # in-place updates of a scratch copy of the params finite
+    scratch = fbt.params_from_jax(cores, device="cuda")
+    step_ms = {}
+    for (b, _, _, path), batch in list(zip(plan, batches))[4:7]:
+        step = sgd_steps[b]
+        ms = host_ms(lambda: step(scratch, *batch, (1e-4, EPS)))
+        step_ms[b] = ms
+        print(f"[time] train step SGD B={b} pooling {POOL} ({path}): "
+              f"{ms:.3f} ms/step, {ms * 1e3 / (b * POOL):.4f} us/lookup "
+              f"[{card}]")
+    print(f"[time] reference: the published fbtt figure, fwd+bwd with fused "
+          f"SGD at B={B} pooling {POOL} on a V100 (BASELINE.md): "
+          f"{V100_US_PER_LOOKUP} us/lookup (another card; not measured here)")
+
     free, _ = torch.cuda.mem_get_info()
     need = E * D * 4
-    if free > 2 * need:
+    if free > 3 * need:
         bag = torch.nn.EmbeddingBag(E, D, mode="sum", include_last_offset=True,
                                     device="cuda")
         with torch.no_grad():
             bag_ms = host_ms(lambda: bag(idx, offs))
-        del bag
         print(f"[time] nn.EmbeddingBag({E}, {D}, sum) forward B={B} pooling "
               f"{POOL}: {bag_ms:.3f} ms/request, "
               f"{bag_ms * 1e3 / idx.shape[0]:.4f} us/lookup [{card}]")
-    else:
-        print(f"[time] nn.EmbeddingBag yardstick: not measured "
-              f"({free / 2**30:.1f} GiB free, needs {2 * need / 2**30:.1f})")
+        del bag
+        sbag = torch.nn.EmbeddingBag(E, D, mode="sum", sparse=True,
+                                     include_last_offset=True, device="cuda")
+        opt = torch.optim.SGD(sbag.parameters(), lr=1e-4)
+        tidx, toffs, tdout = batches[4]
 
-    k_ms = sum(r[0] for r in rows)
-    kernels = [{
-        "name": "seg_transform",
-        "route": "cuda",
-        "source": SOURCE,
-        "replaces": REPLACES,
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": k_ms,
-        "plain_ms": sum(r[1] for r in rows),
-        "bound_ms": sum(r[2] for r in rows),
-        "bound_by": ("bytes" if all(r[3] == "bytes" for r in rows)
-                     else "operations"),
-        "library_ms": None,
-    }]
+        def bag_step():
+            opt.zero_grad(set_to_none=True)
+            sbag(tidx, toffs).backward(tdout[0])
+            opt.step()
+
+        bag_train_ms = host_ms(bag_step)
+        print(f"[time] nn.EmbeddingBag({E}, {D}, sum, sparse) forward + "
+              f"backward + SGD step B={B} pooling {POOL}: "
+              f"{bag_train_ms:.3f} ms/step, "
+              f"{bag_train_ms * 1e3 / tidx.shape[0]:.4f} us/lookup [{card}]")
+        del sbag, opt
+    else:
+        print(f"[time] nn.EmbeddingBag yardsticks: not measured "
+              f"({free / 2**30:.1f} GiB free, needs {3 * need / 2**30:.1f})")
+
+    kernels = []
+    for name, rows in times.items():
+        src, replaces = KERNELS[name]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": src,
+            "replaces": replaces,
+            "launches": serve_launches[name] + train_launches[name],
+            "launches_by_path": {"serve": serve_launches[name],
+                                 "train": train_launches[name]},
+            "max_abs_err": max_err[name],
+            "ms": sum(r[0] for r in rows),
+            "plain_ms": sum(r[1] for r in rows),
+            "bound_ms": sum(r[2] for r in rows),
+            "bound_by": ("bytes" if all(r[3] == "bytes" for r in rows)
+                         else "operations"),
+            "library_ms": None,
+        })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -5,12 +5,16 @@ PyTorch with hand-written CUDA kernels for Hopper. It imports neither JAX
 nor the JAX package. Entry points run on ``cuda`` unless the caller passes
 ``device="cpu"``; on the CPU each kernel's plain PyTorch version runs.
 
-Ported so far: the serving path (``make_serving_fn``) through the flat
-sorted-run pipeline and its segment-transform kernel.
+Ported so far: the serving path (``make_serving_fn``) and the fused
+training step (``make_fused_train_step``, SGD / Adagrad, no cache) through
+the flat sorted-run pipeline and its kernels: the segment transform (B1),
+the fused last-core training pass (B2) and the gradient pass (B3).
 """
 
 from fbtt_embedding_tpu_torch.models.tt_embedding import (
+    OptimType,
     TTEmbeddingParams,
+    make_fused_train_step,
     make_serving_fn,
     params_from_jax,
 )
@@ -22,27 +26,50 @@ from fbtt_embedding_tpu_torch.ops.indexing import (
     tt_strides,
     wide_keyrows,
 )
+from fbtt_embedding_tpu_torch.ops.fused_optim import adagrad_step, sgd_step
+from fbtt_embedding_tpu_torch.ops.kernels.seg_accum import (
+    seg_accum,
+    seg_accum_plain,
+)
+from fbtt_embedding_tpu_torch.ops.kernels.seg_fused_i2 import (
+    seg_fused_i2,
+    seg_fused_i2_plain,
+)
 from fbtt_embedding_tpu_torch.ops.kernels.seg_transform import (
     seg_transform,
     seg_transform_plain,
+)
+from fbtt_embedding_tpu_torch.ops.kernels.tt_flat import (
+    FlatLookup,
+    flat_train_apply,
 )
 from fbtt_embedding_tpu_torch.ops.lookup import pool_rows, pooled_tt_lookup
 from fbtt_embedding_tpu_torch.utils.init import core_shapes, init_tt_cores
 from fbtt_embedding_tpu_torch.utils.shapes import suggested_tt_shapes
 
 __all__ = [
+    "FlatLookup",
+    "OptimType",
     "TTEmbeddingParams",
+    "adagrad_step",
     "core_shapes",
     "decompose_indices",
     "decompose_indices64",
+    "flat_train_apply",
     "init_tt_cores",
+    "make_fused_train_step",
     "make_serving_fn",
     "params_from_jax",
     "pool_rows",
     "pooled_tt_lookup",
     "rowidx_from_offsets",
+    "seg_accum",
+    "seg_accum_plain",
+    "seg_fused_i2",
+    "seg_fused_i2_plain",
     "seg_transform",
     "seg_transform_plain",
+    "sgd_step",
     "suggested_tt_shapes",
     "tt_rows",
     "tt_strides",

@@ -1,4 +1,4 @@
-"""Flat sorted-run TT lookup pipeline (tt_ndim 2-4), forward, in PyTorch.
+"""Flat sorted-run TT lookup pipeline (tt_ndim 2-4), in PyTorch.
 
 Counterpart of the host glue of ``fbtt_embedding_tpu/ops/pallas/tt_flat.py``.
 For tt_ndim == 3 (2 and 4 generalise: one sort and one kernel pass per
@@ -12,11 +12,24 @@ middle/last core)::
   rows = seg_transform(Z1', G2bd)          [nza, D]             (kernel B1)
   out  = onehot(rowidx_s2) @ rows          pooling, float32
 
+  backward (FlatLookup, the JAX package's make_flat_vjp):
+  dr   = dout[rowidx_s2] * w               gather [nza, D]
+  dZ1', dG2bd = seg_accum(Z1', dr, G2bd)   (kernel B3)
+  dZ1  = dZ1'[perm21]                      gather, s2 -> s1 order
+  dz0, dG1 = seg_accum(z0, dZ1, G1)        (kernel B3, float32 dz0)
+  dG0  = onehot(i0_s1)^T @ dz0             float32 product
+  dG2  = sum of the diagonal blocks of dG2bd
+
+``flat_train_apply`` (the fused training step, ``d_output`` known up front)
+runs the last core's forward and backward as one pass instead
+(``seg_fused_i2``, kernel B2: rows, dZ1 and dG2 together).
+
 ``G2bd`` is the last core expanded block-diagonally over the accumulated
 middle digits (``_bd_widths``). In pair mode (``_pair_gate``: nza >= 16384
 and the pair table fits) a ``[T*p0*p1 + 1, q0*q1*r2]`` table of
 ``G0[i0] @ G1[i1]`` replaces the z0 gather, the first pass and the s1 -> s2
-permute: ``Z1' = G01[pair_s2]``, and only the last pass runs.
+permute: ``Z1' = G01[pair_s2]``, and only the last pass runs forward; the
+backward recomputes z0 by the gather.
 
 Dead lookups (cache-served: ``dead_mask`` or positions past
 ``live_count``) and padding get a sentinel key ``T*p_t``; they sort into the
@@ -24,7 +37,11 @@ final span, which the kernel fills with zeros.
 
 Numerics: float32 master cores; intermediates staged in ``compute_dtype``
 (bfloat16 by default on the card, float32 on the CPU or when asked);
-products accumulate in float32 and pooling is float32.
+products accumulate in float32, and pooling, core gradients and dz0 are
+float32. The one-hot products (pooling, dG0) are float32 ``torch.matmul``
+calls: nothing here turns TF32 on, so on the card they run in full float32
+as long as the caller leaves ``torch.backends.cuda.matmul.allow_tf32`` at
+its default (False).
 
 The segment length ``SEG`` is this port's choice for Hopper (one CTA of
 the kernel per segment); the TPU's seg/sb/spp grid policies and knobs are
@@ -41,8 +58,13 @@ import numpy as np
 import torch
 
 from fbtt_embedding_tpu_torch.ops.indexing import tt_strides
+from fbtt_embedding_tpu_torch.ops.kernels.seg_accum import seg_accum
+from fbtt_embedding_tpu_torch.ops.kernels.seg_fused_i2 import seg_fused_i2
 from fbtt_embedding_tpu_torch.ops.kernels.seg_transform import seg_transform
-from fbtt_embedding_tpu_torch.ops.kernels.tt_kernel import kernel_core_layouts
+from fbtt_embedding_tpu_torch.ops.kernels.tt_kernel import (
+    grads_to_module_layout,
+    kernel_core_layouts,
+)
 
 SEG = 64  # lookups per segment: one CTA of the transform kernel each
 # empty spans appended to every span table (and zero slabs to every pass
@@ -311,6 +333,18 @@ def _bd_table(gk_t: torch.Tensor, mm: int, dt) -> torch.Tensor:
     return bd.reshape(tp, mm * r_t, mm * w_t)
 
 
+def _extract_bd_grad(dgbd: torch.Tensor, mm: int, r_t: int, w_t: int):
+    """Gradient of a block-diagonal expansion ``[tp, mm*r_t, mm*w_t]`` ->
+    the core's ``[tp, r_t, w_t]``: the sum of the ``mm`` diagonal blocks,
+    in block order."""
+    if mm == 1:
+        return dgbd
+    out = dgbd[:, :r_t, :w_t]
+    for a in range(1, mm):
+        out = out + dgbd[:, a * r_t:(a + 1) * r_t, a * w_t:(a + 1) * w_t]
+    return out
+
+
 def _pool_flat(rows: torch.Tensor, plan: FlatPlan, tb: int, dt):
     """Pool per-lookup rows (last sort space) into float32 ``[tb, d]``: a
     one-hot product for small batches, ``index_add_`` above
@@ -373,6 +407,85 @@ def _pair_table(gk, p, q, r, t, dt):
                                        device=g01.device)])
 
 
+def _z0(plan: FlatPlan, g0f: torch.Tensor, tp0: int) -> torch.Tensor:
+    """First-core rows of every lookup in s1 order, ``[nza, q0*r1]``; dead
+    and pad lookups gather the zero row ``tp0``."""
+    i0c = torch.where(plan.alive1, plan.i0_s1,
+                      torch.full_like(plan.i0_s1, tp0))
+    return g0f[i0c.long()]
+
+
+def _row_cotangents(d_output, plan: FlatPlan, tb: int, d: int, dt):
+    """Per-lookup cotangents in the last sort space, ``[nza, D]`` in the
+    staging dtype and weighted; pad rows gather an appended zero row."""
+    dflat = torch.cat([d_output.reshape(tb, d).to(dt),
+                       torch.zeros((1, d), dtype=dt, device=d_output.device)])
+    rowc = torch.where(plan.rowidx_last >= 0, plan.rowidx_last,
+                       torch.full_like(plan.rowidx_last, tb))
+    dz = dflat[rowc.long()]
+    if plan.w_last is not None:
+        dz = dz * plan.w_last[:, None].to(dt)
+    return dz
+
+
+def _dg0(plan: FlatPlan, dz0: torch.Tensor, tp0: int, q0: int, r1: int):
+    """dG0 ``[tp0, q0, r1]``: the float32 one-hot product of the live
+    lookups' first-core rows (s1 order) with dz0."""
+    i0m = torch.where(plan.alive1, plan.i0_s1,
+                      torch.full_like(plan.i0_s1, -1))
+    iota = torch.arange(tp0, dtype=i0m.dtype, device=i0m.device)
+    oh0 = (i0m[:, None] == iota[None, :]).float()
+    return torch.matmul(oh0.t(), dz0.float()).reshape(tp0, q0, r1)
+
+
+def _pass_inputs(plan: FlatPlan, g0f, gk, tables, widths, p, q, r, t, dt,
+                 seg):
+    """The input of every core pass 1 .. ndim-1, each in its own sort
+    space: z0 (or, in pair mode, None for the skipped pass 1 and
+    ``G01[pair_s2]`` as pass 2's input), then kernel B1 and the s_t ->
+    s_t+1 permute for every pass before the last."""
+    ndim = len(p)
+    if plan.pair_s2 is not None:
+        stages = [None]
+        state = _pair_table(gk, p, q, r, t, dt)[plan.pair_s2.long()]
+    else:
+        stages = []
+        state = _z0(plan, g0f, t * p[0])
+    for ti in range(len(stages) + 1, ndim):
+        stages.append(state)
+        if ti == ndim - 1:
+            break
+        _, bw_in, bw_out = widths[ti - 1]
+        state = seg_transform(
+            plan.runs[ti - 1], plan.first[ti - 1], plan.cnt[ti - 1], state,
+            tables[ti - 1], blocks=q[0], bw_in=bw_in, bw_out=bw_out,
+            p_rows=t * p[ti], seg=seg, out_dtype=dt)
+        state = state[plan.perm_fwd[ti - 1].long()]  # s_ti -> s_ti+1
+    return stages
+
+
+def _grad_passes(plan: FlatPlan, stages, dz, top, g0f, tables, widths, p, q,
+                 r, t, dt, seg, dgs):
+    """Kernel B3 for the passes ``top`` .. 1 from ``dz`` in s_top order:
+    fills ``dgs[top..1]`` and returns dz0 (float32, s1 order). dz stays in
+    the staging dtype between passes; z0 is recomputed by the gather where
+    pair mode skipped pass 1."""
+    for ti in range(top, 0, -1):
+        mm, bw_in, bw_out = widths[ti - 1]
+        x_stage = stages[ti - 1]
+        if x_stage is None:
+            x_stage = _z0(plan, g0f, t * p[0])
+        dgbd, dz = seg_accum(
+            plan.runs[ti - 1], plan.first[ti - 1], plan.cnt[ti - 1], x_stage,
+            dz, tables[ti - 1], blocks=q[0], bw_x=bw_in, bw_y=bw_out,
+            p_rows=t * p[ti], seg=seg,
+            z_dtype=dt if ti > 1 else torch.float32)
+        dgs[ti] = _extract_bd_grad(dgbd, mm, r[ti], q[ti] * r[ti + 1])
+        if ti > 1:
+            dz = dz[plan.perm_bwd[ti - 2].long()]  # s_ti -> s_ti-1
+    return dz
+
+
 def flat_lookup_forward(cores, tt_p_shapes, tt_q_shapes, tt_ranks,
                         batch_size, plan: FlatPlan, nza,
                         compute_dtype=torch.float32, seg=SEG):
@@ -380,35 +493,91 @@ def flat_lookup_forward(cores, tt_p_shapes, tt_q_shapes, tt_ranks,
     states (each pass's input, in its sort space; None for a pass that
     pair mode skipped) are what a backward would reuse."""
     p, q, r = tuple(tt_p_shapes), tuple(tt_q_shapes), tuple(tt_ranks)
-    ndim = len(p)
     t = cores[0].shape[0]
     tb = t * batch_size
     d = int(np.prod(q))
     dt = compute_dtype
     g0f, gk, tables, widths = _flat_setup(cores, p, q, r, dt)
 
-    stages = []
-    if plan.pair_s2 is not None:
-        state = _pair_table(gk, p, q, r, t, dt)[plan.pair_s2.long()]
-        stages.append(None)
-        start_ti = 2
-    else:
-        i0c = torch.where(plan.alive1, plan.i0_s1,
-                          torch.full_like(plan.i0_s1, t * p[0]))
-        state = g0f[i0c.long()]  # [nza, q0*r1], s1 order
-        start_ti = 1
-    for ti in range(start_ti, ndim):
-        _, bw_in, bw_out = widths[ti - 1]
-        stages.append(state)
-        state = seg_transform(
-            plan.runs[ti - 1], plan.first[ti - 1], plan.cnt[ti - 1],
-            state, tables[ti - 1], blocks=q[0], bw_in=bw_in, bw_out=bw_out,
-            p_rows=t * p[ti], seg=seg, out_dtype=dt)
-        if ti < ndim - 1:
-            state = state[plan.perm_fwd[ti - 1].long()]  # s_ti -> s_ti+1
-
+    stages = _pass_inputs(plan, g0f, gk, tables, widths, p, q, r, t, dt,
+                          seg)
+    _, bw_in, bw_out = widths[-1]
+    state = seg_transform(
+        plan.runs[-1], plan.first[-1], plan.cnt[-1], stages[-1], tables[-1],
+        blocks=q[0], bw_in=bw_in, bw_out=bw_out, p_rows=t * p[-1], seg=seg,
+        out_dtype=dt)
     out = _pool_flat(state, plan, tb, dt)
     return out.reshape(t, batch_size, d), tuple(stages)
+
+
+def flat_lookup_backward(cores, tt_p_shapes, tt_q_shapes, tt_ranks,
+                         batch_size, plan: FlatPlan, nza, stages, d_output,
+                         compute_dtype=torch.float32, seg=SEG):
+    """Backward of the flat lookup -> core gradients in module layout:
+    kernel B3 pass by pass from the last core down, on the forward's staged
+    states, then dG0 from the float32 dz0."""
+    del nza  # the plan's arrays carry it
+    p, q, r = tuple(tt_p_shapes), tuple(tt_q_shapes), tuple(tt_ranks)
+    ndim = len(p)
+    t = cores[0].shape[0]
+    d = int(np.prod(q))
+    dt = compute_dtype
+    g0f, _, tables, widths = _flat_setup(cores, p, q, r, dt)
+
+    dz = _row_cotangents(d_output, plan, t * batch_size, d, dt)
+    dgs = [None] * ndim
+    dz = _grad_passes(plan, stages, dz, ndim - 1, g0f, tables, widths, p, q,
+                      r, t, dt, seg, dgs)
+    dgs[0] = _dg0(plan, dz, t * p[0], q[0], r[1])
+    return grads_to_module_layout(dgs, p, q, r, t)
+
+
+def _lookup_plan(indices, rowidx, tableidx, weights, live, p, q, r,
+                 num_tables, batch_size, compute_dtype, live_is_mask,
+                 parts_mode):
+    """Plan of one lookup (pair mode when ``_pair_gate`` allows)."""
+    nza_est = _cdiv(rowidx.shape[0], SEG) * SEG
+    itemsize = torch.empty((), dtype=compute_dtype).element_size()
+    pair = _pair_gate(nza_est, num_tables, p, q, r, itemsize)
+    return _build_plan(
+        None if parts_mode else indices, rowidx, tableidx, weights,
+        None if live_is_mask else live, p, num_tables, batch_size,
+        dead_mask=live if live_is_mask else None,
+        idx_parts=indices if parts_mode else None, seg=SEG, pair=pair)
+
+
+class FlatLookup(torch.autograd.Function):
+    """The pooled flat lookup with its gradient: the JAX package's
+    ``make_flat_vjp``. Forward builds the plan and runs
+    :func:`flat_lookup_forward`; the plan and the staged states are kept
+    for :func:`flat_lookup_backward`, which gives the cores' gradients.
+    Indices, weights and the live mask get none.
+
+    ``apply(cfg, indices, rowidx, tableidx, weights, live, *cores)`` with
+    ``cfg = (p, q, r, num_tables, batch_size, compute_dtype, live_is_mask,
+    parts_mode)``."""
+
+    @staticmethod
+    def forward(ctx, cfg, indices, rowidx, tableidx, weights, live, *cores):
+        p, q, r, num_tables, batch_size, cdt, live_is_mask, parts_mode = cfg
+        plan, nza = _lookup_plan(indices, rowidx, tableidx, weights, live,
+                                 p, q, r, num_tables, batch_size, cdt,
+                                 live_is_mask, parts_mode)
+        out, stages = flat_lookup_forward(cores, p, q, r, batch_size, plan,
+                                          nza, compute_dtype=cdt, seg=SEG)
+        if any(ctx.needs_input_grad[6:]):
+            ctx.save_for_backward(*cores)
+            ctx.cfg, ctx.plan, ctx.nza, ctx.stages = cfg, plan, nza, stages
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, d_output):
+        p, q, r, _, batch_size, cdt, _, _ = ctx.cfg
+        grads = flat_lookup_backward(
+            ctx.saved_tensors, p, q, r, batch_size, ctx.plan, ctx.nza,
+            ctx.stages, d_output.contiguous(), compute_dtype=cdt, seg=SEG)
+        return (None,) * 6 + tuple(grads)
 
 
 def flat_forward(cores: Sequence[torch.Tensor], indices, rowidx, tableidx,
@@ -416,22 +585,55 @@ def flat_forward(cores: Sequence[torch.Tensor], indices, rowidx, tableidx,
                  num_tables: int, batch_size: int,
                  compute_dtype=torch.float32, live_is_mask: bool = False,
                  parts_mode: bool = False) -> torch.Tensor:
-    """The forward of the JAX package's ``make_flat_vjp``: plan (pair mode
-    when ``_pair_gate`` allows) then :func:`flat_lookup_forward`.
+    """Pooled flat lookup ``[T, B, D]`` through :class:`FlatLookup`, so
+    cores that require grad get gradients.
 
     ``indices`` is a tuple of per-core parts when ``parts_mode``; ``live``
     is a ``[nnz]`` dead mask when ``live_is_mask``, else a ``[1]`` live
     count (or None)."""
-    p, q, r = list(tt_p_shapes), list(tt_q_shapes), list(tt_ranks)
+    cfg = (tuple(tt_p_shapes), tuple(tt_q_shapes), tuple(tt_ranks),
+           num_tables, batch_size, compute_dtype, live_is_mask, parts_mode)
+    return FlatLookup.apply(cfg, indices, rowidx, tableidx, weights, live,
+                            *cores)
+
+
+def flat_train_apply(cores, tt_p_shapes, tt_q_shapes, tt_ranks, batch_size,
+                     indices, rowidx, tableidx, weights, dead_mask,
+                     d_output, compute_dtype=torch.float32, idx_parts=None):
+    """Forward and backward of the flat lookup in one pass structure, for
+    the fused training step, where ``d_output`` is an input: one plan and
+    one set of staged states serve both, and the last core runs as one
+    fused pass (kernel B2: output rows, dZ and dG together). Returns
+    (pooled output ``[T, B, D]`` float32, core gradients in module
+    layout)."""
+    p, q, r = tuple(tt_p_shapes), tuple(tt_q_shapes), tuple(tt_ranks)
+    ndim = len(p)
+    t = cores[0].shape[0]
+    tb = t * batch_size
+    d = int(np.prod(q))
+    dt = compute_dtype
     seg = SEG
-    nza_est = _cdiv(rowidx.shape[0], seg) * seg
-    itemsize = torch.empty((), dtype=compute_dtype).element_size()
-    pair = _pair_gate(nza_est, num_tables, p, q, r, itemsize)
-    plan, nza = _build_plan(
-        None if parts_mode else indices, rowidx, tableidx, weights,
-        None if live_is_mask else live, p, num_tables, batch_size,
-        dead_mask=live if live_is_mask else None,
-        idx_parts=indices if parts_mode else None, seg=seg, pair=pair)
-    out, _ = flat_lookup_forward(cores, p, q, r, batch_size, plan, nza,
-                                 compute_dtype=compute_dtype, seg=seg)
-    return out
+    plan, _ = _lookup_plan(
+        indices if idx_parts is None else idx_parts, rowidx, tableidx,
+        weights, dead_mask, p, q, r, t, batch_size, dt, True,
+        idx_parts is not None)
+    g0f, gk, tables, widths = _flat_setup(cores, p, q, r, dt)
+    stages = _pass_inputs(plan, g0f, gk, tables, widths, p, q, r, t, dt, seg)
+
+    dz = _row_cotangents(d_output, plan, tb, d, dt)
+    li = ndim - 1
+    mm, bw_in, bw_out = widths[li - 1]
+    dgbd, dz, rows = seg_fused_i2(
+        plan.runs[li - 1], plan.first[li - 1], plan.cnt[li - 1],
+        stages[li - 1], dz, tables[li - 1], blocks=q[0], bw_x=bw_in,
+        bw_y=bw_out, p_rows=t * p[li], seg=seg)
+    dgs = [None] * ndim
+    dgs[li] = _extract_bd_grad(dgbd, mm, r[li], q[li] * r[li + 1])
+    out = _pool_flat(rows, plan, tb, dt).reshape(t, batch_size, d)
+
+    if li > 1:
+        dz = dz[plan.perm_bwd[li - 2].long()]  # s_li -> s_li-1
+    dz = _grad_passes(plan, stages, dz, li - 1, g0f, tables, widths, p, q, r,
+                      t, dt, seg, dgs)
+    dgs[0] = _dg0(plan, dz, t * p[0], q[0], r[1])
+    return out, grads_to_module_layout(dgs, p, q, r, t)

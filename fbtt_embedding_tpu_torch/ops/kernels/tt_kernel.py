@@ -1,6 +1,6 @@
 """Core layouts shared by the flat pipeline.
 
-Counterpart of the layout helper of ``fbtt_embedding_tpu/ops/pallas/
+Counterpart of the layout helpers of ``fbtt_embedding_tpu/ops/pallas/
 tt_kernel.py``. The generic per-lookup kernels of that module (B4, B5) are
 not ported yet.
 """
@@ -30,3 +30,14 @@ def kernel_core_layouts(tt_cores: Sequence[torch.Tensor], tt_p_shapes,
         else:
             out.append(tt_cores[i].reshape(t * p, ra, qq * rb))
     return tuple(out)
+
+
+def grads_to_module_layout(dgs: Sequence[torch.Tensor], tt_p_shapes,
+                           tt_q_shapes, tt_ranks,
+                           num_tables: int) -> Tuple[torch.Tensor, ...]:
+    """Kernel-layout gradients -> module storage ``[T, p_t, r_t*q_t*r_{t+1}]``
+    (pure reshapes)."""
+    return tuple(
+        dgs[i].reshape(num_tables, tt_p_shapes[i],
+                       tt_ranks[i] * tt_q_shapes[i] * tt_ranks[i + 1])
+        for i in range(len(tt_p_shapes)))

@@ -1,9 +1,10 @@
-"""Pooled TT-embedding lookup, forward, in PyTorch.
+"""Pooled TT-embedding lookup, in PyTorch.
 
 Counterpart of ``fbtt_embedding_tpu.ops.lookup``: sum pooling, the
 odd-rank padding that lets any tt_ndim 2-4 config take the flat pipeline,
 and the ``pooled_tt_lookup`` dispatch between the flat sorted-run pipeline
-(``ops/kernels/tt_flat.py``, kernel B1) and the plain ``tt_rows`` path.
+(``ops/kernels/tt_flat.py``: kernel B1 forward, B3 backward) and the plain
+``tt_rows`` path. Both are differentiable with respect to the cores.
 """
 
 from __future__ import annotations
@@ -119,7 +120,10 @@ def pooled_tt_lookup(
     dead_mask: Optional[torch.Tensor] = None,
     idx_parts: Optional[Sequence[torch.Tensor]] = None,
 ) -> torch.Tensor:
-    """Pooled TT-embedding lookup ``[num_tables, B, D]`` (float32).
+    """Pooled TT-embedding lookup ``[num_tables, B, D]`` (float32),
+    differentiable with respect to ``tt_cores`` (the flat path through
+    ``FlatLookup``, padding included; the plain path through torch's own
+    autograd).
 
     ``impl``: "auto" and "pallas_sorted" take the flat sorted-run pipeline
     (its kernel on a CUDA tensor, the kernel's plain version on a CPU

@@ -13,22 +13,32 @@ CUDA card and ``nvcc``). Phases, each printing its own lines:
    pass (B3) at the headline training pass shapes and at two tt_ndim-4
    passes whose slabs take several staging chunks, in float32 and bfloat16
    (B3 with float32 and bfloat16 z), on Zipf-skewed span tables with a
-   sentinel tail, each run twice and required bitwise equal;
+   sentinel tail, each run twice and required bitwise equal; the generic
+   forward (B4) and backward (B5) in float32 on the headline batch
+   (uniform and Zipf 1.05), a tt_ndim-2 and a tt_ndim-4 model, two tables
+   with weights and a live-count tail, B5 run twice and required bitwise
+   equal;
 4. serve: the headline model (p=[200,220,250], q=[4,4,4], ranks [32,32]:
    E=11M, D=64) with random cores from seed 0 serves five requests of
    B=512 at pooling 20 (uniform and Zipf 1.05 row ids) and one of B=1024
    (pair mode), each held against the plain ``tt_rows`` path in float32,
-   with the kernel's launch count checked per request;
+   with the kernel's launch count checked per request; then the same
+   model serves B=512 uniform and Zipf requests with ``impl="pallas"``
+   (kernel B4) against the plain path in float32, B4 once per request;
 5. train: the same model trains with fused SGD: five steps of B=512 at
    pooling 20 (uniform and Zipf 1.05), one of B=1024 (pair mode) and one
    of B=2048 (nnz 40960: autograd through the flat lookup), then one
    Adagrad step of B=512; each step's output and updated cores are held
    against the plain float32 step (``impl="xla", precision="highest"``)
    run from the same params, with the launches of B1, B2 and B3 checked
-   per step, and TF32 checked off;
+   per step, and TF32 checked off; then ``impl="pallas"`` (B4 forward, B5
+   backward, float32) takes two SGD steps of B=512 (uniform, Zipf), one of
+   B=2048 and one Adagrad step of B=512, each held against the plain
+   float32 step, with B4 and B5 once and B1-B3 never per step;
 6. times (CUDA events / host clock, medians): each kernel pass beside its
-   bound and its plain version, the serve per request, the training step
-   per call at B=512, 1024 and 2048, ``torch.nn.EmbeddingBag(11M, 64,
+   bound and its plain version (B4 and B5 on a uniform and a Zipf batch),
+   the serve per request, the training step per call at B=512, 1024 and
+   2048, the ``impl="pallas"`` serve and step at B=512, ``torch.nn.EmbeddingBag(11M, 64,
    mode="sum")`` forward on the serve's batch and, sparse, forward +
    backward + ``torch.optim.SGD`` step on the training batch.
 
@@ -51,17 +61,24 @@ PEAK_FLOPS = {"float32": 67e12,    # CUDA cores, no tensor cores
               "bfloat16": 989e12}  # dense tensor-core rate
 CSRC = "fbtt_embedding_tpu_torch/csrc/"
 TT_FLAT = "fbtt_embedding_tpu/ops/pallas/tt_flat.py"
+TT_KERNEL = "fbtt_embedding_tpu/ops/pallas/tt_kernel.py"
 # (source, TPU kernel replaced) per kernel wrapper
 KERNELS = {
     "seg_transform": (CSRC + "seg_transform.cu", TT_FLAT + ":338"),
     "seg_fused_i2": (CSRC + "seg_fused_i2.cu", TT_FLAT + ":774"),
     "seg_accum": (CSRC + "seg_accum.cu", TT_FLAT + ":436"),
+    "tt_fwd": (CSRC + "tt_fwd.cu", TT_KERNEL + ":274"),
+    "tt_bwd": (CSRC + "tt_bwd.cu", TT_KERNEL + ":400"),
 }
+PATHS = ("serve", "train", "serve_generic", "train_generic")
 LR, EPS = 0.005, 1.0        # training steps of the check (EPS: Adagrad)
 # bf16 staging against the float32 plain step: outputs within 5e-3 of
 # max|out| (the serve's limit); each core's update within 3e-2 of its
 # largest element (CPU rehearsal at B=64-128: up to 1.2e-2 under Zipf)
 OUT_TOL, UPDATE_TOL = 5e-3, 3e-2
+# the generic path (float32 throughout) against the plain float32 path:
+# only the summation order differs
+F32_OUT_TOL, F32_UPDATE_TOL = 1e-4, 1e-3
 V100_US_PER_LOOKUP = 0.416  # BASELINE.md: the reference's published figure
 
 
@@ -199,6 +216,100 @@ def grad_pass_bound(runs, nseg, x, blocks, bw_x, bw_y, p_rows, z_dtype,
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def generic_inputs(rng, p, q, ranks, b, pool, tables=1, zipf=False,
+                   weights=False, live=None):
+    """The generic kernels' arguments for one batch of random cores (from
+    ``rng``) and uniform or Zipf(1.05) row ids, made by the host drivers'
+    own helpers: (kernel cores, ids, pooled rows, weights, bag order, bag
+    starts, the backward's schedule, dout)."""
+    import numpy as np
+    import torch
+
+    import fbtt_embedding_tpu_torch as fbt
+    from fbtt_embedding_tpu_torch.ops.kernels import tt_kernel
+
+    rfull = [1] + list(ranks) + [1]
+    e, d = int(np.prod(p)), int(np.prod(q))
+    nnz = tables * b * pool
+
+    def dev(a, dtype=torch.int32):
+        return torch.as_tensor(a, dtype=dtype, device="cuda")
+
+    cores = [dev(c, torch.float32) for c in fbt.init_tt_cores(
+        rng, "uniform", tables, e, d, p, q, rfull)]
+    ids = ((rng.zipf(1.05, size=nnz) - 1) % e if zipf
+           else rng.integers(0, e, size=nnz))
+    rowidx = dev(np.arange(nnz) // pool % b)
+    tbl = dev(np.arange(nnz) // (b * pool)) if tables > 1 else None
+    w = dev(rng.random(nnz), torch.float32) if weights else None
+    lc = dev([int(live * nnz)]) if live is not None else None
+    parts = fbt.decompose_indices(dev(ids, torch.int64), p)
+    gk = tt_kernel._kernel_cores(cores, p, q, rfull)
+    idx, rowv, wv = tt_kernel.block_inputs(parts, rowidx, tbl, w, lc, p,
+                                           tables, b)
+    order, starts = tt_kernel.bag_order(rowv, tables * b)
+    sched = tt_kernel.core_orders(idx, rowv, [tables * x for x in p],
+                                  tt_kernel.SEG)
+    dout = dev(rng.standard_normal((tables * b, d)), torch.float32)
+    return gk, idx, rowv, wv, order, starts, sched, dout
+
+
+def generic_bound(gk, idx, rowv, weights, tb, backward):
+    """(least ms, bound_by) of B4 (or, with ``backward``, B5) on these
+    inputs: the core rows the live lookups touch read once, ids, pooled
+    rows and weights read once, the output written once (B4 ``[tb, D]``;
+    B5 every core's gradient, and it reads ``dout``); multiply-adds of the
+    live lookups only: the chain (B4), or the forward up to the last
+    core's input, the cotangent back through every core and each core's
+    outer product (B5)."""
+    import torch
+
+    from fbtt_embedding_tpu_torch.ops.kernels.tt_fwd import chain_dims
+
+    q, r = chain_dims(gk)
+    live = rowv >= 0
+    n_live = int(live.sum())
+    m = [1]
+    for qq in q:
+        m.append(m[-1] * qq)  # m[t + 1] = q_0 * .. * q_t
+    nbytes = sum(int(torch.unique(idx[t][live]).numel()) * g[0].numel() * 4
+                 for t, g in enumerate(gk))
+    nbytes += (idx.numel() + rowv.numel()) * 4 + tb * m[-1] * 4
+    if weights is not None:
+        nbytes += weights.numel() * 4
+    step = [m[t] * r[t] * q[t] * r[t + 1] for t in range(1, len(q))]
+    if backward:
+        nbytes += sum(g.numel() for g in gk) * 4
+        macs = sum(step[:-1]) + 2 * sum(step)
+    else:
+        macs = sum(step)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 2.0 * macs * n_live / PEAK_FLOPS["float32"]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def hold_step(line, out, ref_out, new, ref, old, out_tol, update_tol, what):
+    """Hold a training step's output and core updates against the plain
+    step's; returns ``line`` with the errors appended."""
+    import torch
+
+    scale = ref_out.abs().max().item()
+    err = (out - ref_out).abs().max().item()
+    line += f"; output max_abs_err {err:.3e} (limit {out_tol} x {scale:.3e})"
+    if not err <= out_tol * scale:
+        fail(f"{what}: output disagrees with the plain step")
+    for t, (c_new, c_ref, c_old) in enumerate(zip(
+            new.tt_cores, ref.tt_cores, old.tt_cores)):
+        upd = (c_ref - c_old).abs().max().item()
+        cerr = (c_new - c_ref).abs().max().item()
+        line += (f"; core {t} max|dcore - dcore_plain| {cerr:.3e} "
+                 f"(limit {update_tol} x max|dcore_plain| {upd:.3e})")
+        if not (torch.isfinite(c_new).all() and cerr <= update_tol * upd):
+            fail(f"{what}: core {t} update disagrees with the plain step")
+    return line
+
+
 def check_close(name, got, want, tol):
     """max |got - want| after asserting closeness at ``tol``."""
     import torch
@@ -223,7 +334,7 @@ def main():
 
     import fbtt_embedding_tpu_torch as fbt
     from fbtt_embedding_tpu_torch.ops.kernels import _build
-    from fbtt_embedding_tpu_torch.ops.kernels import tt_flat
+    from fbtt_embedding_tpu_torch.ops.kernels import tt_flat, tt_kernel
     from fbtt_embedding_tpu_torch.ops.kernels.seg_accum import (
         seg_accum,
         seg_accum_plain,
@@ -236,11 +347,13 @@ def main():
         seg_transform,
         seg_transform_plain,
     )
+    from fbtt_embedding_tpu_torch.ops.kernels.tt_bwd import tt_bwd, tt_bwd_plain
+    from fbtt_embedding_tpu_torch.ops.kernels.tt_fwd import tt_fwd, tt_fwd_plain
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     wrappers = {"seg_transform": seg_transform, "seg_fused_i2": seg_fused_i2,
-                "seg_accum": seg_accum}
+                "seg_accum": seg_accum, "tt_fwd": tt_fwd, "tt_bwd": tt_bwd}
 
     def zero_counts():
         for fn in wrappers.values():
@@ -352,6 +465,44 @@ def main():
                       + " (acc rtol = atol = 1e-5; float32 outputs the same,"
                       " bfloat16 one ulp), bitwise repeatable, ok")
 
+    # B4 and B5 in float32 on whole batches (the generic path has no
+    # bfloat16 staging); B5 twice each
+    grad_tol = dict(rtol=1e-4, atol=1e-5)  # the JAX suite's, for gradients
+    gen_cases = [  # name, p, q, inner ranks, B, pooling, tables, zipf,
+        #            weights, live share
+        ("headline uniform", P, Q, R[1:-1], B, POOL, 1, False, False, None),
+        ("headline zipf1.05", P, Q, R[1:-1], B, POOL, 1, True, False, None),
+        ("ndim2 q=[8,8] r=[32]", [3300, 3300], [8, 8], [32], B, POOL, 1,
+         False, False, None),
+        ("ndim4 q=[4]*4 r=[32]*3", [60] * 4, [4] * 4, [32] * 3, 64, 8, 1,
+         False, False, None),
+        ("T=2 weighted", P, Q, R[1:-1], 128, POOL, 2, False, True, None),
+        ("live-count tail", P, Q, R[1:-1], 256, POOL, 1, True, True, 0.75),
+    ]
+    for name, p_, q_, r_, b_, pool, tables, zipf, wts, live in gen_cases:
+        gk, gidx, rowv, wv, order, starts, sched, dout = generic_inputs(
+            rng, p_, q_, r_, b_, pool, tables, zipf, wts, live)
+        out = tt_fwd(gk, gidx, rowv, wv, order, starts)
+        g1 = tt_bwd(gk, gidx, rowv, wv, dout, *sched, seg=tt_kernel.SEG)
+        g2 = tt_bwd(gk, gidx, rowv, wv, dout, *sched, seg=tt_kernel.SEG)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, c) for a, c in zip(g1, g2)):
+            fail(f"tt_bwd {name}: two runs differ (not bitwise repeatable)")
+        ferr = check_close(f"tt_fwd {name}", out,
+                           tt_fwd_plain(gk, gidx, rowv, wv, order, starts),
+                           f32_tol)
+        want = tt_bwd_plain(gk, gidx, rowv, wv, dout, *sched,
+                            seg=tt_kernel.SEG)
+        gerrs = [check_close(f"tt_bwd {name} core {t}", a, c, grad_tol)
+                 for t, (a, c) in enumerate(zip(g1, want))]
+        max_err["tt_fwd"] = max(max_err["tt_fwd"], ferr)
+        max_err["tt_bwd"] = max(max_err["tt_bwd"], *gerrs)
+        print(f"[kernel] tt_fwd / tt_bwd {name} (nnz {gidx.shape[1]}, "
+              f"{int((rowv < 0).sum())} dead): max_abs_err forward "
+              f"{ferr:.3e} (rtol = atol = 1e-5), core gradients "
+              + ", ".join(f"{e:.3e}" for e in gerrs)
+              + " (rtol 1e-4, atol 1e-5), tt_bwd bitwise repeatable, ok")
+
     # 4. serve at full width
     cores = fbt.init_tt_cores(np.random.default_rng(0), "uniform", 1, E, D,
                               P, Q, R)
@@ -403,6 +554,35 @@ def main():
         if not err <= OUT_TOL * scale:
             fail(f"B={b}: serve disagrees with the plain path")
     print(f"[serve] launches on the serving path: {serve_launches}")
+
+    # the generic path: impl="pallas", kernel B4 once per request
+    gserve = fbt.make_serving_fn(P, Q, R, 1, B, impl="pallas", device="cuda")
+    greqs = [r for r in requests if r[0] == B][:2]  # uniform, Zipf
+    zero_counts()
+    gouts = []
+    for b, _, idx, offs in greqs:
+        before = counts()
+        gouts.append(gserve(params, idx, offs))
+        got = {k: v - before[k] for k, v in counts().items()}
+        if got != {**dict.fromkeys(wrappers, 0), "tt_fwd": 1}:
+            fail(f"serve impl='pallas' B={b}: launches {got}, expected "
+                 "tt_fwd 1 and nothing else")
+    torch.cuda.synchronize()
+    gserve_launches = counts()
+    for (b, zipf, idx, offs), out in zip(greqs, gouts):
+        ref = plain(params, idx, offs)
+        if out.shape != (1, b, D) or not torch.isfinite(out).all():
+            fail(f"serve impl='pallas' B={b}: bad output {tuple(out.shape)}")
+        scale = ref.abs().max().item()
+        err = (out - ref).abs().max().item()
+        print(f"[serve] impl='pallas' B={b} pooling {POOL} "
+              f"{'zipf1.05' if zipf else 'uniform'}: max_abs_err {err:.3e} "
+              f"vs plain f32, limit {F32_OUT_TOL * scale:.3e} "
+              f"({F32_OUT_TOL} x max|out| {scale:.3e}); launches B4 1, B1 0")
+        if not err <= F32_OUT_TOL * scale:
+            fail(f"serve impl='pallas' B={b}: disagrees with the plain path")
+    print(f"[serve] launches on the impl='pallas' serving path: "
+          f"{gserve_launches}")
 
     # 5. train at full width
     def clone(prm):
@@ -456,31 +636,18 @@ def main():
         ref_out, ref = pstep(clone(old), idx, offs, d_out, (LR, EPS))
         for k in wrappers:
             train_launches[k] += got[k]
-        want = dict(zip(("seg_transform", "seg_fused_i2", "seg_accum"),
-                        expect[path]))
+        want = {**dict.fromkeys(wrappers, 0), **dict(zip(
+            ("seg_transform", "seg_fused_i2", "seg_accum"), expect[path]))}
         if got != want:
             fail(f"train B={b} ({path}): launches {got}, expected {want}")
         if out.shape != (1, b, D) or not torch.isfinite(out).all():
             fail(f"train B={b}: bad output {tuple(out.shape)}")
-        scale = ref_out.abs().max().item()
-        err = (out - ref_out).abs().max().item()
         line = (f"[train] {opt} B={b} pooling {POOL} "
                 f"{'zipf1.05' if zipf else 'uniform'} ({path}): launches "
                 f"B1 {got['seg_transform']} B2 {got['seg_fused_i2']} "
-                f"B3 {got['seg_accum']}; output max_abs_err {err:.3e} "
-                f"(limit {OUT_TOL} x {scale:.3e})")
-        if not err <= OUT_TOL * scale:
-            fail(f"train B={b}: output disagrees with the plain step")
-        for t, (c_new, c_ref, c_old) in enumerate(zip(
-                new.tt_cores, ref.tt_cores, old.tt_cores)):
-            upd = (c_ref - c_old).abs().max().item()
-            cerr = (c_new - c_ref).abs().max().item()
-            line += (f"; core {t} max|dcore - dcore_plain| {cerr:.3e} "
-                     f"(limit {UPDATE_TOL} x max|dcore_plain| {upd:.3e})")
-            if not (torch.isfinite(c_new).all() and cerr <= UPDATE_TOL * upd):
-                fail(f"train B={b} {opt}: core {t} update disagrees with "
-                     "the plain step")
-        print(line)
+                f"B3 {got['seg_accum']}")
+        print(hold_step(line, out, ref_out, new, ref, old, OUT_TOL,
+                        UPDATE_TOL, f"train B={b} {opt}"))
         if opt != "adagrad":
             tparams = new
     tf32 = (torch.backends.cuda.matmul.allow_tf32,
@@ -490,6 +657,49 @@ def main():
     print(f"[train] TF32 off: matmul.allow_tf32 {tf32[0]}, float32 matmul "
           f"precision {tf32[1]!r}")
     print(f"[train] launches on the training path: {train_launches}")
+
+    # the generic path: impl="pallas", B4 forward and B5 backward, float32
+    gsteps = {b: fbt.make_fused_train_step(P, Q, R, 1, b, impl="pallas",
+                                           device="cuda") for b in (B, 4 * B)}
+    gada = fbt.make_fused_train_step(P, Q, R, 1, B, optimizer=ada,
+                                     impl="pallas", device="cuda")
+    gplan = [(B, False, "sgd"), (B, True, "sgd"), (4 * B, False, "sgd"),
+             (B, False, "adagrad")]
+    gbatches = [train_batch(b, z) for b, z, _ in gplan]
+    gparams = fbt.params_from_jax(cores, device="cuda")
+    per_step = {**dict.fromkeys(wrappers, 0), "tt_fwd": 1, "tt_bwd": 1}
+    torch.cuda.synchronize()
+    gtrain_launches = dict.fromkeys(wrappers, 0)
+    for (b, zipf, opt), (idx, offs, d_out) in zip(gplan, gbatches):
+        if opt == "adagrad":
+            prm = fbt.TTEmbeddingParams(
+                tuple(c.clone() for c in gparams.tt_cores),
+                tuple(torch.zeros_like(c) for c in gparams.tt_cores), None)
+            kstep, pstep = gada, ada_plain
+        else:
+            prm, kstep, pstep = gparams, gsteps[b], sgd_plain[b]
+        old = clone(prm)
+        zero_counts()
+        out, new = kstep(prm, idx, offs, d_out, (LR, EPS))
+        torch.cuda.synchronize()
+        got = counts()
+        ref_out, ref = pstep(clone(old), idx, offs, d_out, (LR, EPS))
+        for k in wrappers:
+            gtrain_launches[k] += got[k]
+        if got != per_step:
+            fail(f"train impl='pallas' B={b}: launches {got}, expected "
+                 f"{per_step}")
+        if out.shape != (1, b, D) or not torch.isfinite(out).all():
+            fail(f"train impl='pallas' B={b}: bad output {tuple(out.shape)}")
+        line = (f"[train] impl='pallas' {opt} B={b} pooling {POOL} "
+                f"{'zipf1.05' if zipf else 'uniform'}: launches B4 "
+                f"{got['tt_fwd']} B5 {got['tt_bwd']}, B1-B3 0")
+        print(hold_step(line, out, ref_out, new, ref, old, F32_OUT_TOL,
+                        F32_UPDATE_TOL, f"train impl='pallas' B={b} {opt}"))
+        if opt != "adagrad":
+            gparams = new
+    print(f"[train] launches on the impl='pallas' training path: "
+          f"{gtrain_launches}")
 
     # 6. times, on the inputs the B=512 uniform serve hands the kernels
     idx, offs = requests[0][2], requests[0][3]
@@ -584,6 +794,38 @@ def main():
         print(f"[time] train step SGD B={b} pooling {POOL} ({path}): "
               f"{ms:.3f} ms/step, {ms * 1e3 / (b * POOL):.4f} us/lookup "
               f"[{card}]")
+    # the generic kernels on a uniform and a Zipf(1.05) headline batch;
+    # the uniform one's times go into the kernels' line
+    for label, zipf in (("uniform", False), ("zipf1.05", True)):
+        gk, gidx, rowv, wv, order, starts, sched, dout = generic_inputs(
+            np.random.default_rng(2), P, Q, R[1:-1], B, POOL, zipf=zipf)
+        fargs = (gk, gidx, rowv, wv, order, starts)
+        bargs = (gk, gidx, rowv, wv, dout, *sched)
+        kseg = dict(seg=tt_kernel.SEG)
+        for kname, fn, ref_fn, args, kw in (
+                ("tt_fwd", tt_fwd, tt_fwd_plain, fargs, {}),
+                ("tt_bwd", tt_bwd, tt_bwd_plain, bargs, kseg)):
+            k_ms = cuda_ms(lambda: fn(*args, **kw))
+            p_ms = cuda_ms(lambda: ref_fn(*args, **kw), reps=5, inner=3)
+            b_ms, b_by = generic_bound(gk, gidx, rowv, wv, B,
+                                       kname == "tt_bwd")
+            if label == "uniform":
+                times[kname] = [(k_ms, p_ms, b_ms, b_by)]
+            print(f"[time] {kname} headline B={B} pooling {POOL} {label} "
+                  f"(nnz {gidx.shape[1]}, float32): kernel {k_ms * 1e3:.2f}"
+                  f" us, bound {b_ms * 1e3:.2f} us ({b_by}), plain "
+                  f"{p_ms * 1e3:.2f} us [{card}]")
+
+    gserve_ms = host_ms(lambda: gserve(params, idx, offs))
+    print(f"[time] serve impl='pallas' B={B} pooling {POOL}: {gserve_ms:.3f} "
+          f"ms/request, {gserve_ms * 1e3 / idx.shape[0]:.4f} us/lookup (flat "
+          f"path {serve_ms:.3f} ms) [{card}]")
+    gbatch = gbatches[0]
+    gstep = gsteps[B]
+    gstep_ms = host_ms(lambda: gstep(scratch, *gbatch, (1e-4, EPS)))
+    print(f"[time] train step SGD impl='pallas' B={B} pooling {POOL}: "
+          f"{gstep_ms:.3f} ms/step, {gstep_ms * 1e3 / (B * POOL):.4f} "
+          f"us/lookup (flat path {step_ms[B]:.3f} ms) [{card}]")
     print(f"[time] reference: the published fbtt figure, fwd+bwd with fused "
           f"SGD at B={B} pooling {POOL} on a V100 (BASELINE.md): "
           f"{V100_US_PER_LOOKUP} us/lookup (another card; not measured here)")
@@ -619,6 +861,8 @@ def main():
         print(f"[time] nn.EmbeddingBag yardsticks: not measured "
               f"({free / 2**30:.1f} GiB free, needs {3 * need / 2**30:.1f})")
 
+    by_path = dict(zip(PATHS, (serve_launches, train_launches,
+                               gserve_launches, gtrain_launches)))
     kernels = []
     for name, rows in times.items():
         src, replaces = KERNELS[name]
@@ -627,9 +871,9 @@ def main():
             "route": "cuda",
             "source": src,
             "replaces": replaces,
-            "launches": serve_launches[name] + train_launches[name],
-            "launches_by_path": {"serve": serve_launches[name],
-                                 "train": train_launches[name]},
+            "launches": sum(c[name] for c in by_path.values()),
+            "launches_by_path": {path: c[name] for path, c in
+                                 by_path.items()},
             "max_abs_err": max_err[name],
             "ms": sum(r[0] for r in rows),
             "plain_ms": sum(r[1] for r in rows),

@@ -8,7 +8,10 @@ nor the JAX package. Entry points run on ``cuda`` unless the caller passes
 Ported so far: the serving path (``make_serving_fn``) and the fused
 training step (``make_fused_train_step``, SGD / Adagrad, no cache) through
 the flat sorted-run pipeline and its kernels: the segment transform (B1),
-the fused last-core training pass (B2) and the gradient pass (B3).
+the fused last-core training pass (B2) and the gradient pass (B3); with
+``impl="pallas"`` the same entry points run the generic per-lookup kernels
+(B4 forward, B5 backward). Also the dense-mode functions (``tt_forward``,
+``tt_dense_backward``, ``tt_sgd_backward``, ...).
 """
 
 from fbtt_embedding_tpu_torch.models.tt_embedding import (
@@ -26,7 +29,12 @@ from fbtt_embedding_tpu_torch.ops.indexing import (
     tt_strides,
     wide_keyrows,
 )
-from fbtt_embedding_tpu_torch.ops.fused_optim import adagrad_step, sgd_step
+from fbtt_embedding_tpu_torch.ops.fused_optim import (
+    adagrad_step,
+    sgd_step,
+    tt_adagrad_backward,
+    tt_sgd_backward,
+)
 from fbtt_embedding_tpu_torch.ops.kernels.seg_accum import (
     seg_accum,
     seg_accum_plain,
@@ -43,12 +51,28 @@ from fbtt_embedding_tpu_torch.ops.kernels.tt_flat import (
     FlatLookup,
     flat_train_apply,
 )
-from fbtt_embedding_tpu_torch.ops.lookup import pool_rows, pooled_tt_lookup
+from fbtt_embedding_tpu_torch.ops.kernels.tt_bwd import tt_bwd, tt_bwd_plain
+from fbtt_embedding_tpu_torch.ops.kernels.tt_fwd import tt_fwd, tt_fwd_plain
+from fbtt_embedding_tpu_torch.ops.kernels.tt_kernel import (
+    generic_available,
+    tt_backward_kernel,
+    tt_forward_kernel,
+)
+from fbtt_embedding_tpu_torch.ops.lookup import (
+    GenericLookup,
+    pool_rows,
+    pooled_tt_lookup,
+    tt_dense_backward,
+    tt_embedding_bag_forward,
+    tt_forward,
+    tt_grads_from_row_cotangents,
+)
 from fbtt_embedding_tpu_torch.utils.init import core_shapes, init_tt_cores
 from fbtt_embedding_tpu_torch.utils.shapes import suggested_tt_shapes
 
 __all__ = [
     "FlatLookup",
+    "GenericLookup",
     "OptimType",
     "TTEmbeddingParams",
     "adagrad_step",
@@ -56,6 +80,7 @@ __all__ = [
     "decompose_indices",
     "decompose_indices64",
     "flat_train_apply",
+    "generic_available",
     "init_tt_cores",
     "make_fused_train_step",
     "make_serving_fn",
@@ -71,7 +96,19 @@ __all__ = [
     "seg_transform_plain",
     "sgd_step",
     "suggested_tt_shapes",
+    "tt_adagrad_backward",
+    "tt_backward_kernel",
+    "tt_bwd",
+    "tt_bwd_plain",
+    "tt_dense_backward",
+    "tt_embedding_bag_forward",
+    "tt_forward",
+    "tt_forward_kernel",
+    "tt_fwd",
+    "tt_fwd_plain",
+    "tt_grads_from_row_cotangents",
     "tt_rows",
+    "tt_sgd_backward",
     "tt_strides",
     "validate_tt_shapes",
     "wide_keyrows",

@@ -4,8 +4,10 @@ Counterpart of the functional entries of ``fbtt_embedding_tpu.models.
 tt_embedding``: ``make_serving_fn`` builds a forward-only pooled lookup and
 ``make_fused_train_step`` the one-call training step (forward, backward
 and the fused SGD / Adagrad update) over parameters held in
-:class:`TTEmbeddingParams`. The modules, the native optimizers and the
-LFU cache are not ported yet.
+:class:`TTEmbeddingParams`. Both take the flat sorted-run pipeline by
+default and the generic per-lookup kernels (B4 forward, B5 backward) with
+``impl="pallas"``. The modules, the native optimizers and the LFU cache
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -105,6 +107,8 @@ def make_serving_fn(
     int32; ``offsets`` has ``T*bs + 1`` table-major entries. Inputs may be
     numpy arrays or tensors; they are moved to ``device``, where the
     params must already be. Forward only: no counting, no backward state.
+    ``impl`` as in ``pooled_tt_lookup``: "auto" takes the flat pipeline,
+    "pallas" the generic kernel B4.
     ``probe_cache`` with a cache in the params raises NotImplementedError:
     the cache is not ported yet."""
     shapes = (tuple(tt_p_shapes), tuple(tt_q_shapes), tuple(tt_ranks))
@@ -183,10 +187,13 @@ def make_fused_train_step(
 
     At nnz <= 32768 on a config the flat pipeline takes unpadded, the step
     runs ``flat_train_apply`` (kernels B1, B2, B3 on the card, their plain
-    versions on the CPU); otherwise autograd through ``pooled_tt_lookup``
-    (the flat ``FlatLookup`` or, with ``impl="xla"`` or a config the flat
-    path cannot take, the plain ``tt_rows`` chain). ``precision="highest"``
-    stages in float32 on the card (bfloat16 by default).
+    versions on the CPU); otherwise autograd through ``pooled_tt_lookup``:
+    the flat ``FlatLookup``, with ``impl="pallas"`` the generic
+    ``GenericLookup`` (kernel B4 forward, B5 backward, float32; it raises
+    on a config those kernels cannot take), or, with ``impl="xla"`` or a
+    config the flat path cannot take, the plain ``tt_rows`` chain.
+    ``precision="highest"`` stages the flat path in float32 on the card
+    (bfloat16 by default).
 
     The update is made **in place**: ``params.tt_cores`` and
     ``params.optimizer_state`` (Adagrad: one zero-initialised tensor per

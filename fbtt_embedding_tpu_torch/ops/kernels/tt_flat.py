@@ -62,8 +62,10 @@ from fbtt_embedding_tpu_torch.ops.kernels.seg_accum import seg_accum
 from fbtt_embedding_tpu_torch.ops.kernels.seg_fused_i2 import seg_fused_i2
 from fbtt_embedding_tpu_torch.ops.kernels.seg_transform import seg_transform
 from fbtt_embedding_tpu_torch.ops.kernels.tt_kernel import (
+    full_ranks,
     grads_to_module_layout,
     kernel_core_layouts,
+    segment_spans,
 )
 
 SEG = 64  # lookups per segment: one CTA of the transform kernel each
@@ -80,17 +82,12 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def _full_ranks(p, r):
-    r = list(r)
-    return [1] + r + [1] if len(r) == len(p) - 1 else r
-
-
 def pair_structural_ok(num_tables: int, p, q, r, itemsize: int) -> bool:
     """Whether a G0xG1 pair-product table is buildable: tt_ndim >= 3, pair
     ids fit int32, table under ``_PAIR_TABLE_BYTES``."""
     if len(p) < 3:
         return False
-    r = _full_ranks(p, r)
+    r = full_ranks(p, r)
     rows = num_tables * p[0] * p[1]
     width = q[0] * q[1] * r[2]
     return rows + 1 < 2 ** 31 and \
@@ -126,7 +123,7 @@ def flat_available(tt_p_shapes, tt_q_shapes, tt_ranks, num_tables: int,
     if ndim not in (2, 3, 4):
         return False
     q = list(tt_q_shapes)
-    r = _full_ranks(tt_p_shapes, tt_ranks)
+    r = full_ranks(tt_p_shapes, tt_ranks)
     if (q[0] * r[1]) % 8 != 0:
         return False
     for _, bw_in, bw_out in _bd_widths(q, r):
@@ -167,12 +164,7 @@ def _span_table(key_sorted: torch.Tensor, p_rows: int, nseg: int, seg=SEG):
                          device=dev)
     runs = torch.searchsorted(key_sorted.to(torch.int32).contiguous(), edges,
                               out_int32=True)
-    seg_starts = torch.arange(nseg, dtype=torch.int32, device=dev) * seg
-    first = torch.searchsorted(runs, seg_starts, right=True,
-                               out_int32=True) - 1
-    last = torch.searchsorted(runs, seg_starts + (seg - 1), right=True,
-                              out_int32=True) - 1
-    return runs, first, last - first + 1
+    return (runs,) + segment_spans(runs, nseg, seg)
 
 
 def _invert_perm(perm: torch.Tensor) -> torch.Tensor:

@@ -1,15 +1,36 @@
-"""Core layouts shared by the flat pipeline.
+"""Core layouts and the generic per-lookup path (kernels B4, B5).
 
-Counterpart of the layout helpers of ``fbtt_embedding_tpu/ops/pallas/
-tt_kernel.py``. The generic per-lookup kernels of that module (B4, B5) are
-not ported yet.
+Counterpart of ``fbtt_embedding_tpu/ops/pallas/tt_kernel.py``: the layout
+helpers, shared with the flat pipeline, and the host drivers of the
+generic kernels, :func:`tt_forward_kernel` (forward, kernel B4:
+``ops/kernels/tt_fwd.py``) and :func:`tt_backward_kernel` (core
+gradients, kernel B5: ``ops/kernels/tt_bwd.py``), for tt_ndim 2-4 and any
+ranks. They run behind ``pooled_tt_lookup(impl="pallas")``.
+
+Both prepare what the kernels take (:func:`block_inputs`, the
+counterpart of the JAX ``_block_inputs``): per-core rows offset by table
+(``t*p_t + i_t``), the pooled row ``t*B + b`` of every lookup, -1 for a
+dead lookup, float32 weights. The TPU's padding of nnz to whole blocks is
+not carried over (the kernels take any nnz), nor are its multiple-of-8 and
+VMEM gates: :func:`generic_available` asks only that a lookup's chain fit
+the kernels' shared memory. The kernels' schedules are sorts on the
+device: lookups grouped by bag for the forward (:func:`bag_order`) and, for
+the backward, sorted by each core's row into fixed segments
+(:func:`core_orders`).
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+import math
+from typing import Optional, Sequence, Tuple
 
 import torch
+
+from fbtt_embedding_tpu_torch.ops.kernels.tt_bwd import bwd_chunk, tt_bwd
+from fbtt_embedding_tpu_torch.ops.kernels.tt_fwd import fwd_chunk, tt_fwd
+
+SEG = 64  # lookups per segment of the backward kernel: one CTA each
+_I32_MAX = 2 ** 31 - 1
 
 
 def kernel_core_layouts(tt_cores: Sequence[torch.Tensor], tt_p_shapes,
@@ -41,3 +62,162 @@ def grads_to_module_layout(dgs: Sequence[torch.Tensor], tt_p_shapes,
         dgs[i].reshape(num_tables, tt_p_shapes[i],
                        tt_ranks[i] * tt_q_shapes[i] * tt_ranks[i + 1])
         for i in range(len(tt_p_shapes)))
+
+
+def full_ranks(p, r):
+    """The boundary ranks ``[1, *r, 1]`` from inner or full ranks."""
+    r = list(r)
+    return [1] + r + [1] if len(r) == len(p) - 1 else r
+
+
+def segment_spans(runs: torch.Tensor, nseg: int, seg: int):
+    """``(first, cnt)`` int32 ``[nseg]``: the first span (``runs[j] ..
+    runs[j+1]``) that meets each ``seg``-row segment, and how many do."""
+    seg_starts = torch.arange(nseg, dtype=torch.int32,
+                              device=runs.device) * seg
+    first = torch.searchsorted(runs, seg_starts, right=True,
+                               out_int32=True) - 1
+    last = torch.searchsorted(runs, seg_starts + (seg - 1), right=True,
+                              out_int32=True) - 1
+    return first, last - first + 1
+
+
+def generic_available(tt_p_shapes, tt_q_shapes, tt_ranks, num_tables: int,
+                      batch_size: int) -> bool:
+    """Whether the generic kernels take this config: tt_ndim 2-4, one
+    lookup's chain (its states and largest gradient tile) within the
+    kernels' shared memory, and core rows and pooled rows within int32."""
+    ndim = len(tt_p_shapes)
+    if ndim not in (2, 3, 4) or len(tt_q_shapes) != ndim:
+        return False
+    q = tuple(tt_q_shapes)
+    r = tuple(full_ranks(tt_p_shapes, tt_ranks))
+    if len(r) != ndim + 1:
+        return False
+    if num_tables * batch_size > _I32_MAX or \
+            num_tables * max(tt_p_shapes) + 2 > _I32_MAX:
+        return False
+    return fwd_chunk(q, r) is not None and bwd_chunk(q, r) is not None
+
+
+def block_inputs(idx_parts, rowidx, tableidx, weights, live_count,
+                 tt_p_shapes, num_tables: int, batch_size: int,
+                 dead_mask: Optional[torch.Tensor] = None):
+    """``(idx [ndim, nnz] int32, rowv [nnz] int32, weights float32 or
+    None)`` for the kernels: core rows ``t*p_t + i_t`` and pooled rows
+    ``t*B + b``; a lookup at a position ``>= live_count`` or marked in
+    ``dead_mask`` gets ``rowv = -1``."""
+    i32 = torch.int32
+    parts = [p_.to(i32) for p_ in idx_parts]
+    if tableidx is not None and num_tables > 1:
+        t32 = tableidx.to(i32)
+        parts = [p_ + t32 * p for p_, p in zip(parts, tt_p_shapes)]
+        rowv = rowidx.to(i32) + t32 * batch_size
+    else:
+        rowv = rowidx.to(i32)
+    dev = rowv.device
+    dead = None
+    if dead_mask is not None:
+        dead = dead_mask.to(device=dev, dtype=torch.bool)
+    elif live_count is not None:
+        pos = torch.arange(rowv.shape[0], dtype=i32, device=dev)
+        dead = pos >= live_count.to(device=dev, dtype=i32).reshape(())
+    if dead is not None:
+        rowv = torch.where(dead, torch.full_like(rowv, -1), rowv)
+    wv = None if weights is None else weights.to(torch.float32).contiguous()
+    return torch.stack(parts).contiguous(), rowv.contiguous(), wv
+
+
+def bag_order(rowv: torch.Tensor, tb: int):
+    """``(order, starts)`` int32: the lookups grouped by pooled row, each
+    bag in lookup order (one stable sort; dead lookups last, in no bag),
+    and bag ``b``'s range ``starts[b] .. starts[b+1]`` of ``order``."""
+    key = torch.where(rowv >= 0, rowv, torch.full_like(rowv, tb))
+    ks, order = torch.sort(key, stable=True)
+    edges = torch.arange(tb + 1, dtype=torch.int32, device=rowv.device)
+    starts = torch.searchsorted(ks.contiguous(), edges, out_int32=True)
+    return order.to(torch.int32), starts
+
+
+def core_orders(idx: torch.Tensor, rowv: torch.Tensor, rows: Sequence[int],
+                seg: int = SEG):
+    """The backward kernel's schedule: for every core t the lookups sorted
+    stably by their core-t row (dead lookups and the padding up to whole
+    segments take the sentinel row ``rows[t]``), and its span tables.
+    Returns ``orders [ndim, nza]``, ``runs [ndim, max(rows) + 2]`` (span j
+    is ``runs[t, j] .. runs[t, j+1]``), ``first``, ``cnt [ndim, nseg]``
+    (the first span meeting each segment, and how many do), all int32."""
+    ndim, nnz = idx.shape
+    nza = -(-nnz // seg) * seg
+    nseg = nza // seg
+    dev = idx.device
+    i32 = torch.int32
+    live = rowv >= 0
+    edges = torch.arange(max(rows) + 2, dtype=i32, device=dev)
+    orders, runs, first, cnt = [], [], [], []
+    for t in range(ndim):
+        key = torch.full((nza,), rows[t], dtype=i32, device=dev)
+        key[:nnz] = torch.where(live, idx[t], torch.full_like(idx[t],
+                                                             rows[t]))
+        ks, order = torch.sort(key, stable=True)
+        rn = torch.searchsorted(ks.contiguous(), edges, out_int32=True)
+        f, c = segment_spans(rn, nseg, seg)
+        orders.append(order.to(i32))
+        runs.append(rn)
+        first.append(f)
+        cnt.append(c)
+    return (torch.stack(orders), torch.stack(runs), torch.stack(first),
+            torch.stack(cnt))
+
+
+def _kernel_cores(tt_cores, p, q, r):
+    return tuple(g.to(torch.float32).contiguous()
+                 for g in kernel_core_layouts(tt_cores, p, q, r))
+
+
+def tt_forward_kernel(tt_cores: Sequence[torch.Tensor], tt_p_shapes,
+                      tt_q_shapes, tt_ranks, batch_size: int,
+                      idx_parts: Sequence[torch.Tensor], rowidx: torch.Tensor,
+                      tableidx: Optional[torch.Tensor] = None,
+                      weights: Optional[torch.Tensor] = None,
+                      live_count: Optional[torch.Tensor] = None,
+                      dead_mask: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
+    """Pooled forward ``[num_tables, B, D]`` (float32) through kernel B4
+    (its plain version on CPU tensors). ``live_count`` ([1]): lookups at
+    later positions add nothing; ``dead_mask`` ([nnz] bool) marks such
+    lookups in place."""
+    p, q = tuple(tt_p_shapes), tuple(tt_q_shapes)
+    r = tuple(full_ranks(p, tt_ranks))
+    t = tt_cores[0].shape[0]
+    gk = _kernel_cores(tt_cores, p, q, r)
+    idx, rowv, wv = block_inputs(idx_parts, rowidx, tableidx, weights,
+                                 live_count, p, t, batch_size, dead_mask)
+    order, starts = bag_order(rowv, t * batch_size)
+    out = tt_fwd(gk, idx, rowv, wv, order, starts)
+    return out.reshape(t, batch_size, math.prod(q))
+
+
+def tt_backward_kernel(tt_cores: Sequence[torch.Tensor], tt_p_shapes,
+                       tt_q_shapes, tt_ranks, batch_size: int,
+                       idx_parts: Sequence[torch.Tensor],
+                       rowidx: torch.Tensor, d_output: torch.Tensor,
+                       tableidx: Optional[torch.Tensor] = None,
+                       weights: Optional[torch.Tensor] = None,
+                       live_count: Optional[torch.Tensor] = None,
+                       dead_mask: Optional[torch.Tensor] = None
+                       ) -> Tuple[torch.Tensor, ...]:
+    """Core gradients in module layout for ``d_output [T, B, D]``, through
+    kernel B5 (its plain version on CPU tensors); ``live_count`` and
+    ``dead_mask`` as in :func:`tt_forward_kernel`."""
+    p, q = tuple(tt_p_shapes), tuple(tt_q_shapes)
+    r = tuple(full_ranks(p, tt_ranks))
+    t = tt_cores[0].shape[0]
+    gk = _kernel_cores(tt_cores, p, q, r)
+    idx, rowv, wv = block_inputs(idx_parts, rowidx, tableidx, weights,
+                                 live_count, p, t, batch_size, dead_mask)
+    rows = [t * p_ for p_ in p]
+    orders, runs, first, cnt = core_orders(idx, rowv, rows, SEG)
+    dout = d_output.reshape(t * batch_size, -1).to(torch.float32).contiguous()
+    dgs = tt_bwd(gk, idx, rowv, wv, dout, orders, runs, first, cnt, seg=SEG)
+    return grads_to_module_layout(dgs, p, q, r, t)

@@ -2,23 +2,37 @@
 
 Counterpart of ``fbtt_embedding_tpu.ops.lookup``: sum pooling, the
 odd-rank padding that lets any tt_ndim 2-4 config take the flat pipeline,
-and the ``pooled_tt_lookup`` dispatch between the flat sorted-run pipeline
-(``ops/kernels/tt_flat.py``: kernel B1 forward, B3 backward) and the plain
-``tt_rows`` path. Both are differentiable with respect to the cores.
+the ``pooled_tt_lookup`` dispatch between the flat sorted-run pipeline
+(``ops/kernels/tt_flat.py``: kernel B1 forward, B3 backward), the generic
+per-lookup kernels (``impl="pallas"``, :class:`GenericLookup`: kernel B4
+forward, B5 backward) and the plain ``tt_rows`` path, all differentiable
+with respect to the cores; and the dense-mode exports (``tt_forward``,
+``tt_embedding_bag_forward``, ``tt_grads_from_row_cotangents``,
+``tt_dense_backward``), torch autograd through ``tt_rows`` as the JAX
+package's are XLA autodiff.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 
 from fbtt_embedding_tpu_torch.ops.contraction import tt_rows, validate_tt_shapes
+from fbtt_embedding_tpu_torch.ops.indexing import (
+    decompose_indices,
+    rowidx_from_offsets,
+)
 from fbtt_embedding_tpu_torch.ops.kernels.tt_flat import (
     flat_available,
     flat_forward,
+)
+from fbtt_embedding_tpu_torch.ops.kernels.tt_kernel import (
+    generic_available,
+    tt_backward_kernel,
+    tt_forward_kernel,
 )
 
 
@@ -34,6 +48,111 @@ def pool_rows(rows: torch.Tensor, rowidx: torch.Tensor,
                          device=rows.device)
     pooled.index_add_(0, seg, rows)
     return pooled.reshape(num_tables, batch_size, d)
+
+
+def tt_forward(tt_cores: Sequence[torch.Tensor], tt_p_shapes, tt_q_shapes,
+               tt_ranks, batch_size: int, indices: Optional[torch.Tensor],
+               rowidx: torch.Tensor, tableidx: Optional[torch.Tensor] = None,
+               weights: Optional[torch.Tensor] = None,
+               idx_parts: Optional[Sequence[torch.Tensor]] = None
+               ) -> torch.Tensor:
+    """Pooled forward ``[num_tables, B, D]`` (float32) by the plain
+    ``tt_rows`` chain, differentiable with respect to the cores by torch
+    autograd (dense-grad mode; the reference binding ``tt_forward``).
+    ``weights`` scales each lookup."""
+    rows = tt_rows(tt_cores, tt_p_shapes, tt_q_shapes, tt_ranks, indices,
+                   tableidx, idx_parts=idx_parts)
+    if weights is not None:
+        rows = rows * weights[:, None].to(rows.dtype)
+    return pool_rows(rows, rowidx, tableidx, tt_cores[0].shape[0],
+                     batch_size)
+
+
+def tt_embedding_bag_forward(tt_cores: Sequence[torch.Tensor], tt_p_shapes,
+                             tt_q_shapes, tt_ranks, indices: torch.Tensor,
+                             offsets: torch.Tensor, batch_size: int,
+                             weights: Optional[torch.Tensor] = None
+                             ) -> torch.Tensor:
+    """EmbeddingBag-style entry: ``(indices, offsets)`` -> ``[T, B, D]``;
+    ``offsets`` has ``T * batch_size + 1`` table-major entries."""
+    num_tables = tt_cores[0].shape[0]
+    rowidx, tableidx = rowidx_from_offsets(offsets, indices.shape[0],
+                                           num_tables, batch_size)
+    return tt_forward(tt_cores, tt_p_shapes, tt_q_shapes, tt_ranks,
+                      batch_size, indices, rowidx,
+                      tableidx if num_tables > 1 else None, weights=weights)
+
+
+def _core_grads(fn, tt_cores, cotangent):
+    """Gradients of the cores through ``fn(leaves)`` for ``cotangent``."""
+    leaves = [c.detach().requires_grad_() for c in tt_cores]
+    with torch.enable_grad():
+        out = fn(leaves)
+        grads = torch.autograd.grad(out, leaves,
+                                    cotangent.to(out.dtype))
+    return list(grads)
+
+
+def tt_grads_from_row_cotangents(
+        tt_cores: Sequence[torch.Tensor], tt_p_shapes, tt_q_shapes, tt_ranks,
+        indices: Optional[torch.Tensor], tableidx: Optional[torch.Tensor],
+        d_rows: torch.Tensor,
+        idx_parts: Optional[Sequence[torch.Tensor]] = None
+) -> List[torch.Tensor]:
+    """Core gradients for per-lookup row cotangents ``d_rows [nnz, D]``."""
+    return _core_grads(
+        lambda cs: tt_rows(cs, tt_p_shapes, tt_q_shapes, tt_ranks, indices,
+                           tableidx, idx_parts=idx_parts),
+        tt_cores, d_rows)
+
+
+def tt_dense_backward(tt_cores: Sequence[torch.Tensor], tt_p_shapes,
+                      tt_q_shapes, tt_ranks, batch_size: int,
+                      indices: torch.Tensor, rowidx: torch.Tensor,
+                      tableidx: Optional[torch.Tensor],
+                      d_output: torch.Tensor) -> List[torch.Tensor]:
+    """Dense core gradients for an output cotangent ``[T, B, D]`` (the
+    reference binding ``tt_dense_backward``): the gradient of
+    :func:`tt_forward`, with no optimizer state touched."""
+    return _core_grads(
+        lambda cs: tt_forward(cs, tt_p_shapes, tt_q_shapes, tt_ranks,
+                              batch_size, indices, rowidx, tableidx),
+        tt_cores, d_output)
+
+
+class GenericLookup(torch.autograd.Function):
+    """The pooled lookup through the generic per-lookup kernels: the JAX
+    package's ``_make_pooled_pallas_vjp``. Forward runs kernel B4
+    (:func:`tt_forward_kernel`), backward kernel B5
+    (:func:`tt_backward_kernel`); indices, weights and the live count get
+    no gradient. Nothing but the inputs is kept for the backward, which
+    recomputes the chain (the reference's recompute strategy).
+
+    ``apply(cfg, idx_parts, rowidx, tableidx, weights, live, dead, *cores)``
+    with ``cfg = (p, q, ranks, batch_size)`` and ``idx_parts`` a tuple of
+    per-core int32 indices."""
+
+    @staticmethod
+    def forward(ctx, cfg, idx_parts, rowidx, tableidx, weights, live, dead,
+                *cores):
+        p, q, r, batch_size = cfg
+        out = tt_forward_kernel(cores, p, q, r, batch_size, idx_parts,
+                                rowidx, tableidx, weights, live, dead)
+        if any(ctx.needs_input_grad[7:]):
+            ctx.save_for_backward(*cores)
+            ctx.cfg = cfg
+            ctx.lookups = (idx_parts, rowidx, tableidx, weights, live, dead)
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, d_output):
+        p, q, r, batch_size = ctx.cfg
+        idx_parts, rowidx, tableidx, weights, live, dead = ctx.lookups
+        grads = tt_backward_kernel(
+            ctx.saved_tensors, p, q, r, batch_size, idx_parts, rowidx,
+            d_output, tableidx, weights, live, dead)
+        return (None,) * 7 + tuple(grads)
 
 
 def _pad_up(x: int, m: int) -> int:
@@ -122,35 +241,52 @@ def pooled_tt_lookup(
 ) -> torch.Tensor:
     """Pooled TT-embedding lookup ``[num_tables, B, D]`` (float32),
     differentiable with respect to ``tt_cores`` (the flat path through
-    ``FlatLookup``, padding included; the plain path through torch's own
-    autograd).
+    ``FlatLookup``, padding included; the generic path through
+    ``GenericLookup``; the plain path through torch's own autograd).
 
     ``impl``: "auto" and "pallas_sorted" take the flat sorted-run pipeline
     (its kernel on a CUDA tensor, the kernel's plain version on a CPU
     tensor), zero-padding odd ranks to its width gates; "pallas_sorted"
     raises where even padding cannot serve the config, "auto" then takes
-    the plain path. "xla" is the plain ``tt_rows`` gather-and-chain path
-    (names as in the JAX package).
+    the plain path. "pallas" takes the generic per-lookup kernels (B4
+    forward, B5 backward; float32, any ranks) and raises where they
+    cannot serve the config. "xla" is the plain ``tt_rows``
+    gather-and-chain path (names as in the JAX package). Unlike the JAX
+    package's, this "auto" never picks the generic kernels: the flat
+    pipeline here has no span cap or VMEM budget, so it takes every
+    tt_ndim 2-4 config that the generic kernels would.
 
-    ``precision``: None stages intermediates in bfloat16 on the card;
-    "highest" stages them in float32. ``live_count`` ([1]) and
-    ``dead_mask`` ([nnz] bool) mark cache-served lookups, which the flat
-    path sorts into its zero-filled sentinel span; the plain path ignores
-    them (its caller zeroes such lookups' weights)."""
+    ``precision``: None stages the flat path's intermediates in bfloat16 on
+    the card; "highest" stages them in float32 (the generic kernels always
+    run in float32). ``live_count`` ([1]) and ``dead_mask`` ([nnz] bool)
+    mark cache-served lookups, which the flat path sorts into its
+    zero-filled sentinel span and the generic kernels skip; the plain path
+    ignores them (its caller zeroes such lookups' weights)."""
     ranks = validate_tt_shapes(tt_p_shapes, tt_q_shapes, tt_ranks)
     num_tables = tt_cores[0].shape[0]
-    if impl not in ("auto", "pallas_sorted", "xla"):
+    if impl not in ("auto", "pallas_sorted", "pallas", "xla"):
         raise ValueError(f"unknown impl {impl!r}")
     if impl == "auto":
         impl = ("pallas_sorted" if flat_servable(
             tt_p_shapes, tt_q_shapes, ranks, num_tables, batch_size)
             else "xla")
     if impl == "xla":
-        rows = tt_rows(tt_cores, tt_p_shapes, tt_q_shapes, ranks, indices,
-                       tableidx, idx_parts=idx_parts)
-        if weights is not None:
-            rows = rows * weights[:, None].to(rows.dtype)
-        return pool_rows(rows, rowidx, tableidx, num_tables, batch_size)
+        return tt_forward(tt_cores, tt_p_shapes, tt_q_shapes, ranks,
+                          batch_size, indices, rowidx, tableidx, weights,
+                          idx_parts)
+    if impl == "pallas":
+        if not generic_available(tt_p_shapes, tt_q_shapes, ranks, num_tables,
+                                 batch_size):
+            raise ValueError(
+                "impl='pallas': the generic kernels cannot serve this config "
+                f"(p={tt_p_shapes}, q={tt_q_shapes}, ranks={ranks}, "
+                f"T={num_tables}, B={batch_size})")
+        parts = tuple(idx_parts) if idx_parts is not None else tuple(
+            decompose_indices(indices, tt_p_shapes))
+        cfg = (tuple(tt_p_shapes), tuple(tt_q_shapes), tuple(ranks),
+               batch_size)
+        return GenericLookup.apply(cfg, parts, rowidx, tableidx, weights,
+                                   live_count, dead_mask, *tt_cores)
 
     cdt = staging_dtype(rowidx.device, precision)
     aux = dead_mask if dead_mask is not None else live_count

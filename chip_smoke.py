@@ -13,7 +13,10 @@ CUDA card and ``nvcc``). Phases, each printing its own lines:
    pass (B3) at the headline training pass shapes and at two tt_ndim-4
    passes whose slabs take several staging chunks, in float32 and bfloat16
    (B3 with float32 and bfloat16 z), on Zipf-skewed span tables with a
-   sentinel tail, each run twice and required bitwise equal; the generic
+   sentinel tail, each run twice and required bitwise equal; the gradient
+   pass with dG0 fused (B6) at the headline i1 pass (uniform and Zipf
+   1.05 first-core rows), a tt_ndim-4 first pass and two tables, in float32
+   and bfloat16, twice each and required bitwise equal; the generic
    forward (B4) and backward (B5) in float32 on the headline batch
    (uniform and Zipf 1.05), a tt_ndim-2 and a tt_ndim-4 model, two tables
    with weights and a live-count tail, B5 run twice and required bitwise
@@ -25,6 +28,11 @@ CUDA card and ``nvcc``). Phases, each printing its own lines:
    with the kernel's launch count checked per request; then the same
    model serves B=512 uniform and Zipf requests with ``impl="pallas"``
    (kernel B4) against the plain path in float32, B4 once per request;
+   then the LFU cache at the reference benchmark's setting (``bench.py
+   --cached``: direct mode, ``hashtbl_size`` = E, ``cache_size`` = 0.1 E)
+   counts Zipf(1.05) traffic (counts checked exactly against a
+   ``torch.bincount``), is populated, and serves two Zipf B=512 requests
+   with ``probe_cache`` against the plain path, B1 twice per request;
 5. train: the same model trains with fused SGD: five steps of B=512 at
    pooling 20 (uniform and Zipf 1.05), one of B=1024 (pair mode) and one
    of B=2048 (nnz 40960: autograd through the flat lookup), then one
@@ -34,19 +42,33 @@ CUDA card and ``nvcc``). Phases, each printing its own lines:
    per step, and TF32 checked off; then ``impl="pallas"`` (B4 forward, B5
    backward, float32) takes two SGD steps of B=512 (uniform, Zipf), one of
    B=2048 and one Adagrad step of B=512, each held against the plain
-   float32 step, with B4 and B5 once and B1-B3 never per step;
+   float32 step, with B4 and B5 once and B1-B3 never per step; then the
+   reference benchmark's step: five SGD steps of B=512 with LFU counting
+   on (``use_cache``; counts checked exactly), SGD and ``EXACT_ADAGRAD``
+   steps on the populated cache with ``probe_cache`` (held against the
+   plain float32 step from the same params and cache, cores and cache
+   rows; the cache-row update run twice and required bitwise equal), each
+   with B1, B2, B3 once; and with ``FBTT_DG0=fused`` steps of B=512,
+   B=1024 (pair mode), B=2048 (autograd) and the cached B=512 step, with
+   B6 once and B3 off the i1 pass;
 6. times (CUDA events / host clock, medians): each kernel pass beside its
-   bound and its plain version (B4 and B5 on a uniform and a Zipf batch),
-   the serve per request, the training step per call at B=512, 1024 and
-   2048, the ``impl="pallas"`` serve and step at B=512, ``torch.nn.EmbeddingBag(11M, 64,
-   mode="sum")`` forward on the serve's batch and, sparse, forward +
-   backward + ``torch.optim.SGD`` step on the training batch.
+   bound and its plain version (B2, B3, B6, B4 and B5 on a uniform and a
+   Zipf batch), the serve per request, the training step per call at
+   B=512, 1024 and 2048, the ``impl="pallas"`` serve and step at B=512,
+   the B=512 step with LFU counting on (beside the reference's V100
+   figure), the cached step with its hit rate, the counting step with
+   ``FBTT_DG0`` onehot against fused (alternating, one call),
+   ``torch.nn.EmbeddingBag(11M, 64, mode="sum")`` forward on the serve's
+   batch and, sparse, forward + backward + ``torch.optim.SGD`` step on the
+   training batch.
 
 Prints a JSON line of the kernels, then as its last line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero.
 """
 
+import contextlib
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -67,10 +89,12 @@ KERNELS = {
     "seg_transform": (CSRC + "seg_transform.cu", TT_FLAT + ":338"),
     "seg_fused_i2": (CSRC + "seg_fused_i2.cu", TT_FLAT + ":774"),
     "seg_accum": (CSRC + "seg_accum.cu", TT_FLAT + ":436"),
+    "seg_accum_dg0": (CSRC + "seg_accum_dg0.cu", TT_FLAT + ":595"),
     "tt_fwd": (CSRC + "tt_fwd.cu", TT_KERNEL + ":274"),
     "tt_bwd": (CSRC + "tt_bwd.cu", TT_KERNEL + ":400"),
 }
-PATHS = ("serve", "train", "serve_generic", "train_generic")
+PATHS = ("serve", "train", "serve_generic", "train_generic", "serve_cached",
+         "train_cached", "train_dg0")
 LR, EPS = 0.005, 1.0        # training steps of the check (EPS: Adagrad)
 # bf16 staging against the float32 plain step: outputs within 5e-3 of
 # max|out| (the serve's limit); each core's update within 3e-2 of its
@@ -192,11 +216,14 @@ def pass_bound(runs, nseg, x, blocks, bw_in, bw_out, p_rows, out_dtype):
 
 
 def grad_pass_bound(runs, nseg, x, blocks, bw_x, bw_y, p_rows, z_dtype,
-                    rows_out):
-    """(least ms, bound_by) for one B3 (or, with ``rows_out``, B2) pass on
-    these inputs: x and y read once, z (and rows) written once, each live
-    slab read once, acc written once, the span tables read once;
-    multiply-adds of the live rows only (two products, three for B2)."""
+                    rows_out, dg0_rows=0):
+    """(least ms, bound_by) for one B3 (or, with ``rows_out``, B2; with
+    ``dg0_rows``, B6) pass on these inputs: x and y read once, z (and rows)
+    written once, each live slab read once, acc written once, the span
+    tables read once; multiply-adds of the live rows only (two products,
+    three for B2). B6 writes no z: it reads each row's first-core id once,
+    writes dG0 ``[dg0_rows, blocks*bw_x]`` once and adds each live row's
+    dz0 into it."""
     import torch
 
     nza = x.shape[0]
@@ -205,15 +232,32 @@ def grad_pass_bound(runs, nseg, x, blocks, bw_x, bw_y, p_rows, z_dtype,
     live_slabs = int((spans > 0).sum())
     isz = x.element_size()
     zsz = torch.empty((), dtype=z_dtype).element_size()
-    nbytes = (nza * blocks * (bw_x + bw_y) * isz + nza * blocks * bw_x * zsz
+    nbytes = (nza * blocks * (bw_x + bw_y) * isz
+              + (nza * 4 + dg0_rows * blocks * bw_x * 4 if dg0_rows
+                 else nza * blocks * bw_x * zsz)
               + (nza * blocks * bw_y * isz if rows_out else 0)
               + live_slabs * bw_x * bw_y * isz + p_rows * bw_x * bw_y * 4
               + (runs.numel() + 2 * nseg) * 4)
     flops = 2.0 * live_rows * blocks * bw_x * bw_y * (3 if rows_out else 2)
+    if dg0_rows:
+        flops += live_rows * blocks * bw_x
     peak = PEAK_FLOPS[str(x.dtype).replace("torch.", "")]
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def i0_rows(rng, runs, p_rows, nza, tp0, zipf):
+    """First-core row of every sorted row of a ``span_case``: uniform or
+    Zipf(1.05) over [0, tp0), the sentinel tp0 on the sentinel span's
+    rows."""
+    import numpy as np
+    import torch
+
+    i0 = ((rng.zipf(1.05, size=nza) - 1) % tp0 if zipf
+          else rng.integers(0, tp0, size=nza))
+    i0[int(runs[p_rows]):] = tp0
+    return torch.as_tensor(i0.astype(np.int32), device="cuda")
 
 
 def generic_inputs(rng, p, q, ranks, b, pool, tables=1, zipf=False,
@@ -310,6 +354,51 @@ def hold_step(line, out, ref_out, new, ref, old, out_tol, update_tol, what):
     return line
 
 
+def hold_cache(line, new, ref, old, what):
+    """Hold a cached step's cache against the plain step's: counts and
+    slots exactly, the cache rows' update (and optimizer state) within
+    1e-6 of its largest element; returns ``line`` with the errors."""
+    import torch
+
+    for f in ("keys", "freq", "slots"):
+        if not torch.equal(getattr(new, f), getattr(ref, f)):
+            fail(f"{what}: cache {f} differs from the plain step's")
+    for f in ("weight", "opt_state"):
+        a, b, o = getattr(new, f), getattr(ref, f), getattr(old, f)
+        if not a.numel():
+            continue
+        upd = (b - o).abs().max().item()
+        err = (a - b).abs().max().item()
+        line += (f"; cache {f} max|d - d_plain| {err:.3e} (limit 1e-6 x "
+                 f"max|d_plain| {upd:.3e})")
+        if f == "weight" and upd == 0:
+            fail(f"{what}: the step updated no cache row")
+        if not err <= 1e-6 * upd:
+            fail(f"{what}: cache {f} update disagrees with the plain step")
+    return line
+
+
+@contextlib.contextmanager
+def dg0_knob(mode):
+    """``FBTT_DG0=mode`` in this process for the block, then as before."""
+    before = os.environ.get("FBTT_DG0")
+    os.environ["FBTT_DG0"] = mode
+    try:
+        yield
+    finally:
+        if before is None:
+            os.environ.pop("FBTT_DG0", None)
+        else:
+            os.environ["FBTT_DG0"] = before
+
+
+def clone_cache(c):
+    from fbtt_embedding_tpu_torch.ops.cache import CacheState
+
+    return CacheState(*(t.clone() for t in (c.keys, c.freq, c.slots,
+                                            c.weight, c.opt_state)))
+
+
 def check_close(name, got, want, tol):
     """max |got - want| after asserting closeness at ``tol``."""
     import torch
@@ -339,6 +428,10 @@ def main():
         seg_accum,
         seg_accum_plain,
     )
+    from fbtt_embedding_tpu_torch.ops.kernels.seg_accum_dg0 import (
+        seg_accum_dg0,
+        seg_accum_dg0_plain,
+    )
     from fbtt_embedding_tpu_torch.ops.kernels.seg_fused_i2 import (
         seg_fused_i2,
         seg_fused_i2_plain,
@@ -353,7 +446,8 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     wrappers = {"seg_transform": seg_transform, "seg_fused_i2": seg_fused_i2,
-                "seg_accum": seg_accum, "tt_fwd": tt_fwd, "tt_bwd": tt_bwd}
+                "seg_accum": seg_accum, "seg_accum_dg0": seg_accum_dg0,
+                "tt_fwd": tt_fwd, "tt_bwd": tt_bwd}
 
     def zero_counts():
         for fn in wrappers.values():
@@ -464,6 +558,38 @@ def main():
                       + ", ".join(f"{e:.3e}" for e in errs)
                       + " (acc rtol = atol = 1e-5; float32 outputs the same,"
                       " bfloat16 one ulp), bitwise repeatable, ok")
+
+    # B6 at the headline i1 pass (uniform and Zipf(1.05) first-core rows),
+    # a tt_ndim-4 first pass and two tables (tp0 = 2 * p0), twice each
+    dg0_cases = [  # name, blocks, bw_x, bw_y, p_rows, nza, tp0, zipf i0
+        ("headline i1", 4, 32, 128, 220, 10240, 200, False),
+        ("headline i1, zipf1.05 i0", 4, 32, 128, 220, 10240, 200, True),
+        ("ndim4 q=[4]*4 r=[32]*3 pass 1", 4, 32, 128, 60, 2048, 60, False),
+        ("T=2 headline i1", 4, 32, 128, 440, 10240, 400, False),
+    ]
+    for name, blocks, bw_x, bw_y, p_rows, nza, tp0, zipf in dg0_cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            runs, first, cnt, x, y, table = span_case(
+                rng, nza, blocks, bw_x, bw_y, p_rows, dtype, seg,
+                y_width=bw_y)
+            args = (runs, first, cnt, x, y,
+                    i0_rows(rng, runs, p_rows, nza, tp0, zipf), table)
+            kw = dict(blocks=blocks, bw_x=bw_x, bw_y=bw_y, p_rows=p_rows,
+                      tp0=tp0, seg=seg)
+            got = seg_accum_dg0(*args, **kw)
+            again = seg_accum_dg0(*args, **kw)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                fail(f"seg_accum_dg0 {name}: two runs differ (not bitwise "
+                     "repeatable)")
+            want = seg_accum_dg0_plain(*args, **kw)
+            errs = [check_close(f"seg_accum_dg0 {name} {out}", g, w, f32_tol)
+                    for out, g, w in zip(("acc", "dG0"), got, want)]
+            max_err["seg_accum_dg0"] = max(max_err["seg_accum_dg0"], *errs)
+            print(f"[kernel] seg_accum_dg0 {name} {str(dtype)[6:]} (tp0 "
+                  f"{tp0}): max_abs_err acc, dG0 {errs[0]:.3e}, "
+                  f"{errs[1]:.3e} (rtol = atol = 1e-5), bitwise repeatable, "
+                  "ok")
 
     # B4 and B5 in float32 on whole batches (the generic path has no
     # bfloat16 staging); B5 twice each
@@ -584,6 +710,55 @@ def main():
     print(f"[serve] launches on the impl='pallas' serving path: "
           f"{gserve_launches}")
 
+    # the LFU cache at the reference benchmark's setting (bench.py
+    # --cached): direct mode, hashtbl_size = E, cache_size = 0.1 E, full
+    # Adagrad state; counted on 20 Zipf(1.05) batches of B=512, populated
+    t0 = time.perf_counter()
+    cache = fbt.make_cache_state(E, E // 10, D, "full", num_embeddings=E,
+                                 device="cuda")
+    counted = [request(B, True)[0] for _ in range(20)]
+    for ids in counted:
+        fbt.update_cache_state(cache, ids)
+    want_freq = torch.bincount(torch.cat(counted), minlength=E)
+    if not torch.equal(cache.freq.long(), want_freq):
+        fail("direct-mode LFU counts differ from torch.bincount")
+    cache = fbt.cache_populate(cache, params.tt_cores, P, Q, R)
+    torch.cuda.synchronize()
+    n_cached = int((cache.slots >= 0).sum())
+    print(f"[cache] direct mode E={E}, cache_size {E // 10}: counted "
+          f"{len(counted)} Zipf(1.05) batches of {B * POOL} lookups (counts "
+          f"equal torch.bincount), populated {n_cached} rows in "
+          f"{time.perf_counter() - t0:.2f} s")
+    cserve = fbt.make_serving_fn(P, Q, R, 1, B, device="cuda")
+    cplain = fbt.make_serving_fn(P, Q, R, 1, B, impl="xla", device="cuda")
+    cprm = fbt.TTEmbeddingParams(params.tt_cores, (), cache)
+    creqs = [request(B, True) for _ in range(2)]
+    zero_counts()
+    couts = []
+    for idx, offs in creqs:
+        before = seg_transform.launches
+        couts.append(cserve(cprm, idx, offs))
+        if seg_transform.launches - before != 2:
+            fail("cached serve: B1 not twice per request")
+    torch.cuda.synchronize()
+    cserve_launches = counts()
+    for (idx, offs), out in zip(creqs, couts):
+        ref = cplain(cprm, idx, offs)
+        hit = (fbt.cache_lookup(cache, idx) >= 0).float().mean().item()
+        if out.shape != (1, B, D) or not torch.isfinite(out).all():
+            fail(f"cached serve: bad output {tuple(out.shape)}")
+        scale = ref.abs().max().item()
+        err = (out - ref).abs().max().item()
+        print(f"[serve] probe_cache B={B} pooling {POOL} zipf1.05, hit rate "
+              f"{hit:.4f}: max_abs_err {err:.3e} vs plain f32, limit "
+              f"{OUT_TOL * scale:.3e} ({OUT_TOL} x max|out| {scale:.3e}); "
+              "launches B1 2")
+        if not (0 < hit < 1 and err <= OUT_TOL * scale):
+            fail("cached serve: disagrees with the plain path, or the "
+                 "request had no hit or no miss")
+    print(f"[serve] launches on the cache-probing serving path: "
+          f"{cserve_launches}")
+
     # 5. train at full width
     def clone(prm):
         return fbt.TTEmbeddingParams(
@@ -701,6 +876,125 @@ def main():
     print(f"[train] launches on the impl='pallas' training path: "
           f"{gtrain_launches}")
 
+    # the reference benchmark's step: (a) five SGD steps with LFU counting
+    # on (direct mode, hashtbl_size = E, cache_size = 0.1 E)
+    flat3 = {**dict.fromkeys(wrappers, 0), "seg_transform": 1,
+             "seg_fused_i2": 1, "seg_accum": 1}
+    count_step = fbt.make_fused_train_step(P, Q, R, 1, B, use_cache=True,
+                                           device="cuda")
+    cparams = fbt.TTEmbeddingParams(
+        fbt.params_from_jax(cores, device="cuda").tt_cores, (),
+        fbt.make_cache_state(E, E // 10, D, num_embeddings=E,
+                             device="cuda"))
+    cbatches = [train_batch(B, z) for z in (False, True, False, True, False)]
+    ctrain_launches = dict.fromkeys(wrappers, 0)
+
+    def run_checked(kstep, pstep, prm, batch, want, label, tols, cached):
+        """One kernel step and the plain step from a copy of the same params
+        (and cache); launches, output, cores and cache checked."""
+        old = clone(prm)
+        old_cache = clone_cache(prm.cache) if cached else None
+        zero_counts()
+        out, new = kstep(prm, *batch, (LR, EPS))
+        torch.cuda.synchronize()
+        got = counts()
+        ref_prm = clone(old)
+        if cached:
+            ref_prm.cache = clone_cache(old_cache)
+        ref_out, ref = pstep(ref_prm, *batch, (LR, EPS))
+        if got != want:
+            fail(f"{label}: launches {got}, expected {want}")
+        b_ = batch[0].shape[0] // POOL
+        if out.shape != (1, b_, D) or not torch.isfinite(out).all():
+            fail(f"{label}: bad output {tuple(out.shape)}")
+        line = (f"[train] {label}: launches B1 {got['seg_transform']} B2 "
+                f"{got['seg_fused_i2']} B3 {got['seg_accum']} B6 "
+                f"{got['seg_accum_dg0']}")
+        line = hold_step(line, out, ref_out, new, ref, old, *tols, label)
+        if cached:
+            line = hold_cache(line, new.cache, ref.cache, old_cache, label)
+        print(line)
+        return got, new
+
+    for i, batch in enumerate(cbatches):
+        got, cparams = run_checked(
+            count_step, sgd_plain[B], cparams, batch, flat3,
+            f"sgd B={B} pooling {POOL} counting step {i}",
+            (OUT_TOL, UPDATE_TOL), False)
+        for k in wrappers:
+            ctrain_launches[k] += got[k]
+    want_freq = torch.bincount(torch.cat([b_[0] for b_ in cbatches]),
+                               minlength=E)
+    if not torch.equal(cparams.cache.freq.long(), want_freq):
+        fail("the counting step's LFU counts differ from torch.bincount")
+    print(f"[train] LFU counts after {len(cbatches)} counting steps equal "
+          f"torch.bincount of the traffic ({int(want_freq.sum())} lookups)")
+
+    # (b) the --cached step: the populated cache probed, SGD and
+    # EXACT_ADAGRAD (full state), against the plain step with the same cache
+    csteps = {}
+    for opt, optim in (("sgd", fbt.OptimType.SGD), ("adagrad", ada)):
+        csteps[opt] = tuple(fbt.make_fused_train_step(
+            P, Q, R, 1, B, optimizer=optim, use_cache=True, probe_cache=True,
+            device="cuda", **extra)
+            for extra in ({}, dict(impl="xla", precision="highest")))
+    zbatches = [train_batch(B, True) for _ in range(3)]
+    hit_rates = [(fbt.cache_lookup(cache, b_[0]) >= 0).float().mean().item()
+                 for b_ in zbatches]
+    for opt in ("sgd", "adagrad"):
+        state = (tuple(torch.zeros_like(c) for c in tparams.tt_cores)
+                 if opt == "adagrad" else ())
+        prm = fbt.TTEmbeddingParams(
+            tuple(c.clone() for c in tparams.tt_cores), state,
+            clone_cache(cache))
+        for i, batch in enumerate(zbatches[:2]):
+            got, prm = run_checked(
+                *csteps[opt], prm, batch, flat3,
+                f"{opt} B={B} pooling {POOL} zipf1.05 cached step {i} (hit "
+                f"rate {hit_rates[i]:.4f})", (OUT_TOL, UPDATE_TOL), True)
+            for k in wrappers:
+                ctrain_launches[k] += got[k]
+    # the cache-row update is bitwise repeatable (sorted index_put_)
+    loc = fbt.cache_lookup(cache, zbatches[2][0])
+    rowidx2, _ = fbt.rowidx_from_offsets(zbatches[2][1], B * POOL, 1, B)
+    rep_w = []
+    for _ in range(2):
+        c2 = clone_cache(cache)
+        fbt.cache_backward_sgd(c2, zbatches[2][2], loc, rowidx2, LR)
+        rep_w.append(c2.weight)
+    if not torch.equal(*rep_w):
+        fail("cache_backward_sgd: two runs differ (not bitwise repeatable)")
+    print("[train] cache-row SGD update bitwise repeatable over two runs "
+          f"({int((loc >= 0).sum())} hits)")
+    print(f"[train] launches on the cached training path: {ctrain_launches}")
+
+    # (c) FBTT_DG0=fused: B6 replaces B3 on the i1 pass
+    dtrain_launches = dict.fromkeys(wrappers, 0)
+    with dg0_knob("fused"):
+        dplan = [  # step, plain step, batch, (B1, B2, B3, B6), label
+            (sgd_steps[B], sgd_plain[B], cbatches[0], (1, 1, 0, 1),
+             f"FBTT_DG0=fused sgd B={B} (fused)", False),
+            (sgd_steps[2 * B], sgd_plain[2 * B], batches[5], (0, 1, 0, 1),
+             f"FBTT_DG0=fused sgd B={2 * B} (fused, pair)", False),
+            (sgd_steps[4 * B], sgd_plain[4 * B], batches[6], (1, 0, 1, 1),
+             f"FBTT_DG0=fused sgd B={4 * B} (autograd)", False),
+            (csteps["sgd"][0], csteps["sgd"][1], zbatches[2], (1, 1, 0, 1),
+             f"FBTT_DG0=fused sgd B={B} cached", True),
+        ]
+        for kstep, pstep, batch, want, label, cached in dplan:
+            prm = fbt.params_from_jax(cores, device="cuda")
+            if cached:
+                prm.cache = clone_cache(cache)
+            want = {**dict.fromkeys(wrappers, 0), **dict(zip(
+                ("seg_transform", "seg_fused_i2", "seg_accum",
+                 "seg_accum_dg0"), want))}
+            got, _ = run_checked(kstep, pstep, prm, batch, want, label,
+                                 (OUT_TOL, UPDATE_TOL), cached)
+            for k in wrappers:
+                dtrain_launches[k] += got[k]
+    print(f"[train] launches on the FBTT_DG0=fused training path: "
+          f"{dtrain_launches}")
+
     # 6. times, on the inputs the B=512 uniform serve hands the kernels
     idx, offs = requests[0][2], requests[0][3]
     rowidx, _ = fbt.rowidx_from_offsets(offs, idx.shape[0], 1, B)
@@ -747,7 +1041,9 @@ def main():
             blocks=Q[0], bw_in=bw_in, bw_out=bw_out, p_rows=P[1], seg=seg,
             out_dtype=dt)[rplan.perm_fwd[0].long()]
         dz = tt_flat._row_cotangents(d_out, rplan, B, D, dt)
-        for kname, ti in (("seg_fused_i2", 2), ("seg_accum", 1)):
+        i0c = tt_flat._i0c(rplan, P[0])
+        for kname, ti in (("seg_fused_i2", 2), ("seg_accum", 1),
+                          ("seg_accum_dg0", 1)):
             _, bw_x, bw_y = widths[ti - 1]
             xs, ys = (x1, dz) if ti == 2 else (z0, dz)
             args = (rplan.runs[ti - 1], rplan.first[ti - 1],
@@ -756,15 +1052,20 @@ def main():
                       seg=seg)
             if kname == "seg_accum":
                 kw["z_dtype"] = torch.float32
+            if kname == "seg_accum_dg0":  # i0c goes before the table
+                args = args[:5] + (i0c,) + args[5:]
+                kw["tp0"] = P[0]
             fn = wrappers[kname]
-            ref_fn = seg_fused_i2_plain if kname == "seg_fused_i2" \
-                else seg_accum_plain
+            ref_fn = {"seg_fused_i2": seg_fused_i2_plain,
+                      "seg_accum": seg_accum_plain,
+                      "seg_accum_dg0": seg_accum_dg0_plain}[kname]
             k_ms = cuda_ms(lambda: fn(*args, **kw))
             p_ms = cuda_ms(lambda: ref_fn(*args, **kw))
             b_ms, b_by = grad_pass_bound(
                 rplan.runs[ti - 1], rplan.first[ti - 1].numel(), xs, Q[0],
                 bw_x, bw_y, P[ti], kw.get("z_dtype", dt),
-                kname == "seg_fused_i2")
+                kname == "seg_fused_i2",
+                P[0] if kname == "seg_accum_dg0" else 0)
             if label == "uniform":
                 times[kname] = [(k_ms, p_ms, b_ms, b_by)]
             if kname == "seg_fused_i2":  # dZ1, s2 -> s1: B3's y
@@ -830,6 +1131,38 @@ def main():
           f"SGD at B={B} pooling {POOL} on a V100 (BASELINE.md): "
           f"{V100_US_PER_LOOKUP} us/lookup (another card; not measured here)")
 
+    # the reference benchmark's step (LFU counting on), the cached step,
+    # and the counting step with FBTT_DG0 onehot against fused, in turns
+    cscratch = fbt.TTEmbeddingParams(
+        fbt.params_from_jax(cores, device="cuda").tt_cores, (),
+        fbt.make_cache_state(E, E // 10, D, num_embeddings=E,
+                             device="cuda"))
+    cbatch = cbatches[4]
+    count_ms = host_ms(lambda: count_step(cscratch, *cbatch, (1e-4, EPS)))
+    print(f"[time] train step SGD B={B} pooling {POOL} with LFU counting "
+          f"(direct, hashtbl_size {E}, cache_size {E // 10}): {count_ms:.3f} "
+          f"ms/step, {count_ms * 1e3 / (B * POOL):.4f} us/lookup (reference "
+          f"on a V100: {V100_US_PER_LOOKUP} us/lookup; without counting "
+          f"{step_ms[B]:.3f} ms) [{card}]")
+    hscratch = fbt.TTEmbeddingParams(
+        fbt.params_from_jax(cores, device="cuda").tt_cores, (),
+        clone_cache(cache))
+    cached_ms = host_ms(lambda: csteps["sgd"][0](hscratch, *zbatches[0],
+                                                 (1e-4, EPS)))
+    print(f"[time] train step SGD B={B} pooling {POOL} zipf1.05, counting and "
+          f"probing the populated cache (hit rate {hit_rates[0]:.4f}): "
+          f"{cached_ms:.3f} ms/step, {cached_ms * 1e3 / (B * POOL):.4f} "
+          f"us/lookup [{card}]")
+    ab = {"onehot": [], "fused": []}
+    for mode in ("onehot", "fused", "fused", "onehot"):
+        with dg0_knob(mode):
+            ab[mode].append(host_ms(lambda: count_step(
+                cscratch, *cbatch, (1e-4, EPS))))
+    print(f"[time] counting step B={B} FBTT_DG0 A/B, in turns onehot, fused, "
+          f"fused, onehot: onehot {ab['onehot'][0]:.3f} / "
+          f"{ab['onehot'][1]:.3f} ms, fused {ab['fused'][0]:.3f} / "
+          f"{ab['fused'][1]:.3f} ms [{card}]")
+
     free, _ = torch.cuda.mem_get_info()
     need = E * D * 4
     if free > 3 * need:
@@ -862,7 +1195,9 @@ def main():
               f"({free / 2**30:.1f} GiB free, needs {3 * need / 2**30:.1f})")
 
     by_path = dict(zip(PATHS, (serve_launches, train_launches,
-                               gserve_launches, gtrain_launches)))
+                               gserve_launches, gtrain_launches,
+                               cserve_launches, ctrain_launches,
+                               dtrain_launches)))
     kernels = []
     for name, rows in times.items():
         src, replaces = KERNELS[name]

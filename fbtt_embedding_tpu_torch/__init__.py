@@ -6,12 +6,15 @@ nor the JAX package. Entry points run on ``cuda`` unless the caller passes
 ``device="cpu"``; on the CPU each kernel's plain PyTorch version runs.
 
 Ported so far: the serving path (``make_serving_fn``) and the fused
-training step (``make_fused_train_step``, SGD / Adagrad, no cache) through
-the flat sorted-run pipeline and its kernels: the segment transform (B1),
-the fused last-core training pass (B2) and the gradient pass (B3); with
-``impl="pallas"`` the same entry points run the generic per-lookup kernels
-(B4 forward, B5 backward). Also the dense-mode functions (``tt_forward``,
-``tt_dense_backward``, ``tt_sgd_backward``, ...).
+training step (``make_fused_train_step``, SGD / Adagrad) through the flat
+sorted-run pipeline and its kernels: the segment transform (B1), the fused
+last-core training pass (B2), the gradient pass (B3) and, with
+``FBTT_DG0=fused``, the gradient pass with the first core's gradient folded
+in (B6); with ``impl="pallas"`` the same entry points run the generic
+per-lookup kernels (B4 forward, B5 backward). Both entries take the LFU
+cache (``ops.cache``: counting, populate, probing, the cached rows'
+updates; direct and hashed int32 keys). Also the dense-mode functions
+(``tt_forward``, ``tt_dense_backward``, ``tt_sgd_backward``, ...).
 """
 
 from fbtt_embedding_tpu_torch.models.tt_embedding import (
@@ -20,6 +23,22 @@ from fbtt_embedding_tpu_torch.models.tt_embedding import (
     make_fused_train_step,
     make_serving_fn,
     params_from_jax,
+)
+from fbtt_embedding_tpu_torch.ops.cache import (
+    CacheState,
+    cache_backward_adagrad,
+    cache_backward_dense,
+    cache_backward_rowwise_adagrad_approx,
+    cache_backward_sgd,
+    cache_forward,
+    cache_lookup,
+    cache_populate,
+    hash_keys,
+    make_cache_state,
+    populate_plan,
+    preprocess_indices,
+    reset_cache,
+    update_cache_state,
 )
 from fbtt_embedding_tpu_torch.ops.contraction import tt_rows, validate_tt_shapes
 from fbtt_embedding_tpu_torch.ops.indexing import (
@@ -38,6 +57,10 @@ from fbtt_embedding_tpu_torch.ops.fused_optim import (
 from fbtt_embedding_tpu_torch.ops.kernels.seg_accum import (
     seg_accum,
     seg_accum_plain,
+)
+from fbtt_embedding_tpu_torch.ops.kernels.seg_accum_dg0 import (
+    seg_accum_dg0,
+    seg_accum_dg0_plain,
 )
 from fbtt_embedding_tpu_torch.ops.kernels.seg_fused_i2 import (
     seg_fused_i2,
@@ -71,24 +94,39 @@ from fbtt_embedding_tpu_torch.utils.init import core_shapes, init_tt_cores
 from fbtt_embedding_tpu_torch.utils.shapes import suggested_tt_shapes
 
 __all__ = [
+    "CacheState",
     "FlatLookup",
     "GenericLookup",
     "OptimType",
     "TTEmbeddingParams",
     "adagrad_step",
+    "cache_backward_adagrad",
+    "cache_backward_dense",
+    "cache_backward_rowwise_adagrad_approx",
+    "cache_backward_sgd",
+    "cache_forward",
+    "cache_lookup",
+    "cache_populate",
     "core_shapes",
     "decompose_indices",
     "decompose_indices64",
     "flat_train_apply",
     "generic_available",
+    "hash_keys",
     "init_tt_cores",
+    "make_cache_state",
     "make_fused_train_step",
     "make_serving_fn",
     "params_from_jax",
     "pool_rows",
     "pooled_tt_lookup",
+    "populate_plan",
+    "preprocess_indices",
+    "reset_cache",
     "rowidx_from_offsets",
     "seg_accum",
+    "seg_accum_dg0",
+    "seg_accum_dg0_plain",
     "seg_accum_plain",
     "seg_fused_i2",
     "seg_fused_i2_plain",
@@ -110,6 +148,7 @@ __all__ = [
     "tt_rows",
     "tt_sgd_backward",
     "tt_strides",
+    "update_cache_state",
     "validate_tt_shapes",
     "wide_keyrows",
 ]

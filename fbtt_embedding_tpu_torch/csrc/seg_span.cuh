@@ -1,6 +1,7 @@
 // Per-span gradient passes of the flat sorted-run pipeline, for Hopper
 // (sm_90a). Shared by seg_accum.cu (kernel B3) and seg_fused_i2.cu
-// (kernel B2); see those files for what each replaces.
+// (kernel B2), and in part by seg_accum_dg0.cu (kernel B6); see those files
+// for what each replaces.
 //
 // Lookups are sorted by one core index j, so the rows of core row j form
 // one contiguous span runs[j] .. runs[j+1]. For every span j < p_rows and
@@ -121,13 +122,14 @@ __device__ void zero_rows(T* out, int st, int nrows, int width) {
   }
 }
 
-// out[r, b*n_out + o0 + c] = sum_k in[r, b*n_in + k] * w[k * nc + c] for
-// the rows [st, en) and the nc columns c of one chunk: w is an [n_in, nc]
-// float matrix in shared memory.
+// out[r - out_row0, b*n_out + o0 + c] = sum_k in[r, b*n_in + k] * w[k * nc + c]
+// for the rows [st, en) and the nc columns c of one chunk: w is an [n_in, nc]
+// float matrix in shared memory. out_row0 lets `out` be a tile that holds
+// only the rows from out_row0 on (B6 keeps its segment's z in shared memory).
 template <typename Tin, typename Tout>
 __device__ void rows_times_slab(const Tin* __restrict__ in, Tout* __restrict__ out,
                                 const float* w, int st, int en, int blocks,
-                                int n_in, int n_out, int o0, int nc) {
+                                int n_in, int n_out, int o0, int nc, int out_row0 = 0) {
   const int in_w = blocks * n_in;
   const int out_w = blocks * n_out;
   const int row_groups = (en - st + kRows - 1) / kRows;
@@ -169,7 +171,8 @@ __device__ void rows_times_slab(const Tin* __restrict__ in, Tout* __restrict__ o
 #pragma unroll
     for (int i = 0; i < kRows; ++i) {
       if (i < nr) {
-        store8(out + static_cast<size_t>(r0 + i) * out_w + b * n_out + o0 + g * kCols,
+        store8(out + static_cast<size_t>(r0 + i - out_row0) * out_w + b * n_out + o0 +
+                   g * kCols,
                acc[i]);
       }
     }

@@ -20,6 +20,10 @@ middle/last core)::
   dG0  = onehot(i0_s1)^T @ dz0             float32 product
   dG2  = sum of the diagonal blocks of dG2bd
 
+  with FBTT_DG0=fused (``_dg0_fused_gate``; off by default, as in the JAX
+  package) the last two lines are one pass, and dz0 never leaves it:
+  dG1, dG0 = seg_accum_dg0(z0, dZ1, i0c, G1)   (kernel B6)
+
 ``flat_train_apply`` (the fused training step, ``d_output`` known up front)
 runs the last core's forward and backward as one pass instead
 (``seg_fused_i2``, kernel B2: rows, dZ1 and dG2 together).
@@ -59,6 +63,10 @@ import torch
 
 from fbtt_embedding_tpu_torch.ops.indexing import tt_strides
 from fbtt_embedding_tpu_torch.ops.kernels.seg_accum import seg_accum
+from fbtt_embedding_tpu_torch.ops.kernels.seg_accum_dg0 import (
+    dg0_fits,
+    seg_accum_dg0,
+)
 from fbtt_embedding_tpu_torch.ops.kernels.seg_fused_i2 import seg_fused_i2
 from fbtt_embedding_tpu_torch.ops.kernels.seg_transform import seg_transform
 from fbtt_embedding_tpu_torch.ops.kernels.tt_kernel import (
@@ -67,6 +75,7 @@ from fbtt_embedding_tpu_torch.ops.kernels.tt_kernel import (
     kernel_core_layouts,
     segment_spans,
 )
+from fbtt_embedding_tpu_torch.utils import knobs
 
 SEG = 64  # lookups per segment: one CTA of the transform kernel each
 # empty spans appended to every span table (and zero slabs to every pass
@@ -111,6 +120,15 @@ def _bd_widths(tt_q_shapes, ranks):
         out.append((mm, mm * ranks[t], mm * tt_q_shapes[t] * ranks[t + 1]))
         mm *= tt_q_shapes[t]
     return out
+
+
+def _dg0_fused_gate(width: int) -> bool:
+    """Whether the innermost gradient pass folds dG0 in (kernel B6):
+    ``FBTT_DG0=fused`` and a z0 width ``width = q0*r1`` whose per-segment
+    dz0 tile fits B6's shared memory (:func:`dg0_fits`). Default "onehot":
+    off, as in the JAX package. The TPU's span-row and VMEM limits do not
+    apply."""
+    return knobs.get_str("FBTT_DG0") == "fused" and dg0_fits(width, SEG)
 
 
 def flat_available(tt_p_shapes, tt_q_shapes, tt_ranks, num_tables: int,
@@ -399,12 +417,17 @@ def _pair_table(gk, p, q, r, t, dt):
                                        device=g01.device)])
 
 
+def _i0c(plan: FlatPlan, tp0: int) -> torch.Tensor:
+    """First-core row of every lookup in s1 order; dead and pad lookups get
+    the sentinel ``tp0``."""
+    return torch.where(plan.alive1, plan.i0_s1,
+                       torch.full_like(plan.i0_s1, tp0))
+
+
 def _z0(plan: FlatPlan, g0f: torch.Tensor, tp0: int) -> torch.Tensor:
     """First-core rows of every lookup in s1 order, ``[nza, q0*r1]``; dead
     and pad lookups gather the zero row ``tp0``."""
-    i0c = torch.where(plan.alive1, plan.i0_s1,
-                      torch.full_like(plan.i0_s1, tp0))
-    return g0f[i0c.long()]
+    return g0f[_i0c(plan, tp0).long()]
 
 
 def _row_cotangents(d_output, plan: FlatPlan, tb: int, d: int, dt):
@@ -458,24 +481,33 @@ def _pass_inputs(plan: FlatPlan, g0f, gk, tables, widths, p, q, r, t, dt,
 
 def _grad_passes(plan: FlatPlan, stages, dz, top, g0f, tables, widths, p, q,
                  r, t, dt, seg, dgs):
-    """Kernel B3 for the passes ``top`` .. 1 from ``dz`` in s_top order:
-    fills ``dgs[top..1]`` and returns dz0 (float32, s1 order). dz stays in
-    the staging dtype between passes; z0 is recomputed by the gather where
-    pair mode skipped pass 1."""
+    """Kernel B3 for the passes ``top`` .. 1 from ``dz`` in s_top order,
+    then dG0: fills ``dgs[top..0]``. dz stays in the staging dtype between
+    passes; z0 is recomputed by the gather where pair mode skipped pass 1.
+    The float32 dz0 of pass 1 meets a float32 one-hot product, or, under
+    :func:`_dg0_fused_gate`, pass 1 runs kernel B6 and gives dG0 itself."""
+    tp0 = t * p[0]
     for ti in range(top, 0, -1):
         mm, bw_in, bw_out = widths[ti - 1]
         x_stage = stages[ti - 1]
         if x_stage is None:
-            x_stage = _z0(plan, g0f, t * p[0])
-        dgbd, dz = seg_accum(
-            plan.runs[ti - 1], plan.first[ti - 1], plan.cnt[ti - 1], x_stage,
-            dz, tables[ti - 1], blocks=q[0], bw_x=bw_in, bw_y=bw_out,
-            p_rows=t * p[ti], seg=seg,
-            z_dtype=dt if ti > 1 else torch.float32)
+            x_stage = _z0(plan, g0f, tp0)
+        span = (plan.runs[ti - 1], plan.first[ti - 1], plan.cnt[ti - 1])
+        kw = dict(blocks=q[0], bw_x=bw_in, bw_y=bw_out, p_rows=t * p[ti],
+                  seg=seg)
+        if ti == 1 and _dg0_fused_gate(q[0] * bw_in):
+            dgbd, dg0 = seg_accum_dg0(*span, x_stage, dz, _i0c(plan, tp0),
+                                      tables[0], tp0=tp0, **kw)
+            dgs[0] = dg0.reshape(tp0, q[0], r[1])
+        else:
+            dgbd, dz = seg_accum(
+                *span, x_stage, dz, tables[ti - 1],
+                z_dtype=dt if ti > 1 else torch.float32, **kw)
         dgs[ti] = _extract_bd_grad(dgbd, mm, r[ti], q[ti] * r[ti + 1])
         if ti > 1:
             dz = dz[plan.perm_bwd[ti - 2].long()]  # s_ti -> s_ti-1
-    return dz
+    if dgs[0] is None:
+        dgs[0] = _dg0(plan, dz, tp0, q[0], r[1])
 
 
 def flat_lookup_forward(cores, tt_p_shapes, tt_q_shapes, tt_ranks,
@@ -507,7 +539,7 @@ def flat_lookup_backward(cores, tt_p_shapes, tt_q_shapes, tt_ranks,
                          compute_dtype=torch.float32, seg=SEG):
     """Backward of the flat lookup -> core gradients in module layout:
     kernel B3 pass by pass from the last core down, on the forward's staged
-    states, then dG0 from the float32 dz0."""
+    states, then dG0 (see :func:`_grad_passes`)."""
     del nza  # the plan's arrays carry it
     p, q, r = tuple(tt_p_shapes), tuple(tt_q_shapes), tuple(tt_ranks)
     ndim = len(p)
@@ -518,9 +550,8 @@ def flat_lookup_backward(cores, tt_p_shapes, tt_q_shapes, tt_ranks,
 
     dz = _row_cotangents(d_output, plan, t * batch_size, d, dt)
     dgs = [None] * ndim
-    dz = _grad_passes(plan, stages, dz, ndim - 1, g0f, tables, widths, p, q,
-                      r, t, dt, seg, dgs)
-    dgs[0] = _dg0(plan, dz, t * p[0], q[0], r[1])
+    _grad_passes(plan, stages, dz, ndim - 1, g0f, tables, widths, p, q, r, t,
+                 dt, seg, dgs)
     return grads_to_module_layout(dgs, p, q, r, t)
 
 
@@ -625,7 +656,6 @@ def flat_train_apply(cores, tt_p_shapes, tt_q_shapes, tt_ranks, batch_size,
 
     if li > 1:
         dz = dz[plan.perm_bwd[li - 2].long()]  # s_li -> s_li-1
-    dz = _grad_passes(plan, stages, dz, li - 1, g0f, tables, widths, p, q, r,
-                      t, dt, seg, dgs)
-    dgs[0] = _dg0(plan, dz, t * p[0], q[0], r[1])
+    _grad_passes(plan, stages, dz, li - 1, g0f, tables, widths, p, q, r, t,
+                 dt, seg, dgs)
     return out, grads_to_module_layout(dgs, p, q, r, t)

@@ -25,6 +25,7 @@ from fbtt_embedding_tpu.ops.cache import wide_cache_keys
 from fbtt_embedding_tpu_torch import (
     TTEmbeddingParams,
     init_tt_cores,
+    make_cache_state,
     make_serving_fn,
     params_from_jax,
     wide_keyrows,
@@ -108,13 +109,19 @@ def test_serve_bs_override_and_cache_guard():
     assert got.shape == (1, b, 64)
     np.testing.assert_allclose(got.numpy(), full.numpy(), rtol=1e-6,
                                atol=1e-7)
-    cached = TTEmbeddingParams(params.tt_cores, (), cache=object())
+    # an empty cache serves nothing: the probing serve equals the plain one;
+    # wide key rows with a cache wait for the wide-key cache
+    cache = make_cache_state(int(np.prod(p)), 4, 64, num_embeddings=int(
+        np.prod(p)), device="cpu")
+    cached = TTEmbeddingParams(params.tt_cores, (), cache=cache)
+    probing = make_serving_fn(p, q, rfull, 1, b, device="cpu")
     with pytest.raises(NotImplementedError):
-        serve(cached, idx, offs)
+        probing(cached, wide_keyrows(idx, p), offs)
     quiet = make_serving_fn(p, q, rfull, 1, b, probe_cache=False,
                             device="cpu")
-    np.testing.assert_allclose(quiet(cached, idx, offs).numpy(),
-                               full.numpy(), rtol=1e-6, atol=1e-7)
+    for fn in (probing, quiet):
+        np.testing.assert_allclose(fn(cached, idx, offs).numpy(),
+                                   full.numpy(), rtol=1e-6, atol=1e-7)
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():

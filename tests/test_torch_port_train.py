@@ -39,6 +39,7 @@ from fbtt_embedding_tpu_torch import (
     OptimType,
     TTEmbeddingParams,
     adagrad_step,
+    make_cache_state,
     make_fused_train_step,
     params_from_jax,
     sgd_step,
@@ -521,11 +522,12 @@ def test_fused_train_step_key_layouts_and_paths():
 
 
 def test_fused_train_step_unported_options_raise():
+    """The native optimizers and the wide-key (int64) cache are not ported;
+    index parts cannot key a cache."""
     p, q, r = [20, 22, 25], [4, 4, 4], [1, 8, 8, 1]
-    for kw in (dict(use_cache=True), dict(probe_cache=True),
-               dict(optim_semantics="native")):
-        with pytest.raises(NotImplementedError):
-            make_fused_train_step(p, q, r, 1, 8, device="cpu", **kw)
+    with pytest.raises(NotImplementedError):
+        make_fused_train_step(p, q, r, 1, 8, device="cpu",
+                              optim_semantics="native")
     with pytest.raises(ValueError):
         make_fused_train_step(p, q, r, 1, 8, optim_semantics="other",
                               device="cpu")
@@ -533,11 +535,21 @@ def test_fused_train_step_unported_options_raise():
         [np.zeros((1, 20, 32), np.float32), np.zeros((1, 22, 256),
                                                      np.float32),
          np.zeros((1, 25, 32), np.float32)], device="cpu").tt_cores
-    step = make_fused_train_step(p, q, r, 1, 8, device="cpu")
+    cache = make_cache_state(11000, 4, 64, num_embeddings=11000,
+                             device="cpu")
+    params = TTEmbeddingParams(cores, (), cache=cache)
+    args = (np.arange(0, 17, 2), np.zeros((1, 8, 64), np.float32),
+            (0.1, 0.1))
+    idx = np.arange(16)
+    for kw in (dict(use_cache=True), dict(probe_cache=True)):
+        step = make_fused_train_step(p, q, r, 1, 8, device="cpu", **kw)
+        with pytest.raises(NotImplementedError):  # wide key rows
+            step(params, wide_keyrows(idx, p), *args)
+        with pytest.raises(ValueError):  # a tuple of index parts
+            step(params, tuple(torch.as_tensor(k) for k in
+                               wide_keyrows(idx, p)[:, 2:].T), *args)
     with pytest.raises(NotImplementedError):
-        step(TTEmbeddingParams(cores, (), cache=object()), np.arange(16),
-             np.arange(0, 17, 2), np.zeros((1, 8, 64), np.float32),
-             (0.1, 0.1))
+        make_cache_state(64, 4, 64, wide_keys=3, device="cpu")
 
 
 def test_port_trains_without_jax():

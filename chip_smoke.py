@@ -6,14 +6,23 @@ CUDA card and ``nvcc``). Phases, each printing its own lines:
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: compile every kernel of ``fbtt_embedding_tpu_torch/csrc`` into
-   ``build/`` (one ``nvcc`` per source, all at once) and load it;
+   ``build/`` (one ``nvcc`` per source, all at once) and load it; count
+   the HMMA (tensor-core) instructions in B3's SASS (``cuobjdump``), which
+   must not be 0;
 3. kernels vs plain: the segment-transform kernel (B1) at both headline
    pass shapes in float32 and bfloat16, and at one tt_ndim-2 and one
    tt_ndim-4 pass; the fused last-core training pass (B2) and the gradient
    pass (B3) at the headline training pass shapes and at two tt_ndim-4
-   passes whose slabs take several staging chunks, in float32 and bfloat16
-   (B3 with float32 and bfloat16 z), on Zipf-skewed span tables with a
-   sentinel tail, each run twice and required bitwise equal; the gradient
+   passes whose slabs take several staging chunks, on dense slabs and on
+   block-diagonal tables folded by ``mm`` (headline i2 mm=4, tt_ndim-4
+   pass 3 mm=16 and pass 2 mm=4), in float32 and bfloat16 (B3 with float32
+   and bfloat16 z), on Zipf-skewed span tables with a sentinel tail, each
+   run twice and required bitwise equal, with the path each takes
+   (tensor cores, narrow tensor cores, narrow, CUDA cores; B3's headline
+   i1 pass in bfloat16 must take the tensor cores); then last cores of ranks 16,
+   32 and 64 by q 2, 4 and 8 folded by 4 in bfloat16, each of which must
+   take the narrow tensor cores, and one of rank 4, which the kernels take
+   folded by 2 only; the gradient
    pass with dG0 fused (B6) at the headline i1 pass (uniform and Zipf
    1.05 first-core rows), a tt_ndim-4 first pass and two tables, in float32
    and bfloat16, twice each and required bitwise equal; the generic
@@ -51,12 +60,21 @@ CUDA card and ``nvcc``). Phases, each printing its own lines:
    with B1, B2, B3 once; and with ``FBTT_DG0=fused`` steps of B=512,
    B=1024 (pair mode), B=2048 (autograd) and the cached B=512 step, with
    B6 once and B3 off the i1 pass;
-6. times (CUDA events / host clock, medians): each kernel pass beside its
-   bound and its plain version (B2, B3, B6, B4 and B5 on a uniform and a
-   Zipf batch), the serve per request, the training step per call at
-   B=512, 1024 and 2048, the ``impl="pallas"`` serve and step at B=512,
-   the B=512 step with LFU counting on (beside the reference's V100
-   figure), the cached step with its hit rate, the counting step with
+6. times: each kernel pass's time per call on two yardsticks, beside its
+   bound and its plain version's on both: between CUDA events over
+   back-to-back calls (the kernels' line's ``ms`` and ``plain_ms``; the
+   wrappers' host work counts where it is slower than the kernels) and
+   device time (``device_ms`` and ``plain_device_ms``: the summed
+   durations of the call's kernels under ``torch.profiler``, each kernel
+   named) (B2, B3, B6, B4 and B5 on a uniform and a Zipf batch; B2
+   and B3 with the fold the step passes), where an older tree is unpacked
+   in ``build/ab_old/`` its B2, B3 and B6 beside these on the same inputs
+   (``scripts/time_span_kernels.py``, one process per run, in turns old,
+   new, new, old); host-clock medians of the serve per request, the
+   training step per call at B=512, 1024 and 2048, the ``impl="pallas"``
+   serve and step at B=512, the B=512 step with LFU counting on (beside
+   the reference's V100 figure), the cached step with its hit rate, the
+   counting step with
    ``FBTT_DG0`` onehot against fused (alternating, one call),
    ``torch.nn.EmbeddingBag(11M, 64, mode="sum")`` forward on the serve's
    batch and, sparse, forward + backward + ``torch.optim.SGD`` step on the
@@ -139,6 +157,70 @@ def cuda_ms(fn, reps=25, inner=10):
     return statistics.median(samples)
 
 
+def device_ms(fn, n=20):
+    """(device ms per call, {kernel name: ms per call}): the summed
+    durations of the device work ``fn`` launches (kernels, copies, fills),
+    over ``n`` calls under ``torch.profiler`` after warm-up. Host time
+    between launches does not count, so a call whose Python side takes
+    longer than its kernels still reads what the device spent on it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    per = {}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            per[ev.name] = per.get(ev.name, 0.0) + ev.time_range.elapsed_us()
+    if not per:
+        fail("torch.profiler recorded no device work")
+    per = {k: v / n / 1e3 for k, v in per.items()}
+    return sum(per.values()), per
+
+
+def kernel_times(fn, ref_fn, plain_reps=25, plain_inner=10):
+    """One wrapper and its plain version on the same inputs, on two
+    yardsticks: ``ms`` and ``plain_ms``, per call between CUDA events over
+    back-to-back calls (``cuda_ms``: the wrappers' host work counts where
+    it is slower than the kernels), and ``device_ms`` and
+    ``plain_device_ms``, the device time per call (``device_ms``); with
+    ``parts``, the text of the kernels' device us."""
+    k_dev, per = device_ms(fn)
+    return {
+        "ms": cuda_ms(fn),
+        "plain_ms": cuda_ms(ref_fn, reps=plain_reps, inner=plain_inner),
+        "device_ms": k_dev,
+        "plain_device_ms": device_ms(ref_fn, n=5)[0],
+        "parts": " + ".join(f"{kernel_name(name)} {ms * 1e3:.2f}"
+                            for name, ms in per.items()),
+    }
+
+
+def times_text(t):
+    """The line of one ``kernel_times`` reading (us), with its bound."""
+    return (f"kernel {t['ms'] * 1e3:.2f} us between events, "
+            f"{t['device_ms'] * 1e3:.2f} us on the device ({t['parts']}); "
+            f"bound {t['bound_ms'] * 1e3:.2f} us ({t['bound_by']}); plain "
+            f"{t['plain_ms'] * 1e3:.2f} us between events, "
+            f"{t['plain_device_ms'] * 1e3:.2f} us on the device")
+
+
+def kernel_name(full):
+    """A device kernel's name without namespaces, templates and arguments."""
+    import re
+
+    names = [w for w in re.findall(r"(\w+)\s*[<(]", full)
+             if w not in ("void", "anonymous")]
+    return names[0] if names else full[:40]
+
+
 def host_ms(fn, reps=25):
     """Median host-clock time of one call ending in a synchronise."""
     import torch
@@ -156,16 +238,19 @@ def host_ms(fn, reps=25):
 
 
 def span_case(rng, nza, blocks, bw_in, bw_out, p_rows, dtype, seg,
-              y_width=None):
+              y_width=None, mm=1):
     """Kernel inputs with duplicate-heavy sorted keys (Zipf over the core
     rows, so many rows own no span), a sentinel tail of dead rows, and
     random x (and y, ``y_width`` wide) and table scaled so that outputs,
-    and the hottest span's gradient sum, are of unit size."""
+    and the hottest span's gradient sum, are of unit size. With ``mm > 1``
+    the table is block-diagonal, ``kron(I_mm, G[j])`` of a random ``G``, as
+    the pipeline builds it past the first core."""
     import numpy as np
     import torch
 
     from fbtt_embedding_tpu_torch.ops.kernels.tt_flat import (
         SPAN_BLOCK,
+        _bd_table,
         _span_table,
     )
 
@@ -184,9 +269,11 @@ def span_case(rng, nza, blocks, bw_in, bw_out, p_rows, dtype, seg,
                                dtype=torch.float32, device="cuda")
 
     x = draw((nza, blocks * bw_in), sx).to(dtype)
-    table = draw(((p_rows + SPAN_BLOCK) * bw_in, bw_out),
-                 1 / (sx * np.sqrt(max(bw_in, bw_out) if y_width else bw_in)))
-    table[p_rows * bw_in:] = 0
+    kx, ky = bw_in // mm, bw_out // mm
+    g = draw((p_rows + SPAN_BLOCK, kx, ky),
+             1 / (sx * np.sqrt(max(kx, ky) if y_width else kx)))
+    g[p_rows:] = 0
+    table = _bd_table(g, mm, torch.float32).reshape(-1, bw_out)
     if y_width is None:
         return runs, first, cnt, x, table.to(dtype)
     y = draw((nza, blocks * y_width), sx).to(dtype)
@@ -216,14 +303,18 @@ def pass_bound(runs, nseg, x, blocks, bw_in, bw_out, p_rows, out_dtype):
 
 
 def grad_pass_bound(runs, nseg, x, blocks, bw_x, bw_y, p_rows, z_dtype,
-                    rows_out, dg0_rows=0):
+                    rows_out, dg0_rows=0, mm=1):
     """(least ms, bound_by) for one B3 (or, with ``rows_out``, B2; with
     ``dg0_rows``, B6) pass on these inputs: x and y read once, z (and rows)
     written once, each live slab read once, acc written once, the span
     tables read once; multiply-adds of the live rows only (two products,
-    three for B2). B6 writes no z: it reads each row's first-core id once,
-    writes dG0 ``[dg0_rows, blocks*bw_x]`` once and adds each live row's
-    dz0 into it."""
+    three for B2). With a block-diagonal table (``mm > 1``) the work is
+    the folded one: each live slab is its ``[bw_x/mm, bw_y/mm]`` block G[j],
+    acc is ``[p_rows, bw_x/mm, bw_y/mm]``, and each row does 1/mm of the
+    dense multiply-adds (the off-diagonal ones are products with zeros). B6
+    writes no z: it reads each row's first-core id once, writes dG0
+    ``[dg0_rows, blocks*bw_x]`` once and adds each live row's dz0 into
+    it."""
     import torch
 
     nza = x.shape[0]
@@ -236,15 +327,32 @@ def grad_pass_bound(runs, nseg, x, blocks, bw_x, bw_y, p_rows, z_dtype,
               + (nza * 4 + dg0_rows * blocks * bw_x * 4 if dg0_rows
                  else nza * blocks * bw_x * zsz)
               + (nza * blocks * bw_y * isz if rows_out else 0)
-              + live_slabs * bw_x * bw_y * isz + p_rows * bw_x * bw_y * 4
+              + (live_slabs * isz + p_rows * 4) * bw_x * bw_y // (mm * mm)
               + (runs.numel() + 2 * nseg) * 4)
-    flops = 2.0 * live_rows * blocks * bw_x * bw_y * (3 if rows_out else 2)
+    flops = (2.0 * live_rows * blocks * bw_x * bw_y // mm
+             * (3 if rows_out else 2))
     if dg0_rows:
         flops += live_rows * blocks * bw_x
     peak = PEAK_FLOPS[str(x.dtype).replace("torch.", "")]
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def span_path(kname, dtype, blocks, bw_x, bw_y, mm):
+    """The path kernel 1 of B2 or B3 takes on these widths, as its library
+    chooses it (and the fold the wrapper passes, where not all of ``mm``)."""
+    import torch
+
+    from fbtt_embedding_tpu_torch.ops.kernels import seg_accum, seg_fused_i2
+    from fbtt_embedding_tpu_torch.ops.kernels.tt_flat import SEG
+
+    lib = (seg_fused_i2 if kname == "seg_fused_i2" else seg_accum)._lib()
+    fold, path = seg_accum.kernel_fold(
+        kname, getattr(lib, f"fbtt_{kname}_path"), dtype == torch.bfloat16,
+        SEG, blocks, bw_x, bw_y, mm)
+    return seg_accum.PATH_NAMES[path] + (
+        f", folded by {fold}" if fold != mm else "")
 
 
 def i0_rows(rng, runs, p_rows, nza, tp0, zipf):
@@ -475,6 +583,16 @@ def main():
         for line in lib.with_suffix(".log").read_text().splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build] {stem}: {line.strip()}")
+    # the bf16 wide pass of B3 runs on the tensor cores: HMMA in its SASS
+    cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(libs["seg_accum"])],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    n_hmma = sum("HMMA" in line for line in sass.splitlines())
+    print(f"[build] seg_accum SASS ({cuobjdump.name} -sass): {n_hmma} HMMA "
+          "instructions")
+    if n_hmma == 0:
+        fail("seg_accum's SASS holds no HMMA instruction")
 
     # 3. kernels vs plain
     rng = np.random.default_rng(0)
@@ -509,24 +627,54 @@ def main():
 
     # B2 and B3 at the headline training passes (B3: i1 with float32 z as
     # in the fused step, i2 as in the two-pass backward) and at two wider
-    # passes, twice each
-    grad_cases = [  # kernel, name, blocks, bw_x, bw_y, p_rows, nza
-        ("seg_fused_i2", "headline i2", 4, 128, 16, 250, 10240),
-        ("seg_accum", "headline i1", 4, 32, 128, 220, 10240),
-        ("seg_accum", "headline i2", 4, 128, 16, 250, 10240),
+    # passes, on dense slabs (mm = 1) and on block-diagonal tables folded as
+    # the pipeline folds them (mm > 1), twice each
+    grad_cases = [  # kernel, name, blocks, bw_x, bw_y, p_rows, nza, mm
+        ("seg_fused_i2", "headline i2", 4, 128, 16, 250, 10240, 1),
+        ("seg_accum", "headline i1", 4, 32, 128, 220, 10240, 1),
+        ("seg_accum", "headline i2", 4, 128, 16, 250, 10240, 1),
         # slabs past one 64 KB staging chunk: tt_ndim 4, ranks 32
         ("seg_fused_i2", "ndim4 q=[4]*4 r=[32]*3 pass 3", 4, 512, 64, 90,
-         2048),
+         2048, 1),
         ("seg_accum", "ndim4 q=[4]*4 r=[32]*3 pass 2", 4, 128, 512, 90,
-         2048),
+         2048, 1),
+        # the folds the training step runs (headline i2: G2 32 x 4) and
+        # those of a tt_ndim-4 model (pass 3: 32 x 4 over 16 sub-blocks;
+        # pass 2: 32 x 128 over 4)
+        ("seg_fused_i2", "headline i2", 4, 128, 16, 250, 10240, 4),
+        ("seg_accum", "headline i2", 4, 128, 16, 250, 10240, 4),
+        ("seg_fused_i2", "ndim4 q=[4]*4 r=[32]*3 pass 3", 4, 512, 64, 90,
+         2048, 16),
+        ("seg_accum", "ndim4 q=[4]*4 r=[32]*3 pass 3", 4, 512, 64, 90,
+         2048, 16),
+        ("seg_fused_i2", "ndim4 q=[4]*4 r=[32]*3 pass 2", 4, 128, 512, 90,
+         2048, 4),
+        ("seg_accum", "ndim4 q=[4]*4 r=[32]*3 pass 2", 4, 128, 512, 90,
+         2048, 4),
     ]
-    for kname, name, blocks, bw_x, bw_y, p_rows, nza in grad_cases:
-        for dtype in (torch.float32, torch.bfloat16):
+    both = (torch.float32, torch.bfloat16)
+    grad_cases = [(*c, both, None) for c in grad_cases]
+    # every instantiation of the narrow tensor-core kernel: a last core G[j]
+    # of rank kx = 16, 32 or 64 by q ky = 2, 4 or 8, folded by mm = 4, in
+    # bfloat16, each required to take that path; and a fold the kernels
+    # take only in part (rank 4: kx = 4 is below 8, so the wrapper folds by
+    # 2 and adds the two diagonal blocks left in acc itself)
+    for kname in ("seg_fused_i2", "seg_accum"):
+        grad_cases += [(kname, f"last core rank {kx} q {ky}", 4, 4 * kx,
+                        4 * ky, 250, 2048, 4, (torch.bfloat16,),
+                        "narrow tensor cores")
+                       for kx in (16, 32, 64) for ky in (2, 4, 8)]
+        grad_cases.append((kname, "last core rank 4 q 4", 4, 16, 16, 250,
+                           2048, 4, both, "folded by 2"))
+    for (kname, name, blocks, bw_x, bw_y, p_rows, nza, mm, dtypes,
+         want_path) in grad_cases:
+        name = f"{name} mm={mm}"
+        for dtype in dtypes:
             runs, first, cnt, x, y, table = span_case(
                 rng, nza, blocks, bw_x, bw_y, p_rows, dtype, seg,
-                y_width=bw_y)
+                y_width=bw_y, mm=mm)
             kw = dict(blocks=blocks, bw_x=bw_x, bw_y=bw_y, p_rows=p_rows,
-                      seg=seg)
+                      seg=seg, mm=mm)
             variants = ([{}] if kname == "seg_fused_i2" else
                         [dict(z_dtype=torch.float32),
                          dict(z_dtype=torch.bfloat16)])
@@ -553,7 +701,17 @@ def main():
                 max_err[kname] = max(max_err[kname], *errs)
                 outs = "acc, z" + (", rows" if len(got) == 3 else "")
                 zdt = str(got[1].dtype)[6:]
-                print(f"[kernel] {kname} {name} {str(dtype)[6:]} (z {zdt}):"
+                path = span_path(kname, dtype, blocks, bw_x, bw_y, mm)
+                if ((kname, name, dtype) == ("seg_accum", "headline i1 mm=1",
+                                             torch.bfloat16)
+                        and path != "tensor cores"):
+                    fail(f"seg_accum {name} bf16 takes the {path} path, not "
+                         "the tensor cores")
+                if want_path and want_path not in path:
+                    fail(f"{kname} {name} {dtype} takes the {path} path, "
+                         f"not {want_path}")
+                print(f"[kernel] {kname} {name} {str(dtype)[6:]} (z {zdt}, "
+                      f"{path}):"
                       f" max_abs_err {outs} "
                       + ", ".join(f"{e:.3e}" for e in errs)
                       + " (acc rtol = atol = 1e-5; float32 outputs the same,"
@@ -1011,16 +1169,14 @@ def main():
                 x, tables[ti - 1])
         kw = dict(blocks=Q[0], bw_in=bw_in, bw_out=bw_out, p_rows=P[ti],
                   seg=seg, out_dtype=dt)
-        k_ms = cuda_ms(lambda: seg_transform(*args, **kw))
-        p_ms = cuda_ms(lambda: seg_transform_plain(*args, **kw))
-        b_ms, b_by = pass_bound(plan0.runs[ti - 1],
-                                plan0.first[ti - 1].numel(), x, Q[0], bw_in,
-                                bw_out, P[ti], dt)
-        times.setdefault("seg_transform", []).append((k_ms, p_ms, b_ms, b_by))
+        t = kernel_times(lambda: seg_transform(*args, **kw),
+                         lambda: seg_transform_plain(*args, **kw))
+        t["bound_ms"], t["bound_by"] = pass_bound(
+            plan0.runs[ti - 1], plan0.first[ti - 1].numel(), x, Q[0], bw_in,
+            bw_out, P[ti], dt)
+        times.setdefault("seg_transform", []).append(t)
         print(f"[time] seg_transform pass i{ti} (x {tuple(x.shape)} bf16, "
-              f"bw {bw_in}->{bw_out}): kernel {k_ms * 1e3:.2f} us, bound "
-              f"{b_ms * 1e3:.2f} us ({b_by}), plain {p_ms * 1e3:.2f} us "
-              f"[{card}]")
+              f"bw {bw_in}->{bw_out}): {times_text(t)} [{card}]")
         y = seg_transform(*args, **kw)
         if ti == 1:
             x = y[plan0.perm_fwd[0].long()]
@@ -1044,12 +1200,14 @@ def main():
         i0c = tt_flat._i0c(rplan, P[0])
         for kname, ti in (("seg_fused_i2", 2), ("seg_accum", 1),
                           ("seg_accum_dg0", 1)):
-            _, bw_x, bw_y = widths[ti - 1]
+            mm, bw_x, bw_y = widths[ti - 1]
             xs, ys = (x1, dz) if ti == 2 else (z0, dz)
             args = (rplan.runs[ti - 1], rplan.first[ti - 1],
                     rplan.cnt[ti - 1], xs, ys, tables[ti - 1])
             kw = dict(blocks=Q[0], bw_x=bw_x, bw_y=bw_y, p_rows=P[ti],
                       seg=seg)
+            if kname != "seg_accum_dg0":  # the fold the step passes
+                kw["mm"] = mm
             if kname == "seg_accum":
                 kw["z_dtype"] = torch.float32
             if kname == "seg_accum_dg0":  # i0c goes before the table
@@ -1059,22 +1217,55 @@ def main():
             ref_fn = {"seg_fused_i2": seg_fused_i2_plain,
                       "seg_accum": seg_accum_plain,
                       "seg_accum_dg0": seg_accum_dg0_plain}[kname]
-            k_ms = cuda_ms(lambda: fn(*args, **kw))
-            p_ms = cuda_ms(lambda: ref_fn(*args, **kw))
-            b_ms, b_by = grad_pass_bound(
+            t = kernel_times(lambda: fn(*args, **kw),
+                             lambda: ref_fn(*args, **kw))
+            t["bound_ms"], t["bound_by"] = grad_pass_bound(
                 rplan.runs[ti - 1], rplan.first[ti - 1].numel(), xs, Q[0],
                 bw_x, bw_y, P[ti], kw.get("z_dtype", dt),
                 kname == "seg_fused_i2",
-                P[0] if kname == "seg_accum_dg0" else 0)
+                P[0] if kname == "seg_accum_dg0" else 0, kw.get("mm", 1))
             if label == "uniform":
-                times[kname] = [(k_ms, p_ms, b_ms, b_by)]
+                times[kname] = [t]
             if kname == "seg_fused_i2":  # dZ1, s2 -> s1: B3's y
                 dz = fn(*args, **kw)[1][rplan.perm_bwd[0].long()]
             print(f"[time] {kname} pass i{ti}, {label} batch (x "
                   f"{tuple(xs.shape)}, y {tuple(ys.shape)} bf16, bw "
-                  f"{bw_x}x{bw_y}): kernel {k_ms * 1e3:.2f} us, bound "
-                  f"{b_ms * 1e3:.2f} us ({b_by}), plain {p_ms * 1e3:.2f} us "
+                  f"{bw_x}x{bw_y}, mm {kw.get('mm', 1)}): {times_text(t)} "
                   f"[{card}]")
+
+    # an older tree's span kernels beside these, where one is unpacked in
+    # build/ab_old: the same inputs, a process per run, in turns old, new,
+    # new, old
+    ab_root = root / "build" / "ab_old"
+    if (ab_root / "fbtt_embedding_tpu_torch").is_dir():
+        ab = {"old": [], "new": []}
+        for which in ("old", "new", "new", "old"):
+            run = subprocess.run(
+                [sys.executable, str(root / "scripts" / "time_span_kernels.py"),
+                 "--root", str(ab_root if which == "old" else root)],
+                capture_output=True, text=True, timeout=600)
+            if run.returncode != 0:
+                fail(f"time_span_kernels.py on the {which} tree exited "
+                     f"{run.returncode}: {run.stderr[-3000:]}")
+            ab[which].append(json.loads(run.stdout.splitlines()[-1]))
+
+        def parts_text(run, name, label):
+            return " + ".join(f"{k} {v:.2f}"
+                              for k, v in run["parts"][name][label].items())
+
+        for name, by_batch in ab["new"][0]["us"].items():
+            for label in by_batch:
+                old = [r["us"][name][label] for r in ab["old"]]
+                new = [r["us"][name][label] for r in ab["new"]]
+                print(f"[ab] {name} {label} batch, device us per call: "
+                      f"{ab_root.name} {old[0]:.2f} / {old[1]:.2f} "
+                      f"({parts_text(ab['old'][0], name, label)}), this tree "
+                      f"{new[0]:.2f} / {new[1]:.2f} "
+                      f"({parts_text(ab['new'][0], name, label)}): "
+                      f"{sum(old) / sum(new):.2f}x [{card}]")
+    else:
+        print(f"[ab] no older tree in {ab_root.relative_to(root)}: span "
+              "kernels not timed against it")
 
     serve_ms = host_ms(lambda: serve(params, idx, offs))
     big_ms = host_ms(lambda: serve_big(params, *requests[-1][2:]))
@@ -1106,16 +1297,15 @@ def main():
         for kname, fn, ref_fn, args, kw in (
                 ("tt_fwd", tt_fwd, tt_fwd_plain, fargs, {}),
                 ("tt_bwd", tt_bwd, tt_bwd_plain, bargs, kseg)):
-            k_ms = cuda_ms(lambda: fn(*args, **kw))
-            p_ms = cuda_ms(lambda: ref_fn(*args, **kw), reps=5, inner=3)
-            b_ms, b_by = generic_bound(gk, gidx, rowv, wv, B,
-                                       kname == "tt_bwd")
+            t = kernel_times(lambda: fn(*args, **kw),
+                             lambda: ref_fn(*args, **kw), 5, 3)
+            t["bound_ms"], t["bound_by"] = generic_bound(
+                gk, gidx, rowv, wv, B, kname == "tt_bwd")
             if label == "uniform":
-                times[kname] = [(k_ms, p_ms, b_ms, b_by)]
+                times[kname] = [t]
             print(f"[time] {kname} headline B={B} pooling {POOL} {label} "
-                  f"(nnz {gidx.shape[1]}, float32): kernel {k_ms * 1e3:.2f}"
-                  f" us, bound {b_ms * 1e3:.2f} us ({b_by}), plain "
-                  f"{p_ms * 1e3:.2f} us [{card}]")
+                  f"(nnz {gidx.shape[1]}, float32): {times_text(t)} "
+                  f"[{card}]")
 
     gserve_ms = host_ms(lambda: gserve(params, idx, offs))
     print(f"[time] serve impl='pallas' B={B} pooling {POOL}: {gserve_ms:.3f} "
@@ -1210,11 +1400,11 @@ def main():
             "launches_by_path": {path: c[name] for path, c in
                                  by_path.items()},
             "max_abs_err": max_err[name],
-            "ms": sum(r[0] for r in rows),
-            "plain_ms": sum(r[1] for r in rows),
-            "bound_ms": sum(r[2] for r in rows),
-            "bound_by": ("bytes" if all(r[3] == "bytes" for r in rows)
-                         else "operations"),
+            **{k: sum(r[k] for r in rows) for k in (
+                "ms", "plain_ms", "device_ms", "plain_device_ms",
+                "bound_ms")},
+            "bound_by": ("bytes" if all(r["bound_by"] == "bytes"
+                                        for r in rows) else "operations"),
             "library_ms": None,
         })
     print(json.dumps({"kernels": kernels}))

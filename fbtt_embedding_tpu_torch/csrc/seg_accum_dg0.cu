@@ -233,12 +233,8 @@ int launch_dg0(const int* runs, const int* first, const int* cnt, const void* x,
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  if (p_rows > 0) {
-    span_reduce_kernel<<<p_rows, kThreads, 0, stream>>>(runs, partial, acc, seg,
-                                                        bw_x * bw_y);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  err = launch_span_reduce(runs, partial, acc, p_rows, seg, bw_x * bw_y, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
   if (tp0 > 0) {
     dg0_reduce_kernel<<<tp0, kThreads, 0, stream>>>(dg0_part, dg0_key, dg0, nseg, seg,
                                                      x_w);

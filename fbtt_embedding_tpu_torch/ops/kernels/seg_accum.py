@@ -14,11 +14,30 @@ float32 layout (the TPU kernel's transposed accumulator and scratch tail
 are not carried over); ``z`` is rounded once to ``z_dtype``. Rows of the
 sentinel span and the ``acc`` of an empty span are exact zeros.
 
+The block-diagonal fold, ``mm > 1``: the table is ``kron(I_mm, G[j])``
+with ``G[j]`` its first diagonal block ``[bw_x/mm, bw_y/mm]``, which is all
+that is read. Each lane-block of x and y is ``mm`` sub-blocks of widths
+``bw_x/mm`` and ``bw_y/mm``; ``z`` is the same tensor as unfolded, and
+``acc`` comes back as ``[p_rows, bw_x/mm, bw_y/mm]``, the sum of the
+diagonal blocks in block order (what ``_extract_bd_grad`` gives of the
+unfolded ``acc``). Widths that are not multiples of ``mm`` raise.
+
 On a CUDA tensor :func:`seg_accum` launches the hand-written kernels of
 ``csrc/seg_accum.cu`` (segment-parallel partial gradient tiles, added per
 span in segment order: no float atomics, bitwise repeatable) or raises. On
 a CPU tensor it runs :func:`seg_accum_plain`, the same contract in plain
 PyTorch. Launches are counted in ``seg_accum.launches``.
+
+Widths the kernels take, after folding (``kx = bw_x/mm``, ``ky =
+bw_y/mm``; every dense width a multiple of 8 up to 2048): ``kx`` a
+multiple of 8, and either ``ky <= 8`` with ``kx <= 256`` (the narrow
+path) or ``ky`` a multiple of 8 (the CUDA-core path); in bfloat16, where
+a segment's rows fit 227 KB of shared memory, B3 passes with ``kx`` and
+``ky`` multiples of 16 run on the tensor cores, and B2 and B3 passes with
+``kx`` 16, 32 or 64 and ``ky`` 2, 4 or 8 on the narrow tensor cores. Where the
+full fold is not taken, the wrapper folds by the largest divisor of
+``mm`` that is and adds the remaining diagonal blocks of ``acc`` itself;
+it raises when even ``mm = 1`` is not taken.
 """
 
 from __future__ import annotations
@@ -29,9 +48,12 @@ from typing import Optional
 import torch
 
 _DTYPES = (torch.float32, torch.bfloat16)
-# the kernel stages the slab in 64 KB float chunks of at least 8 rows or
-# columns, so neither width may pass 64 KB / (8 * 4 bytes)
+# the CUDA-core path stages slabs in 64 KB float chunks of at least 8 rows
+# or columns, so no width may pass 64 KB / (8 * 4 bytes)
 _MAX_WIDTH = 2048
+# what each value of the library's path query means
+PATH_NAMES = {3: "narrow tensor cores", 2: "tensor cores", 1: "narrow",
+              0: "CUDA cores"}
 
 
 def span_of_rows(runs: torch.Tensor, nza: int, p_rows: int):
@@ -55,25 +77,47 @@ def span_outer_sum(x, y, span, live, blocks, bw_x, bw_y, p_rows):
     return torch.matmul(oh, outer).reshape(p_rows, bw_x, bw_y)
 
 
+def folded_slabs(table, p_rows, bw_x, bw_y, mm):
+    """``G[j]``, the first ``[bw_x/mm, bw_y/mm]`` diagonal block of every
+    slab ``T[j] = kron(I_mm, G[j])``: ``[p_rows, bw_x/mm, bw_y/mm]``."""
+    slabs = table[:p_rows * bw_x].reshape(p_rows, bw_x, bw_y)
+    return slabs[:, :bw_x // mm, :bw_y // mm]
+
+
+def diag_block_sum(acc: torch.Tensor, n: int) -> torch.Tensor:
+    """``[p, n*a, n*b]`` -> the sum of its ``n`` diagonal ``[a, b]``
+    blocks, in block order."""
+    if n == 1:
+        return acc
+    a, b = acc.shape[1] // n, acc.shape[2] // n
+    out = acc[:, :a, :b]
+    for i in range(1, n):
+        out = out + acc[:, i * a:(i + 1) * a, i * b:(i + 1) * b]
+    return out.contiguous()
+
+
 def seg_accum_plain(runs, first, cnt, x, y, table, *, blocks, bw_x, bw_y,
-                    p_rows, seg, z_dtype: Optional[torch.dtype] = None):
+                    p_rows, seg, z_dtype: Optional[torch.dtype] = None,
+                    mm: int = 1):
     """Plain PyTorch version: each row finds its span in ``runs``; the
-    products run batched in float32. It derives everything from ``runs``;
-    ``first``/``cnt``/``seg`` are the kernel's schedule and are accepted
-    only so that both versions take the same arguments."""
+    products run batched in float32 on the folded sub-blocks. It derives
+    everything from ``runs``; ``first``/``cnt``/``seg`` are the kernel's
+    schedule and are accepted only so that both versions take the same
+    arguments."""
     del first, cnt, seg
     z_dtype = z_dtype or x.dtype
     nza = x.shape[0]
+    nb, kx, ky = blocks * mm, bw_x // mm, bw_y // mm
     span, live = span_of_rows(runs, nza, p_rows)
-    slabs = table[:p_rows * bw_x].reshape(p_rows, bw_x, bw_y)[span].float()
-    z = torch.bmm(y.reshape(nza, blocks, bw_y).float(), slabs.transpose(1, 2))
+    slabs = folded_slabs(table, p_rows, bw_x, bw_y, mm)[span].float()
+    z = torch.bmm(y.reshape(nza, nb, ky).float(), slabs.transpose(1, 2))
     z = torch.where(live[:, None, None], z, torch.zeros((), device=z.device))
-    acc = span_outer_sum(x, y, span, live, blocks, bw_x, bw_y, p_rows)
+    acc = span_outer_sum(x, y, span, live, nb, kx, ky, p_rows)
     return acc, z.reshape(nza, blocks * bw_x).to(z_dtype)
 
 
 def check_pass(name, runs, first, cnt, x, y, table, blocks, bw_x, bw_y,
-               p_rows, seg, out_dtypes):
+               p_rows, seg, out_dtypes, mm=1):
     """Raise ValueError on inputs the gradient kernels do not take."""
     nseg = first.shape[0]
     for tname, t in (("runs", runs), ("first", first), ("cnt", cnt)):
@@ -85,6 +129,9 @@ def check_pass(name, runs, first, cnt, x, y, table, blocks, bw_x, bw_y,
     if runs.shape[0] < p_rows + 2:
         raise ValueError(f"{name}: runs needs >= p_rows + 2 = {p_rows + 2} "
                          f"entries, got {runs.shape[0]}")
+    if mm < 1 or bw_x % mm or bw_y % mm:
+        raise ValueError(f"{name}: the fold mm={mm} must divide both widths "
+                         f"{bw_x} and {bw_y}")
     if x.dtype not in _DTYPES or y.dtype != x.dtype or table.dtype != x.dtype:
         raise ValueError(f"{name}: x, y and table must share float32 or "
                          f"bfloat16, got {x.dtype}, {y.dtype}, {table.dtype}")
@@ -122,40 +169,69 @@ def check_cuda(name, tensors, bw_x, bw_y):
         raise ValueError(f"{name} needs 16-byte aligned inputs")
 
 
+def kernel_fold(name, path_fn, in_bf16, seg, blocks, bw_x, bw_y, mm):
+    """``(mm', path)``: the largest divisor ``mm'`` of ``mm`` whose folded
+    widths the kernel stages, and the path it takes there (see
+    :data:`PATH_NAMES`). Raises ValueError when not even ``mm' = 1``
+    stages."""
+    for d in range(mm, 0, -1):
+        if mm % d == 0:
+            path = path_fn(int(in_bf16), seg, blocks, bw_x, bw_y, d)
+            if path >= 0:
+                return d, path
+    raise ValueError(f"{name}: no kernel path stages widths {bw_x} x {bw_y} "
+                     f"at any fold of mm={mm}")
+
+
+_FOLDS = {}
+
+
+def cached_fold(name, path_fn, *args):
+    """:func:`kernel_fold` of kernel ``name``'s library, asked once per
+    arguments (the wrappers run on every training step)."""
+    key = (name, *args)
+    if key not in _FOLDS:
+        _FOLDS[key] = kernel_fold(name, path_fn, *args)
+    return _FOLDS[key]
+
+
 def seg_accum(runs, first, cnt, x, y, table, *, blocks, bw_x, bw_y, p_rows,
-              seg, z_dtype: Optional[torch.dtype] = None):
-    """``(acc [p_rows, bw_x, bw_y] float32, z [nseg*seg, blocks*bw_x])`` —
-    see the module docstring."""
+              seg, z_dtype: Optional[torch.dtype] = None, mm: int = 1):
+    """``(acc [p_rows, bw_x/mm, bw_y/mm] float32, z [nseg*seg,
+    blocks*bw_x])`` — see the module docstring."""
     z_dtype = z_dtype or x.dtype
     check_pass("seg_accum", runs, first, cnt, x, y, table, blocks, bw_x,
-               bw_y, p_rows, seg, (z_dtype,))
+               bw_y, p_rows, seg, (z_dtype,), mm)
     if x.device.type == "cpu":
         return seg_accum_plain(
             runs, first, cnt, x, y, table, blocks=blocks, bw_x=bw_x,
-            bw_y=bw_y, p_rows=p_rows, seg=seg, z_dtype=z_dtype)
+            bw_y=bw_y, p_rows=p_rows, seg=seg, z_dtype=z_dtype, mm=mm)
     if x.device.type != "cuda":
         raise ValueError(f"seg_accum runs on cpu or cuda, not {x.device}")
     check_cuda("seg_accum", (runs, first, cnt, x, y, table), bw_x, bw_y)
+    lib = _lib()
+    in_bf16 = x.dtype == torch.bfloat16
+    fold, _ = cached_fold("seg_accum", lib.fbtt_seg_accum_path, in_bf16, seg,
+                          blocks, bw_x, bw_y, mm)
+    kx, ky = bw_x // fold, bw_y // fold
     nseg = first.shape[0]
     dev = x.device
     z = torch.empty((nseg * seg, blocks * bw_x), dtype=z_dtype, device=dev)
-    acc = torch.empty((p_rows, bw_x, bw_y), dtype=torch.float32, device=dev)
-    partial = torch.empty((nseg + p_rows, bw_x * bw_y), dtype=torch.float32,
+    acc = torch.empty((p_rows, kx, ky), dtype=torch.float32, device=dev)
+    partial = torch.empty((nseg + p_rows, kx * ky), dtype=torch.float32,
                           device=dev)
-    lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.fbtt_seg_accum(
             runs.data_ptr(), first.data_ptr(), cnt.data_ptr(), x.data_ptr(),
             y.data_ptr(), table.data_ptr(), z.data_ptr(), partial.data_ptr(),
-            acc.data_ptr(), nseg, seg, blocks, bw_x, bw_y, p_rows,
-            int(x.dtype == torch.bfloat16), int(z_dtype == torch.bfloat16),
-            stream)
+            acc.data_ptr(), nseg, seg, blocks, bw_x, bw_y, fold, p_rows,
+            int(in_bf16), int(z_dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError("seg_accum launch failed: "
                            + lib.fbtt_error_string(err).decode())
     seg_accum.launches += 1
-    return acc, z
+    return diag_block_sum(acc, mm // fold), z
 
 
 seg_accum.launches = 0
@@ -168,8 +244,10 @@ def _lib():
     if lib.fbtt_seg_accum.argtypes is None:
         p = ctypes.c_void_p
         i = ctypes.c_int
-        lib.fbtt_seg_accum.argtypes = [p] * 9 + [i] * 8 + [p]
+        lib.fbtt_seg_accum.argtypes = [p] * 9 + [i] * 9 + [p]
         lib.fbtt_seg_accum.restype = ctypes.c_int
+        lib.fbtt_seg_accum_path.argtypes = [i] * 6
+        lib.fbtt_seg_accum_path.restype = ctypes.c_int
         lib.fbtt_error_string.argtypes = [ctypes.c_int]
         lib.fbtt_error_string.restype = ctypes.c_char_p
     return lib

@@ -14,11 +14,10 @@ middle/last core)::
 
   backward (FlatLookup, the JAX package's make_flat_vjp):
   dr   = dout[rowidx_s2] * w               gather [nza, D]
-  dZ1', dG2bd = seg_accum(Z1', dr, G2bd)   (kernel B3)
+  dZ1', dG2 = seg_accum(Z1', dr, G2bd)     (kernel B3, folded by mm)
   dZ1  = dZ1'[perm21]                      gather, s2 -> s1 order
   dz0, dG1 = seg_accum(z0, dZ1, G1)        (kernel B3, float32 dz0)
   dG0  = onehot(i0_s1)^T @ dz0             float32 product
-  dG2  = sum of the diagonal blocks of dG2bd
 
   with FBTT_DG0=fused (``_dg0_fused_gate``; off by default, as in the JAX
   package) the last two lines are one pass, and dz0 never leaves it:
@@ -29,7 +28,10 @@ runs the last core's forward and backward as one pass instead
 (``seg_fused_i2``, kernel B2: rows, dZ1 and dG2 together).
 
 ``G2bd`` is the last core expanded block-diagonally over the accumulated
-middle digits (``_bd_widths``). In pair mode (``_pair_gate``: nza >= 16384
+middle digits (``_bd_widths``). The gradient kernels B2 and B3 fold it
+(``mm``): they read only its first diagonal block, ``G2[j]``, and give
+``dG2`` as the sum of the diagonal blocks (what ``_extract_bd_grad``
+takes of an unfolded gradient). In pair mode (``_pair_gate``: nza >= 16384
 and the pair table fits) a ``[T*p0*p1 + 1, q0*q1*r2]`` table of
 ``G0[i0] @ G1[i1]`` replaces the z0 gather, the first pass and the s1 -> s2
 permute: ``Z1' = G01[pair_s2]``, and only the last pass runs forward; the
@@ -62,7 +64,10 @@ import numpy as np
 import torch
 
 from fbtt_embedding_tpu_torch.ops.indexing import tt_strides
-from fbtt_embedding_tpu_torch.ops.kernels.seg_accum import seg_accum
+from fbtt_embedding_tpu_torch.ops.kernels.seg_accum import (
+    diag_block_sum,
+    seg_accum,
+)
 from fbtt_embedding_tpu_torch.ops.kernels.seg_accum_dg0 import (
     dg0_fits,
     seg_accum_dg0,
@@ -346,13 +351,10 @@ def _bd_table(gk_t: torch.Tensor, mm: int, dt) -> torch.Tensor:
 def _extract_bd_grad(dgbd: torch.Tensor, mm: int, r_t: int, w_t: int):
     """Gradient of a block-diagonal expansion ``[tp, mm*r_t, mm*w_t]`` ->
     the core's ``[tp, r_t, w_t]``: the sum of the ``mm`` diagonal blocks,
-    in block order."""
-    if mm == 1:
-        return dgbd
-    out = dgbd[:, :r_t, :w_t]
-    for a in range(1, mm):
-        out = out + dgbd[:, a * r_t:(a + 1) * r_t, a * w_t:(a + 1) * w_t]
-    return out
+    in block order (the JAX package's signature; the kernels B2 and B3 fold
+    the table and give this sum themselves)."""
+    assert dgbd.shape[1:] == (mm * r_t, mm * w_t)
+    return diag_block_sum(dgbd, mm)
 
 
 def _pool_flat(rows: torch.Tensor, plan: FlatPlan, tb: int, dt):
@@ -482,8 +484,10 @@ def _pass_inputs(plan: FlatPlan, g0f, gk, tables, widths, p, q, r, t, dt,
 def _grad_passes(plan: FlatPlan, stages, dz, top, g0f, tables, widths, p, q,
                  r, t, dt, seg, dgs):
     """Kernel B3 for the passes ``top`` .. 1 from ``dz`` in s_top order,
-    then dG0: fills ``dgs[top..0]``. dz stays in the staging dtype between
-    passes; z0 is recomputed by the gather where pair mode skipped pass 1.
+    then dG0: fills ``dgs[top..0]``. Each pass folds its block-diagonal
+    table (``mm``), so B3 gives the core's gradient as it is. dz stays in
+    the staging dtype between passes; z0 is recomputed by the gather where
+    pair mode skipped pass 1.
     The float32 dz0 of pass 1 meets a float32 one-hot product, or, under
     :func:`_dg0_fused_gate`, pass 1 runs kernel B6 and gives dG0 itself."""
     tp0 = t * p[0]
@@ -496,14 +500,13 @@ def _grad_passes(plan: FlatPlan, stages, dz, top, g0f, tables, widths, p, q,
         kw = dict(blocks=q[0], bw_x=bw_in, bw_y=bw_out, p_rows=t * p[ti],
                   seg=seg)
         if ti == 1 and _dg0_fused_gate(q[0] * bw_in):
-            dgbd, dg0 = seg_accum_dg0(*span, x_stage, dz, _i0c(plan, tp0),
-                                      tables[0], tp0=tp0, **kw)
+            dgs[1], dg0 = seg_accum_dg0(*span, x_stage, dz, _i0c(plan, tp0),
+                                        tables[0], tp0=tp0, **kw)
             dgs[0] = dg0.reshape(tp0, q[0], r[1])
         else:
-            dgbd, dz = seg_accum(
-                *span, x_stage, dz, tables[ti - 1],
+            dgs[ti], dz = seg_accum(
+                *span, x_stage, dz, tables[ti - 1], mm=mm,
                 z_dtype=dt if ti > 1 else torch.float32, **kw)
-        dgs[ti] = _extract_bd_grad(dgbd, mm, r[ti], q[ti] * r[ti + 1])
         if ti > 1:
             dz = dz[plan.perm_bwd[ti - 2].long()]  # s_ti -> s_ti-1
     if dgs[0] is None:
@@ -646,12 +649,11 @@ def flat_train_apply(cores, tt_p_shapes, tt_q_shapes, tt_ranks, batch_size,
     dz = _row_cotangents(d_output, plan, tb, d, dt)
     li = ndim - 1
     mm, bw_in, bw_out = widths[li - 1]
-    dgbd, dz, rows = seg_fused_i2(
+    dgs = [None] * ndim
+    dgs[li], dz, rows = seg_fused_i2(
         plan.runs[li - 1], plan.first[li - 1], plan.cnt[li - 1],
         stages[li - 1], dz, tables[li - 1], blocks=q[0], bw_x=bw_in,
-        bw_y=bw_out, p_rows=t * p[li], seg=seg)
-    dgs = [None] * ndim
-    dgs[li] = _extract_bd_grad(dgbd, mm, r[li], q[li] * r[li + 1])
+        bw_y=bw_out, p_rows=t * p[li], seg=seg, mm=mm)
     out = _pool_flat(rows, plan, tb, dt).reshape(t, batch_size, d)
 
     if li > 1:

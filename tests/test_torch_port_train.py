@@ -5,6 +5,10 @@
   in interpret mode, rtol = atol = 1e-5, in float32 and with bfloat16
   outputs (on integer-valued inputs, so that every product and sum is exact
   and both sides round the same value);
+- the block-diagonal fold (``mm`` = 2, 4) of both plain versions on a true
+  ``kron(I_mm, G[j])`` table against the same Pallas kernels followed by
+  ``_extract_bd_grad``, rtol = atol = 1e-5; the wrappers' checks of ``mm``
+  and the fold they fall back to (``kernel_fold``);
 - the flat lookup's gradients (``FlatLookup``) against JAX ``make_flat_vjp``
   in interpret mode, and ``flat_train_apply`` against its JAX counterpart,
   float32, rtol 1e-5;
@@ -48,6 +52,9 @@ from fbtt_embedding_tpu_torch import (
 from fbtt_embedding_tpu_torch.ops.kernels import tt_flat as tflat
 from fbtt_embedding_tpu_torch.ops.kernels import tt_kernel as tkernel
 from fbtt_embedding_tpu_torch.ops.kernels.seg_accum import (
+    cached_fold,
+    diag_block_sum,
+    kernel_fold,
     seg_accum,
     seg_accum_plain,
 )
@@ -204,6 +211,152 @@ def test_gradient_pass_wrappers_check_inputs(fn):
     if fn is seg_accum:
         with pytest.raises(ValueError):  # z in a dtype the kernel lacks
             fn(*tabs, x, y, table, z_dtype=torch.float16, **kw)
+
+
+FOLD_SHAPES = [  # headline-like i2 (G 32x4 at mm 4), i1-like, a narrow one
+    (4, 128, 16, 25, 512, 128),
+    (4, 32, 128, 22, 512, 128),
+    (2, 16, 64, 11, 384, 128),
+]
+
+
+def _fold_inputs(shape, mm, integer):
+    """``_pass_inputs`` with the table replaced by a true block-diagonal
+    one, ``kron(I_mm, G[j])`` from a numpy-seeded ``G`` (zero tail)."""
+    blocks, bw_x, bw_y, p_rows, nza, seg = shape
+    keys, jtabs, ttabs, x, y, _ = _pass_inputs(shape, integer)
+    kx, ky = bw_x // mm, bw_y // mm
+    rng = np.random.default_rng(sum(shape) + 7 * mm + integer)
+    if integer:
+        g = rng.integers(-3, 4, size=(p_rows, kx, ky)).astype(np.float32)
+    else:
+        hot = np.bincount(keys).max() * blocks
+        g = (rng.normal(size=(p_rows, kx, ky)) * hot ** 0.25
+             / np.sqrt(max(kx, ky))).astype(np.float32)
+    bd = tflat._bd_table(torch.as_tensor(g), mm, torch.float32)
+    table = np.concatenate([
+        bd.reshape(p_rows * bw_x, bw_y).numpy(),
+        np.zeros((jflat.SPAN_BLOCK * bw_x, bw_y), np.float32)])
+    return keys, jtabs, ttabs, x, y, table
+
+
+@pytest.mark.parametrize("mm", [2, 4])
+@pytest.mark.parametrize("shape", FOLD_SHAPES)
+def test_seg_accum_plain_fold_matches_pallas_kernel(shape, mm):
+    blocks, bw_x, bw_y, p_rows, nza, seg = shape
+    keys, jtabs, ttabs, x, y, table = _fold_inputs(shape, mm, False)
+    acc_bd, want_z = jflat._seg_accum(
+        nza // seg, blocks, bw_x, bw_y, p_rows, "float32", "float32", True,
+        *jtabs, jnp.asarray(x), jnp.asarray(y), jnp.asarray(table), seg=seg)
+    want_acc = jflat._extract_bd_grad(acc_bd, mm, bw_x // mm, bw_y // mm)
+    kw = dict(blocks=blocks, bw_x=bw_x, bw_y=bw_y, p_rows=p_rows, seg=seg,
+              z_dtype=torch.float32, mm=mm)
+    args = (*ttabs, torch.as_tensor(x), torch.as_tensor(y),
+            torch.as_tensor(table))
+    acc, z = seg_accum_plain(*args, **kw)
+    assert acc.shape == (p_rows, bw_x // mm, bw_y // mm)
+    np.testing.assert_allclose(acc.numpy(), np.asarray(want_acc), **TIGHT)
+    np.testing.assert_allclose(z.numpy(), np.asarray(want_z), **TIGHT)
+    _assert_span_zeros(acc, [z], keys, p_rows)
+    before = seg_accum.launches
+    acc2, z2 = seg_accum(*args, **kw)
+    assert seg_accum.launches == before
+    assert torch.equal(acc, acc2) and torch.equal(z, z2)
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mm", [2, 4])
+@pytest.mark.parametrize("shape", FOLD_SHAPES)
+def test_seg_fused_i2_plain_fold_matches_pallas_kernel(shape, mm, dt):
+    blocks, bw_x, bw_y, p_rows, nza, seg = shape
+    keys, jtabs, ttabs, x, y, table = _fold_inputs(shape, mm,
+                                                   dt == "bfloat16")
+    acc_t = jflat._acc_transposed(bw_x, bw_y)
+    jdt = jnp.dtype(dt)
+    acc2d, want_z, want_rows = jflat._seg_fused_i2_call(
+        nza // seg, blocks, bw_x, bw_y, p_rows, dt, True, acc_t=acc_t,
+        sb=jflat.SPAN_BLOCK, trip="concat", seg=seg)(
+        *jtabs, jnp.asarray(x, jdt), jnp.asarray(y, jdt),
+        jnp.asarray(table, jdt))
+    want_acc = jflat._extract_bd_grad(
+        jflat._acc_to_canonical(acc2d, p_rows, bw_x, bw_y, acc_t), mm,
+        bw_x // mm, bw_y // mm)
+    tdt = getattr(torch, dt)
+    kw = dict(blocks=blocks, bw_x=bw_x, bw_y=bw_y, p_rows=p_rows, seg=seg,
+              mm=mm)
+    args = (*ttabs, torch.as_tensor(x).to(tdt), torch.as_tensor(y).to(tdt),
+            torch.as_tensor(table).to(tdt))
+    acc, z, rows = seg_fused_i2_plain(*args, **kw)
+    assert acc.shape == (p_rows, bw_x // mm, bw_y // mm)
+    assert z.dtype == tdt and rows.dtype == tdt
+    np.testing.assert_allclose(acc.numpy(), np.asarray(want_acc), **TIGHT)
+    for got, want in ((z, want_z), (rows, want_rows)):
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want).astype(np.float32),
+                                   **TIGHT)
+    _assert_span_zeros(acc, [z, rows], keys, p_rows)
+    before = seg_fused_i2.launches
+    got = seg_fused_i2(*args, **kw)
+    assert seg_fused_i2.launches == before
+    assert all(torch.equal(a, b) for a, b in zip((acc, z, rows), got))
+
+
+@pytest.mark.parametrize("fn", [seg_accum, seg_fused_i2])
+def test_gradient_pass_wrappers_check_fold(fn):
+    shape = (2, 16, 8, 10, 128, 64)
+    _, _, ttabs, x, y, table = _pass_inputs(shape, False)
+    args = (*ttabs, torch.as_tensor(x), torch.as_tensor(y),
+            torch.as_tensor(table))
+    kw = dict(blocks=2, bw_x=16, bw_y=8, p_rows=10, seg=64)
+    assert fn(*args, mm=2, **kw)[0].shape == (10, 8, 4)
+    for mm in (3, 16, 0):  # not a divisor of bw_x (16), of bw_y (8), < 1
+        with pytest.raises(ValueError):
+            fn(*args, mm=mm, **kw)
+
+
+@pytest.mark.parametrize("mm, staged, want", [
+    (4, {4, 2, 1}, (4, 1)),  # the whole fold stages
+    (4, {2, 1}, (2, 1)),     # folded widths too narrow at 4: the next divisor
+    (6, {3, 1}, (3, 1)),     # divisors only: 5 and 4 are skipped
+    (4, set(), None),        # not even mm' = 1: raises
+])
+def test_kernel_fold_takes_the_largest_staged_divisor(mm, staged, want):
+    calls = []
+
+    def path_fn(in_bf16, seg, blocks, bw_x, bw_y, d):  # the library's query
+        calls.append(d)
+        return 1 if d in staged else -1
+
+    if want is None:
+        with pytest.raises(ValueError):
+            kernel_fold("seg_accum", path_fn, True, 64, 4, 96, 48, mm)
+        return
+    assert kernel_fold("seg_accum", path_fn, True, 64, 4, 96, 48, mm) == want
+    assert all(mm % d == 0 for d in calls)
+
+
+def test_cached_fold_asks_the_library_once_per_widths():
+    calls = []
+
+    def path_fn(in_bf16, seg, blocks, bw_x, bw_y, d):
+        calls.append((bw_x, d))
+        return 1 if d <= 2 else -1
+
+    for _ in range(3):
+        assert cached_fold("test_kernel", path_fn, 1, 64, 4, 96, 48, 4) \
+            == (2, 1)
+    assert calls == [(96, 4), (96, 2)]
+    assert cached_fold("test_kernel", path_fn, 1, 64, 4, 32, 48, 4) == (2, 1)
+    assert calls[2:] == [(32, 4), (32, 2)]
+
+
+def test_diag_block_sum_matches_extract_bd_grad():
+    rng = np.random.default_rng(11)
+    acc = rng.normal(size=(5, 4 * 8, 4 * 6)).astype(np.float32)
+    for n in (1, 2, 4):
+        want = jflat._extract_bd_grad(jnp.asarray(acc), n, 32 // n, 24 // n)
+        got = diag_block_sum(torch.as_tensor(acc), n)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
 def test_layout_helpers_match_jax():

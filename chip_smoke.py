@@ -7,12 +7,18 @@ CUDA card and ``nvcc``). Phases, each printing its own lines:
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: compile every kernel of ``fbtt_embedding_tpu_torch/csrc`` into
    ``build/`` (one ``nvcc`` per source, all at once) and load it; count
-   the HMMA (tensor-core) instructions in B3's SASS (``cuobjdump``), which
-   must not be 0;
+   the HMMA (tensor-core) instructions in B1's and B3's SASS
+   (``cuobjdump``), which must not be 0;
 3. kernels vs plain: the segment-transform kernel (B1) at both headline
-   pass shapes in float32 and bfloat16, and at one tt_ndim-2 and one
-   tt_ndim-4 pass; the fused last-core training pass (B2) and the gradient
-   pass (B3) at the headline training pass shapes and at two tt_ndim-4
+   pass shapes in float32 and bfloat16, at one tt_ndim-2 and one tt_ndim-4
+   pass, and folded by ``mm`` on block-diagonal tables (headline i2 mm=4,
+   tt_ndim-4 pass 2 mm=4 and pass 3 mm=16, and last cores of ranks 16, 32
+   and 64 by q 2, 4 and 8 folded by 4 in bfloat16, each of which must take
+   the narrow tensor cores), each run twice and required bitwise equal,
+   with the path each takes (the headline i1 and folded i2 passes in
+   bfloat16 must take the tensor cores); the fused last-core training
+   pass (B2) and the gradient pass (B3) at the headline training pass
+   shapes and at two tt_ndim-4
    passes whose slabs take several staging chunks, on dense slabs and on
    block-diagonal tables folded by ``mm`` (headline i2 mm=4, tt_ndim-4
    pass 3 mm=16 and pass 2 mm=4), in float32 and bfloat16 (B3 with float32
@@ -66,9 +72,11 @@ CUDA card and ``nvcc``). Phases, each printing its own lines:
    wrappers' host work counts where it is slower than the kernels) and
    device time (``device_ms`` and ``plain_device_ms``: the summed
    durations of the call's kernels under ``torch.profiler``, each kernel
-   named) (B2, B3, B6, B4 and B5 on a uniform and a Zipf batch; B2
-   and B3 with the fold the step passes), where an older tree is unpacked
-   in ``build/ab_old/`` its B2, B3 and B6 beside these on the same inputs
+   named) (B1, B2, B3, B6, B4 and B5 on a uniform and a Zipf batch; B1, B2
+   and B3 with the fold the pipeline passes; B1 beside one
+   ``torch._grouped_mm`` call on the same inputs, the library yardstick),
+   where an older tree is unpacked in ``build/ab_old/`` its B1, B2, B3 and
+   B6 beside these on the same inputs
    (``scripts/time_span_kernels.py``, one process per run, in turns old,
    new, new, old); host-clock medians of the serve per request, the
    training step per call at B=512, 1024 and 2048, the ``impl="pallas"``
@@ -280,10 +288,14 @@ def span_case(rng, nza, blocks, bw_in, bw_out, p_rows, dtype, seg,
     return runs, first, cnt, x, y, table.to(dtype)
 
 
-def pass_bound(runs, nseg, x, blocks, bw_in, bw_out, p_rows, out_dtype):
-    """(least ms, bound_by) for one pass on these inputs: each x row read
+def pass_bound(runs, nseg, x, blocks, bw_in, bw_out, p_rows, out_dtype,
+               mm=1):
+    """(least ms, bound_by) for one B1 pass on these inputs: each x row read
     once, each y row written once, each live slab read once, the span
-    tables read once; multiply-adds of the live rows only."""
+    tables read once; multiply-adds of the live rows only. With a
+    block-diagonal table (``mm > 1``) the work is the folded one: each live
+    slab is its ``[bw_in/mm, bw_out/mm]`` block G[j], and each row does
+    1/mm of the dense multiply-adds."""
     import torch
 
     nza = x.shape[0]
@@ -293,9 +305,9 @@ def pass_bound(runs, nseg, x, blocks, bw_in, bw_out, p_rows, out_dtype):
     isz = x.element_size()
     osz = torch.empty((), dtype=out_dtype).element_size()
     nbytes = (nza * blocks * bw_in * isz + nza * blocks * bw_out * osz
-              + live_slabs * bw_in * bw_out * isz
+              + live_slabs * bw_in * bw_out * isz // (mm * mm)
               + (runs.numel() + 2 * nseg) * 4)
-    flops = 2.0 * live_rows * blocks * bw_in * bw_out
+    flops = 2.0 * live_rows * blocks * bw_in * bw_out / mm
     peak = PEAK_FLOPS[str(x.dtype).replace("torch.", "")]
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
     return (max(t_bytes, t_ops) * 1e3,
@@ -340,19 +352,58 @@ def grad_pass_bound(runs, nseg, x, blocks, bw_x, bw_y, p_rows, z_dtype,
 
 
 def span_path(kname, dtype, blocks, bw_x, bw_y, mm):
-    """The path kernel 1 of B2 or B3 takes on these widths, as its library
-    chooses it (and the fold the wrapper passes, where not all of ``mm``)."""
+    """The path B1, or kernel 1 of B2 or B3, takes on these widths, as its
+    library chooses it (and the fold the wrapper passes, where not all of
+    ``mm``)."""
     import torch
 
-    from fbtt_embedding_tpu_torch.ops.kernels import seg_accum, seg_fused_i2
+    from fbtt_embedding_tpu_torch.ops.kernels import (
+        seg_accum,
+        seg_fused_i2,
+        seg_transform,
+    )
     from fbtt_embedding_tpu_torch.ops.kernels.tt_flat import SEG
 
-    lib = (seg_fused_i2 if kname == "seg_fused_i2" else seg_accum)._lib()
+    mod = {"seg_fused_i2": seg_fused_i2,
+           "seg_transform": seg_transform}.get(kname, seg_accum)
     fold, path = seg_accum.kernel_fold(
-        kname, getattr(lib, f"fbtt_{kname}_path"), dtype == torch.bfloat16,
-        SEG, blocks, bw_x, bw_y, mm)
+        kname, getattr(mod._lib(), f"fbtt_{kname}_path"),
+        dtype == torch.bfloat16, SEG, blocks, bw_x, bw_y, mm)
     return seg_accum.PATH_NAMES[path] + (
         f", folded by {fold}" if fold != mm else "")
+
+
+def grouped_mm_call(runs, x, table, blocks, bw_in, bw_out, p_rows, mm):
+    """(call, note): one ``torch._grouped_mm`` computing B1's y on these
+    inputs, the library yardstick: x viewed as ``[nza * nb, kx]`` keeps the
+    rows of span j contiguous at ``runs[j] * nb .. runs[j+1] * nb``, one
+    group per span up to the sentinel span, whose slab is zeros. On the
+    folded slabs ``G[j]`` where it takes them, else on the dense slabs (it
+    wants 16-byte rows: a folded ky of 4 is 8 bytes); ``call`` is None where
+    it takes neither, and ``note`` says why."""
+    import torch
+
+    notes = []
+    for fold in sorted({mm, 1}, reverse=True):
+        nb, kx, ky = blocks * fold, bw_in // fold, bw_out // fold
+        a = x.reshape(-1, kx)
+        b = table[:(p_rows + 1) * bw_in].reshape(p_rows + 1, bw_in, bw_out)
+        b = b[:, :kx, :ky].contiguous()
+        offs = (runs[1:p_rows + 2] * nb).to(torch.int32).contiguous()
+
+        def call(a=a, b=b, offs=offs):
+            return torch._grouped_mm(a, b, offs=offs)
+
+        try:
+            call()
+            torch.cuda.synchronize()
+        except (RuntimeError, AttributeError, TypeError) as e:
+            notes.append(f"refused at fold {fold} ({kx} x {ky}): "
+                         f"{str(e).splitlines()[0][:120]}")
+            continue
+        where = "folded slabs" if fold > 1 else "dense slabs"
+        return call, "; ".join(notes + [f"on the {where}, {kx} x {ky}"])
+    return None, "; ".join(notes)
 
 
 def i0_rows(rng, runs, p_rows, nza, tp0, zipf):
@@ -583,16 +634,18 @@ def main():
         for line in lib.with_suffix(".log").read_text().splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build] {stem}: {line.strip()}")
-    # the bf16 wide pass of B3 runs on the tensor cores: HMMA in its SASS
+    # the bf16 passes of B1 and B3 run on the tensor cores: HMMA in their
+    # SASS
     cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
-    sass = subprocess.run([str(cuobjdump), "-sass", str(libs["seg_accum"])],
-                          capture_output=True, text=True, check=True,
-                          timeout=300).stdout
-    n_hmma = sum("HMMA" in line for line in sass.splitlines())
-    print(f"[build] seg_accum SASS ({cuobjdump.name} -sass): {n_hmma} HMMA "
-          "instructions")
-    if n_hmma == 0:
-        fail("seg_accum's SASS holds no HMMA instruction")
+    for stem in ("seg_transform", "seg_accum"):
+        sass = subprocess.run([str(cuobjdump), "-sass", str(libs[stem])],
+                              capture_output=True, text=True, check=True,
+                              timeout=300).stdout
+        n_hmma = sum("HMMA" in line for line in sass.splitlines())
+        print(f"[build] {stem} SASS ({cuobjdump.name} -sass): {n_hmma} HMMA "
+              "instructions")
+        if n_hmma == 0:
+            fail(f"{stem}'s SASS holds no HMMA instruction")
 
     # 3. kernels vs plain
     rng = np.random.default_rng(0)
@@ -600,30 +653,61 @@ def main():
     f32_tol = dict(rtol=1e-5, atol=1e-5)
     bf16_tol = dict(rtol=8e-3, atol=1e-4)  # f32 sums rounded once: 1 ulp
     max_err = dict.fromkeys(wrappers, 0.0)
-    cases = [  # name, blocks, bw_in, bw_out, p_rows, nza
-        ("headline i1", 4, 32, 128, 220, 10240),
-        ("headline i2", 4, 128, 16, 250, 10240),
-        ("ndim2 q=[8,8] r=[32]", 8, 32, 8, 1000, 4096),
-        ("ndim4 q=[4]*4 r=[32]*3 pass 2", 4, 128, 512, 90, 2048),
+    f32, bf16 = torch.float32, torch.bfloat16
+    plain_dt = ((f32, f32), (bf16, bf16))
+    cases = [  # name, blocks, bw_in, bw_out, p_rows, nza, mm, (in, out)
+        #        dtypes, the path bfloat16 must take
+        ("headline i1", 4, 32, 128, 220, 10240, 1,
+         plain_dt + ((bf16, f32),), "tensor cores"),
+        ("headline i2", 4, 128, 16, 250, 10240, 1, plain_dt, None),
+        ("ndim2 q=[8,8] r=[32]", 8, 32, 8, 1000, 4096, 1, plain_dt, None),
+        ("ndim4 q=[4]*4 r=[32]*3 pass 2", 4, 128, 512, 90, 2048, 1,
+         plain_dt, None),
+        # the folds the pipeline passes (headline i2: G2 32 x 4 over 16
+        # sub-blocks; tt_ndim 4: pass 2 32 x 128 over 16, pass 3 32 x 4
+        # over 64, staged in chunks of rows)
+        ("headline i2", 4, 128, 16, 250, 10240, 4,
+         plain_dt + ((bf16, f32),), "narrow tensor cores"),
+        ("ndim4 q=[4]*4 r=[32]*3 pass 2", 4, 128, 512, 90, 2048, 4,
+         plain_dt, "tensor cores"),
+        ("ndim4 q=[4]*4 r=[32]*3 pass 3", 4, 512, 64, 90, 2048, 16,
+         plain_dt, "narrow tensor cores"),
     ]
-    for name, blocks, bw_in, bw_out, p_rows, nza in cases:
-        for dtype in (torch.float32, torch.bfloat16):
+    # every width of the narrow tensor-core path: a last core G[j] of rank
+    # kx = 16, 32 or 64 by q ky = 2, 4 or 8, folded by 4, in bfloat16
+    cases += [(f"last core rank {kx} q {ky}", 4, 4 * kx, 4 * ky, 250, 2048,
+               4, ((bf16, bf16),), "narrow tensor cores")
+              for kx in (16, 32, 64) for ky in (2, 4, 8)]
+    for (name, blocks, bw_in, bw_out, p_rows, nza, mm, dtypes,
+         want_path) in cases:
+        name = f"{name} mm={mm}"
+        for dtype, out_dtype in dtypes:
             runs, first, cnt, x, table = span_case(
-                rng, nza, blocks, bw_in, bw_out, p_rows, dtype, seg)
+                rng, nza, blocks, bw_in, bw_out, p_rows, dtype, seg, mm=mm)
             kw = dict(blocks=blocks, bw_in=bw_in, bw_out=bw_out,
-                      p_rows=p_rows, seg=seg, out_dtype=dtype)
+                      p_rows=p_rows, seg=seg, out_dtype=out_dtype, mm=mm)
             y = seg_transform(runs, first, cnt, x, table, **kw)
+            again = seg_transform(runs, first, cnt, x, table, **kw)
             torch.cuda.synchronize()
+            if not torch.equal(y, again):
+                fail(f"seg_transform {name}: two runs differ (not bitwise "
+                     "repeatable)")
             ref = seg_transform_plain(runs, first, cnt, x, table, **kw)
-            tol = f32_tol if dtype == torch.float32 else bf16_tol
+            tol = f32_tol if out_dtype == f32 else bf16_tol
             dead = runs[p_rows].item()
             if dead < nza and y[dead:].abs().max().item() != 0:
                 fail(f"{name} {dtype}: sentinel rows are not zero")
             err = check_close(f"seg_transform {name}", y, ref, tol)
             max_err["seg_transform"] = max(max_err["seg_transform"], err)
-            print(f"[kernel] seg_transform {name} {str(dtype)[6:]}: "
-                  f"max_abs_err {err:.3e} (rtol {tol['rtol']}, "
-                  f"atol {tol['atol']}) ok")
+            path = span_path("seg_transform", dtype, blocks, bw_in, bw_out,
+                             mm)
+            if want_path and dtype == bf16 and path != want_path:
+                fail(f"seg_transform {name} bf16 takes the {path} path, not "
+                     f"the {want_path}")
+            print(f"[kernel] seg_transform {name} {str(dtype)[6:]} -> "
+                  f"{str(out_dtype)[6:]} ({path}): max_abs_err {err:.3e} "
+                  f"(rtol {tol['rtol']}, atol {tol['atol']}), bitwise "
+                  "repeatable, ok")
 
     # B2 and B3 at the headline training passes (B3: i1 with float32 z as
     # in the fused step, i2 as in the two-pass backward) and at two wider
@@ -1153,33 +1237,57 @@ def main():
     print(f"[train] launches on the FBTT_DG0=fused training path: "
           f"{dtrain_launches}")
 
-    # 6. times, on the inputs the B=512 uniform serve hands the kernels
+    # 6. times. B1 on the inputs the B=512 uniform and Zipf(1.05) serves
+    # hand it, beside one torch._grouped_mm call on the same inputs; the
+    # uniform one's times go into the kernels' line
     idx, offs = requests[0][2], requests[0][3]
-    rowidx, _ = fbt.rowidx_from_offsets(offs, idx.shape[0], 1, B)
-    plan0, nza = tt_flat._build_plan(idx, rowidx, None, None, None, P, 1, B,
-                                     seg=seg)
     dt = torch.bfloat16
     tcores = fbt.params_from_jax(cores, device="cuda").tt_cores
     g0f, _, tables, widths = tt_flat._flat_setup(tcores, P, Q, R, dt)
-    x = tt_flat._z0(plan0, g0f, P[0])
     times = {}
-    for ti in (1, 2):
-        _, bw_in, bw_out = widths[ti - 1]
-        args = (plan0.runs[ti - 1], plan0.first[ti - 1], plan0.cnt[ti - 1],
-                x, tables[ti - 1])
-        kw = dict(blocks=Q[0], bw_in=bw_in, bw_out=bw_out, p_rows=P[ti],
-                  seg=seg, out_dtype=dt)
-        t = kernel_times(lambda: seg_transform(*args, **kw),
-                         lambda: seg_transform_plain(*args, **kw))
-        t["bound_ms"], t["bound_by"] = pass_bound(
-            plan0.runs[ti - 1], plan0.first[ti - 1].numel(), x, Q[0], bw_in,
-            bw_out, P[ti], dt)
-        times.setdefault("seg_transform", []).append(t)
-        print(f"[time] seg_transform pass i{ti} (x {tuple(x.shape)} bf16, "
-              f"bw {bw_in}->{bw_out}): {times_text(t)} [{card}]")
-        y = seg_transform(*args, **kw)
-        if ti == 1:
-            x = y[plan0.perm_fwd[0].long()]
+    for label, (ridx, roffs) in (("uniform", requests[0][2:4]),
+                                 ("zipf1.05", requests[1][2:4])):
+        rrow, _ = fbt.rowidx_from_offsets(roffs, ridx.shape[0], 1, B)
+        rplan, _ = tt_flat._build_plan(ridx, rrow, None, None, None, P, 1, B,
+                                       seg=seg)
+        x = tt_flat._z0(rplan, g0f, P[0])
+        for ti in (1, 2):
+            mm, bw_in, bw_out = widths[ti - 1]
+            span = (rplan.runs[ti - 1], rplan.first[ti - 1],
+                    rplan.cnt[ti - 1])
+            args = span + (x, tables[ti - 1])
+            kw = dict(blocks=Q[0], bw_in=bw_in, bw_out=bw_out, p_rows=P[ti],
+                      seg=seg, out_dtype=dt, mm=mm)
+            t = kernel_times(lambda: seg_transform(*args, **kw),
+                             lambda: seg_transform_plain(*args, **kw))
+            t["bound_ms"], t["bound_by"] = pass_bound(
+                span[0], span[1].numel(), x, Q[0], bw_in, bw_out, P[ti], dt,
+                mm)
+            y = seg_transform(*args, **kw)
+            t["library_ms"] = None
+            call, note = grouped_mm_call(span[0], x, tables[ti - 1], Q[0],
+                                         bw_in, bw_out, P[ti], mm)
+            lib = f"torch._grouped_mm not measured ({note})"
+            if call is not None:
+                got = call().reshape(y.shape)
+                lerr = (got.float() - y.float()).abs().max().item()
+                if torch.allclose(got.float(), y.float(), **bf16_tol):
+                    t["library_ms"] = cuda_ms(call)
+                    lib = (f"torch._grouped_mm {t['library_ms'] * 1e3:.2f} "
+                           f"us between events, "
+                           f"{device_ms(call)[0] * 1e3:.2f} us on the device "
+                           f"({note}; max_abs_err {lerr:.3e} vs the kernel)")
+                else:
+                    lib = (f"torch._grouped_mm disagrees with the kernel "
+                           f"(max_abs_err {lerr:.3e}): not timed ({note})")
+            if label == "uniform":
+                times.setdefault("seg_transform", []).append(t)
+            path = span_path("seg_transform", dt, Q[0], bw_in, bw_out, mm)
+            print(f"[time] seg_transform pass i{ti}, {label} batch (x "
+                  f"{tuple(x.shape)} bf16, bw {bw_in}->{bw_out}, mm {mm}, "
+                  f"{path}): {times_text(t)}; {lib} [{card}]")
+            if ti == 1:
+                x = y[rplan.perm_fwd[0].long()]
 
     # the training step's B2 (i2) and B3 (i1, float32 z), on a uniform and
     # a Zipf(1.05) B=512 batch (the first two serve requests); the uniform
@@ -1233,7 +1341,7 @@ def main():
                   f"{bw_x}x{bw_y}, mm {kw.get('mm', 1)}): {times_text(t)} "
                   f"[{card}]")
 
-    # an older tree's span kernels beside these, where one is unpacked in
+    # an older tree's B1, B2, B3 and B6 beside these, where one is unpacked in
     # build/ab_old: the same inputs, a process per run, in turns old, new,
     # new, old
     ab_root = root / "build" / "ab_old"
@@ -1405,7 +1513,9 @@ def main():
                 "bound_ms")},
             "bound_by": ("bytes" if all(r["bound_by"] == "bytes"
                                         for r in rows) else "operations"),
-            "library_ms": None,
+            "library_ms": (sum(r["library_ms"] for r in rows)
+                           if all(r.get("library_ms") is not None
+                                  for r in rows) else None),
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

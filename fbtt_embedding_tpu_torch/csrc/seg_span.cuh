@@ -2,7 +2,8 @@
 // (sm_90a). Shared by seg_accum.cu (kernel B3, replacing the Pallas TPU
 // kernel tt_flat.py :: _seg_accum_call) and seg_fused_i2.cu (kernel B2,
 // replacing _seg_fused_i2_call), and in part by seg_accum_dg0.cu (kernel
-// B6, which uses the CUDA-core helpers and the span reduction below).
+// B6, which uses the CUDA-core helpers and the span reduction below) and
+// seg_transform.cu (kernel B1, which uses the staging and mma primitives).
 //
 // Lookups are sorted by one core index j, so the rows of core row j form
 // one contiguous span runs[j] .. runs[j+1]. For every span j < p_rows and

@@ -9,7 +9,7 @@ middle/last core)::
   z0   = G0f[i0_s1]                        gather [nza, q0*r1]
   Z1   = seg_transform(z0, G1)             [nza, q0*q1*r2]      (kernel B1)
   Z1'  = Z1[perm12]                        gather, s1 -> s2 order
-  rows = seg_transform(Z1', G2bd)          [nza, D]             (kernel B1)
+  rows = seg_transform(Z1', G2bd)          [nza, D]   (kernel B1, folded by mm)
   out  = onehot(rowidx_s2) @ rows          pooling, float32
 
   backward (FlatLookup, the JAX package's make_flat_vjp):
@@ -28,8 +28,8 @@ runs the last core's forward and backward as one pass instead
 (``seg_fused_i2``, kernel B2: rows, dZ1 and dG2 together).
 
 ``G2bd`` is the last core expanded block-diagonally over the accumulated
-middle digits (``_bd_widths``). The gradient kernels B2 and B3 fold it
-(``mm``): they read only its first diagonal block, ``G2[j]``, and give
+middle digits (``_bd_widths``). The kernels B1, B2 and B3 fold it
+(``mm``): they read only its first diagonal block, ``G2[j]``; B2 and B3 give
 ``dG2`` as the sum of the diagonal blocks (what ``_extract_bd_grad``
 takes of an unfolded gradient). In pair mode (``_pair_gate``: nza >= 16384
 and the pair table fits) a ``[T*p0*p1 + 1, q0*q1*r2]`` table of
@@ -472,11 +472,11 @@ def _pass_inputs(plan: FlatPlan, g0f, gk, tables, widths, p, q, r, t, dt,
         stages.append(state)
         if ti == ndim - 1:
             break
-        _, bw_in, bw_out = widths[ti - 1]
+        mm, bw_in, bw_out = widths[ti - 1]
         state = seg_transform(
             plan.runs[ti - 1], plan.first[ti - 1], plan.cnt[ti - 1], state,
             tables[ti - 1], blocks=q[0], bw_in=bw_in, bw_out=bw_out,
-            p_rows=t * p[ti], seg=seg, out_dtype=dt)
+            p_rows=t * p[ti], seg=seg, out_dtype=dt, mm=mm)
         state = state[plan.perm_fwd[ti - 1].long()]  # s_ti -> s_ti+1
     return stages
 
@@ -528,11 +528,11 @@ def flat_lookup_forward(cores, tt_p_shapes, tt_q_shapes, tt_ranks,
 
     stages = _pass_inputs(plan, g0f, gk, tables, widths, p, q, r, t, dt,
                           seg)
-    _, bw_in, bw_out = widths[-1]
+    mm, bw_in, bw_out = widths[-1]
     state = seg_transform(
         plan.runs[-1], plan.first[-1], plan.cnt[-1], stages[-1], tables[-1],
         blocks=q[0], bw_in=bw_in, bw_out=bw_out, p_rows=t * p[-1], seg=seg,
-        out_dtype=dt)
+        out_dtype=dt, mm=mm)
     out = _pool_flat(state, plan, tb, dt)
     return out.reshape(t, batch_size, d), tuple(stages)
 

@@ -1,13 +1,17 @@
 #!/usr/bin/env python3
 """Where the time of one serve of fbtt_embedding_tpu_torch goes, on a GPU.
 
-Usage: ``python3 scripts/profile_torch_serve.py [--batch 512] [--iters 20]``
-from the root of a checkout, on a machine with one CUDA card.
+Usage: ``python3 scripts/profile_torch_serve.py [--batch 512] [--iters 20]
+[--root DIR]`` from the root of a checkout, on a machine with one CUDA
+card. ``--root`` names the checkout whose ``fbtt_embedding_tpu_torch`` is
+imported and built (default: this one), so that an older tree unpacked
+into ``build/ab_old/`` is profiled by the same script.
 
 Serves the headline model (p=[200,220,250], q=[4,4,4], ranks [32,32]; random
 cores from seed 0) at pooling 20 under ``torch.profiler`` and prints:
 the host-clock time per request, the device time per request summed over
-all kernels, the device busy share (device time over host time), and the
+all kernels, the device busy share (device time over host time), the
+device operations (kernel launches and copies) per request, and the
 CUDA kernels and host operators ranked by time. ``--trace PATH`` also
 writes the Chrome trace.
 """
@@ -26,6 +30,8 @@ def main():
     ap.add_argument("--batch", type=int, default=512)
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--trace", help="write the Chrome trace here")
+    ap.add_argument("--root", default=str(ROOT),
+                    help="checkout whose package is profiled")
     args = ap.parse_args()
 
     import numpy as np
@@ -33,7 +39,7 @@ def main():
 
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_serve: needs a CUDA card")
-    sys.path.insert(0, str(ROOT))
+    sys.path.insert(0, str(Path(args.root).resolve()))
     import fbtt_embedding_tpu_torch as fbt
 
     p, q, r = [200, 220, 250], [4, 4, 4], [1, 32, 32, 1]
@@ -60,14 +66,16 @@ def main():
             host.append((time.perf_counter() - t0) * 1e3)
     card = torch.cuda.get_device_name(0)
     events = prof.key_averages()
-    dev_us = sum(ev.self_device_time_total for ev in events
-                 if ev.device_type == torch.autograd.DeviceType.CUDA)
-    dev_ms = dev_us / 1e3 / args.iters
+    dev = [ev for ev in events
+           if ev.device_type == torch.autograd.DeviceType.CUDA]
+    dev_ms = sum(ev.self_device_time_total for ev in dev) / 1e3 / args.iters
+    launches = sum(ev.count for ev in dev) / args.iters
     host_ms = statistics.median(host)
     print(f"[profile] {card} B={b} pooling {pool}: host {host_ms:.3f} ms/"
           f"request (median, under the profiler), device {dev_ms:.3f} ms/"
           f"request (kernel sum), device busy share "
-          f"{dev_ms / host_ms:.3f}")
+          f"{dev_ms / host_ms:.3f}, {launches:.1f} device ops/request "
+          f"(kernel launches and copies); package {Path(fbt.__file__).parent}")
     print(events.table(sort_by="self_device_time_total", row_limit=25))
     print(events.table(sort_by="self_cpu_time_total", row_limit=25))
     if args.trace:

@@ -3,7 +3,10 @@
 a GPU.
 
 Usage: ``python3 scripts/profile_torch_train.py [--batch 512] [--iters 20]
-[--count]`` from the root of a checkout, on a machine with one CUDA card.
+[--count] [--root DIR]`` from the root of a checkout, on a machine with one
+CUDA card. ``--root`` names the checkout whose ``fbtt_embedding_tpu_torch``
+is imported and built (default: this one), so that an older tree unpacked
+into ``build/ab_old/`` is profiled by the same script.
 
 Runs the fused SGD step (``make_fused_train_step``) of the headline model
 (p=[200,220,250], q=[4,4,4], ranks [32,32]; random cores from seed 0) at
@@ -34,6 +37,8 @@ def main():
     ap.add_argument("--count", action="store_true",
                     help="LFU counting on (direct mode, cache_size E/10)")
     ap.add_argument("--trace", help="write the Chrome trace here")
+    ap.add_argument("--root", default=str(ROOT),
+                    help="checkout whose package is profiled")
     args = ap.parse_args()
 
     import numpy as np
@@ -41,7 +46,7 @@ def main():
 
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_train: needs a CUDA card")
-    sys.path.insert(0, str(ROOT))
+    sys.path.insert(0, str(Path(args.root).resolve()))
     import fbtt_embedding_tpu_torch as fbt
 
     p, q, r = [200, 220, 250], [4, 4, 4], [1, 32, 32, 1]
@@ -85,7 +90,7 @@ def main():
           f"{host_ms:.3f} ms/step (median, under the profiler), device "
           f"{dev_ms:.3f} ms/step (kernel sum), device busy share "
           f"{dev_ms / host_ms:.3f}, {launches:.1f} device ops/step (kernel "
-          f"launches and copies)")
+          f"launches and copies); package {Path(fbt.__file__).parent}")
     # wide names: the two gradient kernels differ only in template arguments
     print(events.table(sort_by="self_device_time_total", row_limit=30,
                        max_name_column_width=110))

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the span kernels B2, B3 and B6 of one checkout on the headline batch.
+"""Time the span kernels B1, B2, B3 and B6 of one checkout on the headline batch.
 
 Usage: ``python3 scripts/time_span_kernels.py [--root DIR] [--dtype
 float32] [--ndim4]`` on a machine with one CUDA card and ``nvcc``.
@@ -12,7 +12,8 @@ in turns.
 The inputs are what a B=512, pooling-20 training step of the headline model
 (p=[200,220,250], q=[4,4,4], ranks [32,32], random cores from seed 0)
 hands each kernel, on a uniform and a Zipf(1.05) batch from ``--seed``,
-made by the package's own plan and table helpers: B2 on the last pass
+made by the package's own plan and table helpers: B1 on the first pass
+(i1) and the last pass (i2, as in the serve), B2 on the last pass
 (i2), B3 on the first pass (i1, float32 z, as in the fused step) and on the
 last pass (bfloat16 z, as in the two-pass backward of the autograd path),
 B6 on the first pass, all staged in ``--dtype`` (bfloat16 by default, as
@@ -21,8 +22,9 @@ on the last pass of a tt_ndim-4 model (q=[4]*4, ranks 32: G[j] 32 x 4
 over 16 sub-blocks of x [nnz, 4*512], y [nnz, 4*64]) in float32 and
 bfloat16, on ``chip_smoke.span_case``'s Zipf(1.3) span table over 90 core
 rows. A package whose wrappers take ``mm`` gets the
-block-diagonal fold of the pass (what its training step passes); one whose
-wrappers do not runs the dense slab, as its step did. Times are device
+block-diagonal fold of the pass (what its pipeline passes); one whose
+wrappers do not runs the dense slab, as its pipeline did (asked per
+wrapper: B1 took no ``mm`` before B2 and B3 did). Times are device
 time per call, the summed durations of the call's kernels over 20 calls
 under ``torch.profiler`` (``chip_smoke.device_ms``). Prints one JSON line:
 ``{"root": ..., "us": {pass: {batch: us}}, "parts": {pass: {batch:
@@ -75,6 +77,7 @@ def main():
     )
 
     folds = "mm" in inspect.signature(seg_accum).parameters
+    b1_folds = "mm" in inspect.signature(seg_transform).parameters
     seg = tt_flat.SEG
     dt = getattr(torch, args.dtype)
     cores = fbt.init_tt_cores(np.random.default_rng(0), "uniform", 1, E, D,
@@ -102,15 +105,19 @@ def main():
         plan, _ = tt_flat._build_plan(idx, rowidx, None, None, None, P, 1, B,
                                       seg=seg)
         z0 = tt_flat._z0(plan, g0f, P[0])
-        _, bw_in, bw_out = widths[0]
-        x1 = seg_transform(
-            plan.runs[0], plan.first[0], plan.cnt[0], z0, tables[0],
-            blocks=Q[0], bw_in=bw_in, bw_out=bw_out, p_rows=P[1], seg=seg,
-            out_dtype=dt)[plan.perm_fwd[0].long()]
-        dz2 = tt_flat._row_cotangents(d_out, plan, B, D, dt)
 
         def span(ti):
             return plan.runs[ti - 1], plan.first[ti - 1], plan.cnt[ti - 1]
+
+        def b1_kw(ti):
+            mm, bw_in, bw_out = widths[ti - 1]
+            return dict(blocks=Q[0], bw_in=bw_in, bw_out=bw_out,
+                        p_rows=P[ti], seg=seg, out_dtype=dt,
+                        **({"mm": mm} if b1_folds else {}))
+
+        x1 = seg_transform(*span(1), z0, tables[0], **b1_kw(1))[
+            plan.perm_fwd[0].long()]
+        dz2 = tt_flat._row_cotangents(d_out, plan, B, D, dt)
 
         def kw(ti):
             mm, bw_x, bw_y = widths[ti - 1]
@@ -124,6 +131,10 @@ def main():
             plan.perm_bwd[0].long()]
         i0c = tt_flat._i0c(plan, P[0])
         calls = {
+            "B1 i1": lambda: seg_transform(*span(1), z0, tables[0],
+                                           **b1_kw(1)),
+            "B1 i2": lambda: seg_transform(*span(2), x1, tables[1],
+                                           **b1_kw(2)),
             "B2 i2": lambda: seg_fused_i2(*span(2), x1, dz2, tables[1],
                                           **kw(2)),
             "B3 i1": lambda: seg_accum(*span(1), z0, dz1, tables[0],
@@ -151,7 +162,8 @@ def main():
             timed(f"B3 ndim4 pass 3 {name}", "zipf1.3",
                   lambda: seg_accum(*sargs, z_dtype=sdt, **skw))
     print(json.dumps({"root": str(Path(fbt.__file__).parents[1]),
-                      "dtype": args.dtype, "folds": folds, "us": us,
+                      "dtype": args.dtype, "folds": folds,
+                      "b1_folds": b1_folds, "us": us,
                       "parts": parts}))
 
 

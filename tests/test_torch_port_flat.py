@@ -4,7 +4,8 @@
   entry at the same segment length, for plain, pair, dead-mask and
   live-count plans;
 - the segment-transform kernel's plain version against the Pallas kernel
-  ``_seg_transform_call`` in interpret mode, float32, rtol = atol = 1e-5;
+  ``_seg_transform_call`` in interpret mode, float32, rtol = atol = 1e-5,
+  on dense slabs and, folded by ``mm``, on block-diagonal tables;
 - the flat forward against JAX ``pooled_tt_lookup(impl="pallas_sorted",
   interpret=True)``, float32, rtol = atol = 1e-5.
 """
@@ -17,6 +18,7 @@ import torch
 from fbtt_embedding_tpu.ops.lookup import pooled_tt_lookup as j_lookup
 from fbtt_embedding_tpu.ops.pallas import tt_flat as jflat
 from fbtt_embedding_tpu_torch.ops.kernels import tt_flat as tflat
+from fbtt_embedding_tpu_torch.ops.kernels.seg_accum import kernel_fold
 from fbtt_embedding_tpu_torch.ops.kernels.seg_transform import (
     seg_transform,
     seg_transform_plain,
@@ -182,6 +184,71 @@ def test_seg_transform_plain_matches_pallas_kernel(shape):
     assert bf.dtype == torch.bfloat16
     np.testing.assert_allclose(bf.float().numpy(), got.numpy(), rtol=8e-3,
                                atol=1e-5)
+
+
+# (blocks, bw_in, bw_out, p_rows, nza, seg): block-diagonal passes cut
+# down: the headline last core (q 4, ranks 32 -> 8) and a tt_ndim-4 pass 2
+# (q 4, ranks 8)
+BD_SHAPES = [(4, 128, 16, 25, 512, 128), (4, 32, 128, 9, 256, 64)]
+
+
+@pytest.mark.parametrize("mm", [2, 4])
+@pytest.mark.parametrize("shape", BD_SHAPES)
+def test_seg_transform_plain_folds_block_diagonal_table(shape, mm):
+    blocks, bw_in, bw_out, p_rows, nza, seg = shape
+    rng = np.random.default_rng(sum(shape) + mm)
+    keys, runs, first, cnt, x, _ = _span_inputs(
+        rng, nza, blocks, bw_in, bw_out, p_rows, seg)
+    g = rng.normal(size=(p_rows + jflat.SPAN_BLOCK, bw_in // mm,
+                         bw_out // mm)).astype(np.float32)
+    g[p_rows:] = 0
+    table = tflat._bd_table(torch.as_tensor(g), mm, torch.float32).reshape(
+        -1, bw_out)
+    want = jflat._seg_transform_call(
+        nza // seg, blocks, bw_in, bw_out, p_rows, "float32", "float32",
+        True, sb=jflat.SPAN_BLOCK, trip="concat", seg=seg)(
+        runs, first, cnt, jnp.asarray(x), jnp.asarray(table.numpy()))
+    truns, tfirst, tcnt = tflat._span_table(
+        torch.as_tensor(keys.astype(np.int32)), p_rows, nza // seg, seg=seg)
+    kw = dict(blocks=blocks, bw_in=bw_in, bw_out=bw_out, p_rows=p_rows,
+              seg=seg)
+    args = (truns, tfirst, tcnt, torch.as_tensor(x), table)
+    got = seg_transform_plain(*args, mm=mm, **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+    dead = int(truns[p_rows])
+    assert not got[dead:].any()  # sentinel rows are exact zeros
+    # the dense slab (mm = 1) and the wrapper on the CPU agree
+    np.testing.assert_allclose(seg_transform_plain(*args, **kw).numpy(),
+                               got.numpy(), rtol=1e-5, atol=1e-5)
+    before = seg_transform.launches
+    assert torch.equal(seg_transform(*args, mm=mm, **kw), got)
+    assert seg_transform.launches == before
+
+
+def test_seg_transform_wrapper_raises_on_a_fold_that_does_not_divide():
+    rng = np.random.default_rng(1)
+    keys, runs, first, cnt, x, table = _span_inputs(rng, 128, 2, 24, 16, 10,
+                                                    64)
+    args = [torch.as_tensor(np.array(a)) for a in (runs, first, cnt)]
+    kw = dict(blocks=2, bw_in=24, bw_out=16, p_rows=10, seg=64)
+    x, table = torch.as_tensor(x), torch.as_tensor(table)
+    assert seg_transform(*args, x, table, mm=8, **kw).shape == (128, 32)
+    for mm in (16, 3, 0):  # not a divisor of bw_in (24), of bw_out (16), < 1
+        with pytest.raises(ValueError):
+            seg_transform(*args, x, table, mm=mm, **kw)
+
+
+def test_kernel_fold_takes_fold_1_for_seg_transform_when_refused():
+    calls = []
+
+    def path_fn(in_bf16, seg, blocks, bw_in, bw_out, d):  # the library's
+        calls.append(d)  # query: only the dense slab stages (CUDA cores)
+        return 0 if d == 1 else -1
+
+    assert kernel_fold("seg_transform", path_fn, False, 64, 4, 128, 16,
+                       4) == (1, 0)
+    assert calls == [4, 2, 1]
 
 
 def test_seg_transform_wrapper_checks_inputs():

@@ -33,9 +33,12 @@ CUDA card and ``nvcc``). Phases, each printing its own lines:
    1.05 first-core rows), a tt_ndim-4 first pass and two tables, in float32
    and bfloat16, twice each and required bitwise equal; the generic
    forward (B4) and backward (B5) in float32 on the headline batch
-   (uniform and Zipf 1.05), a tt_ndim-2 and a tt_ndim-4 model, two tables
-   with weights and a live-count tail, B5 run twice and required bitwise
-   equal;
+   (uniform and Zipf 1.05), a tt_ndim-2 model (uniform and Zipf 1.05), a
+   tt_ndim-4 and a rank-64 model, two tables with weights and a live-count
+   tail, B5 run twice and required bitwise equal, each case printing and
+   requiring B5's path (the pivot pass at tt_ndim 2 and 3, the chain pass
+   at tt_ndim 4; the wrapper's choice and the library's query must
+   agree);
 4. serve: the headline model (p=[200,220,250], q=[4,4,4], ranks [32,32]:
    E=11M, D=64) with random cores from seed 0 serves five requests of
    B=512 at pooling 20 (uniform and Zipf 1.05 row ids) and one of B=1024
@@ -78,9 +81,12 @@ CUDA card and ``nvcc``). Phases, each printing its own lines:
    where an older tree is unpacked in ``build/ab_old/`` its B1, B2, B3 and
    B6 beside these on the same inputs
    (``scripts/time_span_kernels.py``, one process per run, in turns old,
-   new, new, old); host-clock medians of the serve per request, the
-   training step per call at B=512, 1024 and 2048, the ``impl="pallas"``
-   serve and step at B=512, the B=512 step with LFU counting on (beside
+   new, new, old) and its B4 and B5 on the generic cases
+   (``scripts/check_generic_kernels.py``, likewise); B5's bound both at
+   the float32 CUDA-core peak and, for the pivot pass, as three TF32
+   products at the tensor-core peak (the kernels' line); host-clock
+   medians of the serve per request, the training step per call at
+   B=512, 1024 and 2048, the ``impl="pallas"`` serve and step at B=512, the B=512 step with LFU counting on (beside
    the reference's V100 figure), the cached step with its hit rate, the
    counting step with
    ``FBTT_DG0`` onehot against fused (alternating, one call),
@@ -93,6 +99,7 @@ Prints a JSON line of the kernels, then as its last line
 """
 
 import contextlib
+import ctypes
 import json
 import os
 import statistics
@@ -106,6 +113,7 @@ E, D = 200 * 220 * 250, 64
 B, POOL = 512, 20
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 PEAK_FLOPS = {"float32": 67e12,    # CUDA cores, no tensor cores
+              "tf32": 495e12,      # dense tensor-core rate
               "bfloat16": 989e12}  # dense tensor-core rate
 CSRC = "fbtt_embedding_tpu_torch/csrc/"
 TT_FLAT = "fbtt_embedding_tpu/ops/pallas/tt_flat.py"
@@ -165,32 +173,116 @@ def cuda_ms(fn, reps=25, inner=10):
     return statistics.median(samples)
 
 
+_NVML = []
+
+
+def sm_clock_mhz():
+    """Card 0's SM clock now (MHz), read through NVML (the NVIDIA
+    management library, ``libnvidia-ml``), or None where it cannot be
+    read."""
+    if not _NVML:
+        try:
+            lib = ctypes.CDLL("libnvidia-ml.so.1")
+            handle = ctypes.c_void_p()
+            if lib.nvmlInit_v2() or lib.nvmlDeviceGetHandleByIndex_v2(
+                    0, ctypes.byref(handle)):
+                raise OSError("NVML did not start")
+            _NVML.append((lib, handle))
+        except OSError:
+            _NVML.append(None)
+    if _NVML[0] is None:
+        return None
+    lib, handle = _NVML[0]
+    mhz = ctypes.c_uint()
+    nvml_clock_sm = 1
+    if lib.nvmlDeviceGetClockInfo(handle, nvml_clock_sm, ctypes.byref(mhz)):
+        return None
+    return mhz.value
+
+
+def mhz_text(mhz):
+    return "SM clock not read" if mhz is None else f"SM clock {mhz} MHz"
+
+
+PROFILER_PAD_S = 0.02  # untimed calls on each side of device_ms's window
+PROFILER_TRIES = 3
+
+
 def device_ms(fn, n=20):
-    """(device ms per call, {kernel name: ms per call}): the summed
+    """(device ms per call, {kernel name: ms per call}, SM MHz): the summed
     durations of the device work ``fn`` launches (kernels, copies, fills),
-    over ``n`` calls under ``torch.profiler`` after warm-up. Host time
-    between launches does not count, so a call whose Python side takes
-    longer than its kernels still reads what the device spent on it."""
+    over ``n`` calls under ``torch.profiler`` after warm-up, and the SM
+    clock read as the last call is launched (:func:`sm_clock_mhz`). Host
+    time between launches does not count, so a call whose Python side takes
+    longer than its kernels still reads what the device spent on it.
+
+    The tracer can miss the work at the start or the end of a session (on
+    the H100, after other processes profiled the card: a session of 20
+    calls kept 5 of their kernels). So the ``n`` calls run in a marked
+    window with PROFILER_PAD_S seconds of untimed calls on each side, and
+    only the device work inside the window counts: inside the window's span
+    on the device (the tracer's span of the kernels launched in it), where
+    the tracer gives one, else inside its span on the host, whose clock
+    can stand a few calls off the device's. Each call launches the same
+    work, so a window is kept only where it holds every kernel name a
+    whole number of times per call; one that does not is announced by a
+    ``[warn]`` line with its counts and run again, up to PROFILER_TRIES
+    sessions."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    def pad():
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < PROFILER_PAD_S:
+            fn()
+        torch.cuda.synchronize()
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    per = {}
-    for ev in prof.events():
-        if ev.device_type == DeviceType.CUDA:
-            per[ev.name] = per.get(ev.name, 0.0) + ev.time_range.elapsed_us()
-    if not per:
-        fail("torch.profiler recorded no device work")
-    per = {k: v / n / 1e3 for k, v in per.items()}
-    return sum(per.values()), per
+    for k in range(PROFILER_TRIES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            pad()
+            with record_function("device_ms window"):
+                for _ in range(n):
+                    fn()
+                mhz = sm_clock_mhz()
+                torch.cuda.synchronize()
+            pad()
+        events = prof.events()
+        marks = {ev.device_type: ev.time_range for ev in events
+                 if ev.name == "device_ms window"}
+        win = marks.get(DeviceType.CUDA, marks[DeviceType.CPU])
+        per, count = {}, {}
+        for ev in events:
+            if (ev.device_type == DeviceType.CUDA
+                    and ev.name != "device_ms window"
+                    and win.start - 1 <= ev.time_range.start
+                    and ev.time_range.end <= win.end + 1):
+                per[ev.name] = (per.get(ev.name, 0.0)
+                                + ev.time_range.elapsed_us())
+                count[ev.name] = count.get(ev.name, 0) + 1
+        side = "device" if DeviceType.CUDA in marks else "host"
+        if side != device_ms.side:
+            device_ms.side = side
+            print(f"[time] device_ms: windows on the {side}'s clock from here",
+                  flush=True)
+        if per and not any(c % n for c in count.values()):
+            per = {k: v / n / 1e3 for k, v in per.items()}
+            return sum(per.values()), per, mhz
+        short = {}
+        for name, c in count.items():
+            short[kernel_name(name)] = short.get(kernel_name(name), 0) + c
+        print(f"[warn] device_ms: profiler session {k + 1} of "
+              f"{PROFILER_TRIES} "
+              f"recorded device events {short or 'none'} in its window of "
+              f"{n} calls (the window's span on the {side})", flush=True)
+    fail(f"torch.profiler lost device events in {PROFILER_TRIES} sessions")
+
+
+device_ms.side = None
 
 
 def kernel_times(fn, ref_fn, plain_reps=25, plain_inner=10):
@@ -199,8 +291,9 @@ def kernel_times(fn, ref_fn, plain_reps=25, plain_inner=10):
     back-to-back calls (``cuda_ms``: the wrappers' host work counts where
     it is slower than the kernels), and ``device_ms`` and
     ``plain_device_ms``, the device time per call (``device_ms``); with
-    ``parts``, the text of the kernels' device us."""
-    k_dev, per = device_ms(fn)
+    ``parts``, the text of the kernels' device us, and ``sm_mhz``, the SM
+    clock in the kernel's window."""
+    k_dev, per, mhz = device_ms(fn)
     return {
         "ms": cuda_ms(fn),
         "plain_ms": cuda_ms(ref_fn, reps=plain_reps, inner=plain_inner),
@@ -208,13 +301,15 @@ def kernel_times(fn, ref_fn, plain_reps=25, plain_inner=10):
         "plain_device_ms": device_ms(ref_fn, n=5)[0],
         "parts": " + ".join(f"{kernel_name(name)} {ms * 1e3:.2f}"
                             for name, ms in per.items()),
+        "sm_mhz": mhz,
     }
 
 
 def times_text(t):
     """The line of one ``kernel_times`` reading (us), with its bound."""
     return (f"kernel {t['ms'] * 1e3:.2f} us between events, "
-            f"{t['device_ms'] * 1e3:.2f} us on the device ({t['parts']}); "
+            f"{t['device_ms'] * 1e3:.2f} us on the device ({t['parts']}; "
+            f"{mhz_text(t['sm_mhz'])}); "
             f"bound {t['bound_ms'] * 1e3:.2f} us ({t['bound_by']}); plain "
             f"{t['plain_ms'] * 1e3:.2f} us between events, "
             f"{t['plain_device_ms'] * 1e3:.2f} us on the device")
@@ -457,14 +552,16 @@ def generic_inputs(rng, p, q, ranks, b, pool, tables=1, zipf=False,
     return gk, idx, rowv, wv, order, starts, sched, dout
 
 
-def generic_bound(gk, idx, rowv, weights, tb, backward):
+def generic_bound(gk, idx, rowv, weights, tb, backward, tf32x3=False):
     """(least ms, bound_by) of B4 (or, with ``backward``, B5) on these
     inputs: the core rows the live lookups touch read once, ids, pooled
     rows and weights read once, the output written once (B4 ``[tb, D]``;
     B5 every core's gradient, and it reads ``dout``); multiply-adds of the
     live lookups only: the chain (B4), or the forward up to the last
     core's input, the cotangent back through every core and each core's
-    outer product (B5)."""
+    outer product (B5), at the float32 CUDA-core peak, or with ``tf32x3``
+    three TF32 products each at the TF32 tensor-core peak (B5's pivot
+    pass)."""
     import torch
 
     from fbtt_embedding_tpu_torch.ops.kernels.tt_fwd import chain_dims
@@ -487,7 +584,8 @@ def generic_bound(gk, idx, rowv, weights, tb, backward):
     else:
         macs = sum(step)
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = 2.0 * macs * n_live / PEAK_FLOPS["float32"]
+    t_ops = (2.0 * macs * n_live * (3 if tf32x3 else 1)
+             / PEAK_FLOPS["tf32" if tf32x3 else "float32"])
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -599,8 +697,13 @@ def main():
         seg_transform,
         seg_transform_plain,
     )
+    from fbtt_embedding_tpu_torch.ops.kernels import tt_bwd as tt_bwd_mod
     from fbtt_embedding_tpu_torch.ops.kernels.tt_bwd import tt_bwd, tt_bwd_plain
-    from fbtt_embedding_tpu_torch.ops.kernels.tt_fwd import tt_fwd, tt_fwd_plain
+    from fbtt_embedding_tpu_torch.ops.kernels.tt_fwd import (
+        chain_dims,
+        tt_fwd,
+        tt_fwd_plain,
+    )
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -837,19 +940,36 @@ def main():
     # bfloat16 staging); B5 twice each
     grad_tol = dict(rtol=1e-4, atol=1e-5)  # the JAX suite's, for gradients
     gen_cases = [  # name, p, q, inner ranks, B, pooling, tables, zipf,
-        #            weights, live share
-        ("headline uniform", P, Q, R[1:-1], B, POOL, 1, False, False, None),
-        ("headline zipf1.05", P, Q, R[1:-1], B, POOL, 1, True, False, None),
+        #            weights, live share, B5's path
+        ("headline uniform", P, Q, R[1:-1], B, POOL, 1, False, False, None,
+         "pivot"),
+        ("headline zipf1.05", P, Q, R[1:-1], B, POOL, 1, True, False, None,
+         "pivot"),
         ("ndim2 q=[8,8] r=[32]", [3300, 3300], [8, 8], [32], B, POOL, 1,
-         False, False, None),
+         False, False, None, "pivot"),
+        ("ndim2 q=[8,8] r=[32] zipf1.05", [3300, 3300], [8, 8], [32], B, POOL,
+         1, True, False, None, "pivot"),
         ("ndim4 q=[4]*4 r=[32]*3", [60] * 4, [4] * 4, [32] * 3, 64, 8, 1,
-         False, False, None),
-        ("T=2 weighted", P, Q, R[1:-1], 128, POOL, 2, False, True, None),
-        ("live-count tail", P, Q, R[1:-1], 256, POOL, 1, True, True, 0.75),
+         False, False, None, "chain"),
+        ("rank 64", P, Q, [64, 64], B, POOL, 1, False, False, None, "pivot"),
+        ("T=2 weighted", P, Q, R[1:-1], 128, POOL, 2, False, True, None,
+         "pivot"),
+        ("live-count tail", P, Q, R[1:-1], 256, POOL, 1, True, True, 0.75,
+         "pivot"),
     ]
-    for name, p_, q_, r_, b_, pool, tables, zipf, wts, live in gen_cases:
+    for name, p_, q_, r_, b_, pool, tables, zipf, wts, live, path in \
+            gen_cases:
         gk, gidx, rowv, wv, order, starts, sched, dout = generic_inputs(
             rng, p_, q_, r_, b_, pool, tables, zipf, wts, live)
+        qk, rk = chain_dims(gk)
+        # the library's path query, as the launch asks it, and its Python
+        # copy for the CPU
+        took = tt_bwd_mod.bwd_path(qk, rk, card=True)
+        rule = tt_bwd_mod.bwd_path(qk, rk)
+        if took[0] != path or took != rule:
+            fail(f"tt_bwd {name}: takes the {took[0]} pass (chunk, CTAs an "
+                 f"SM: {took[1:]}; the Python rule says {rule}), expected "
+                 f"{path}")
         out = tt_fwd(gk, gidx, rowv, wv, order, starts)
         g1 = tt_bwd(gk, gidx, rowv, wv, dout, *sched, seg=tt_kernel.SEG)
         g2 = tt_bwd(gk, gidx, rowv, wv, dout, *sched, seg=tt_kernel.SEG)
@@ -866,8 +986,9 @@ def main():
         max_err["tt_fwd"] = max(max_err["tt_fwd"], ferr)
         max_err["tt_bwd"] = max(max_err["tt_bwd"], *gerrs)
         print(f"[kernel] tt_fwd / tt_bwd {name} (nnz {gidx.shape[1]}, "
-              f"{int((rowv < 0).sum())} dead): max_abs_err forward "
-              f"{ferr:.3e} (rtol = atol = 1e-5), core gradients "
+              f"{int((rowv < 0).sum())} dead; B5 {took[0]} pass, chunk "
+              f"{took[1]}): max_abs_err forward {ferr:.3e} (rtol = atol = "
+              "1e-5), core gradients "
               + ", ".join(f"{e:.3e}" for e in gerrs)
               + " (rtol 1e-4, atol 1e-5), tt_bwd bitwise repeatable, ok")
 
@@ -1361,6 +1482,9 @@ def main():
             return " + ".join(f"{k} {v:.2f}"
                               for k, v in run["parts"][name][label].items())
 
+        def clocks_text(runs, name, label):
+            return " / ".join(str(r["sm_mhz"][name][label]) for r in runs)
+
         for name, by_batch in ab["new"][0]["us"].items():
             for label in by_batch:
                 old = [r["us"][name][label] for r in ab["old"]]
@@ -1370,10 +1494,44 @@ def main():
                       f"({parts_text(ab['old'][0], name, label)}), this tree "
                       f"{new[0]:.2f} / {new[1]:.2f} "
                       f"({parts_text(ab['new'][0], name, label)}): "
-                      f"{sum(old) / sum(new):.2f}x [{card}]")
+                      f"{sum(old) / sum(new):.2f}x; SM MHz "
+                      f"{clocks_text(ab['old'], name, label)} against "
+                      f"{clocks_text(ab['new'], name, label)} [{card}]")
+        # B4 and B5 of both trees on the generic cases, in turns old, new,
+        # new, old (scripts/check_generic_kernels.py checks each run too)
+        gab = {"old": [], "new": []}
+        for which in ("old", "new", "new", "old"):
+            run = subprocess.run(
+                [sys.executable,
+                 str(root / "scripts" / "check_generic_kernels.py"), "--root",
+                 str(ab_root if which == "old" else root)],
+                capture_output=True, text=True, timeout=600)
+            if run.returncode != 0:
+                fail(f"check_generic_kernels.py on the {which} tree exited "
+                     f"{run.returncode}: {run.stdout[-2000:]}"
+                     f"{run.stderr[-2000:]}")
+            gab[which].append(json.loads(run.stdout.splitlines()[-1]))
+        for name, new0 in gab["new"][0]["cases"].items():
+            olds = [r["cases"][name] for r in gab["old"]]
+            news = [r["cases"][name] for r in gab["new"]]
+            for kname, key, mkey in (("B4", "tt_fwd_us", "tt_fwd_mhz"),
+                                     ("B5", "tt_bwd_us", "tt_bwd_mhz")):
+                old_us = [c[key] for c in olds]
+                new_us = [c[key] for c in news]
+                mhz = " against ".join(" / ".join(str(c[mkey]) for c in cs)
+                                       for cs in (olds, news))
+                print(f"[ab] {kname} {name}, device us per call: "
+                      f"{ab_root.name} {old_us[0]:.2f} / {old_us[1]:.2f}, "
+                      f"this tree {new_us[0]:.2f} / {new_us[1]:.2f} "
+                      + (f"({new0['path']} pass: " + " + ".join(
+                          f"{k} {v:.2f}" for k, v in
+                          new0["tt_bwd_parts"].items()) + ")"
+                         if kname == "B5" else "")
+                      + f": {sum(old_us) / sum(new_us):.2f}x; SM MHz {mhz} "
+                      f"[{card}]")
     else:
         print(f"[ab] no older tree in {ab_root.relative_to(root)}: span "
-              "kernels not timed against it")
+              "and generic kernels not timed against it")
 
     serve_ms = host_ms(lambda: serve(params, idx, offs))
     big_ms = host_ms(lambda: serve_big(params, *requests[-1][2:]))
@@ -1409,10 +1567,21 @@ def main():
                              lambda: ref_fn(*args, **kw), 5, 3)
             t["bound_ms"], t["bound_by"] = generic_bound(
                 gk, gidx, rowv, wv, B, kname == "tt_bwd")
+            extra = ""
+            if kname == "tt_bwd":
+                # the pivot pass runs its products as 3xTF32 on the tensor
+                # cores: its bound is that of three TF32 products
+                t["path"] = tt_bwd_mod.bwd_path(*chain_dims(gk), card=True)[0]
+                f32_ms = t["bound_ms"]
+                if t["path"] == "pivot":
+                    t["bound_ms"], t["bound_by"] = generic_bound(
+                        gk, gidx, rowv, wv, B, True, tf32x3=True)
+                extra = (f"; {t['path']} pass, bound at the float32 "
+                         f"CUDA-core peak {f32_ms * 1e3:.2f} us")
             if label == "uniform":
                 times[kname] = [t]
             print(f"[time] {kname} headline B={B} pooling {POOL} {label} "
-                  f"(nnz {gidx.shape[1]}, float32): {times_text(t)} "
+                  f"(nnz {gidx.shape[1]}, float32): {times_text(t)}{extra} "
                   f"[{card}]")
 
     gserve_ms = host_ms(lambda: gserve(params, idx, offs))
@@ -1516,6 +1685,7 @@ def main():
             "library_ms": (sum(r["library_ms"] for r in rows)
                            if all(r.get("library_ms") is not None
                                   for r in rows) else None),
+            **({"path": rows[0]["path"]} if "path" in rows[0] else {}),
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -3,8 +3,8 @@
 a GPU.
 
 Usage: ``python3 scripts/profile_torch_train.py [--batch 512] [--iters 20]
-[--count] [--root DIR]`` from the root of a checkout, on a machine with one
-CUDA card. ``--root`` names the checkout whose ``fbtt_embedding_tpu_torch``
+[--count] [--impl pallas] [--root DIR]`` from the root of a checkout, on a
+machine with one CUDA card. ``--root`` names the checkout whose ``fbtt_embedding_tpu_torch``
 is imported and built (default: this one), so that an older tree unpacked
 into ``build/ab_old/`` is profiled by the same script.
 
@@ -16,7 +16,9 @@ share (device time over host time), the device operations per step
 (kernel launches and copies), and the CUDA kernels and host operators
 ranked by time. ``--count`` turns LFU counting on, as the reference
 benchmark's step does (``use_cache``; a direct-mode cache with
-``hashtbl_size`` = E and ``cache_size`` = E / 10). ``--trace PATH`` also
+``hashtbl_size`` = E and ``cache_size`` = E / 10). ``--impl pallas``
+profiles the generic per-lookup step (kernels B4 and B5, float32) in place
+of the flat pipeline. ``--trace PATH`` also
 writes the Chrome trace. ``FBTT_DG0=fused`` in the environment profiles
 the step with kernel B6.
 """
@@ -37,6 +39,8 @@ def main():
     ap.add_argument("--count", action="store_true",
                     help="LFU counting on (direct mode, cache_size E/10)")
     ap.add_argument("--trace", help="write the Chrome trace here")
+    ap.add_argument("--impl", choices=("auto", "pallas"), default="auto",
+                    help="the step's lookup path (pallas: kernels B4, B5)")
     ap.add_argument("--root", default=str(ROOT),
                     help="checkout whose package is profiled")
     args = ap.parse_args()
@@ -58,7 +62,7 @@ def main():
         params.cache = fbt.make_cache_state(e, e // 10, 64,
                                             num_embeddings=e, device="cuda")
     step = fbt.make_fused_train_step(p, q, r, 1, b, use_cache=args.count,
-                                     device="cuda")
+                                     impl=args.impl, device="cuda")
     rng = np.random.default_rng(1)
     idx = torch.as_tensor(rng.integers(0, e, size=b * pool), device="cuda")
     offs = torch.arange(0, b * pool + 1, pool, device="cuda")
@@ -85,7 +89,8 @@ def main():
     dev_ms = sum(ev.self_device_time_total for ev in dev) / 1e3 / args.iters
     launches = sum(ev.count for ev in dev) / args.iters
     host_ms = statistics.median(host)
-    what = " with LFU counting" if args.count else ""
+    what = (" with LFU counting" if args.count else "") + (
+        f" impl={args.impl}" if args.impl != "auto" else "")
     print(f"[profile] {card} train step SGD B={b} pooling {pool}{what}: host "
           f"{host_ms:.3f} ms/step (median, under the profiler), device "
           f"{dev_ms:.3f} ms/step (kernel sum), device busy share "

@@ -28,7 +28,8 @@ wrapper: B1 took no ``mm`` before B2 and B3 did). Times are device
 time per call, the summed durations of the call's kernels over 20 calls
 under ``torch.profiler`` (``chip_smoke.device_ms``). Prints one JSON line:
 ``{"root": ..., "us": {pass: {batch: us}}, "parts": {pass: {batch:
-{kernel: us}}}}``.
+{kernel: us}}}, "sm_mhz": {pass: {batch: MHz}}}``, the SM clock read in
+each window (``chip_smoke.sm_clock_mhz``).
 """
 
 import argparse
@@ -90,11 +91,12 @@ def main():
                ("zipf1.05", (rng.zipf(1.05, size=n) - 1) % E))
     d_out = torch.as_tensor(rng.standard_normal((1, B, D)),
                             dtype=torch.float32, device="cuda")
-    us, parts = {}, {}
+    us, parts, clocks = {}, {}, {}
 
     def timed(name, label, fn):
-        dev, per = device_ms(fn)
+        dev, per, mhz = device_ms(fn)
         us.setdefault(name, {})[label] = dev * 1e3
+        clocks.setdefault(name, {})[label] = mhz
         parts.setdefault(name, {})[label] = {
             kernel_name(k): v * 1e3 for k, v in per.items()}
 
@@ -164,7 +166,7 @@ def main():
     print(json.dumps({"root": str(Path(fbt.__file__).parents[1]),
                       "dtype": args.dtype, "folds": folds,
                       "b1_folds": b1_folds, "us": us,
-                      "parts": parts}))
+                      "parts": parts, "sm_mhz": clocks}))
 
 
 if __name__ == "__main__":

@@ -7,7 +7,7 @@ CUDA card and ``nvcc``). Phases, each printing its own lines:
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: compile every kernel of ``fbtt_embedding_tpu_torch/csrc`` into
    ``build/`` (one ``nvcc`` per source, all at once) and load it; count
-   the HMMA (tensor-core) instructions in B1's and B3's SASS
+   the HMMA (tensor-core) instructions in B1's, B3's, B4's and B5's SASS
    (``cuobjdump``), which must not be 0;
 3. kernels vs plain: the segment-transform kernel (B1) at both headline
    pass shapes in float32 and bfloat16, at one tt_ndim-2 and one tt_ndim-4
@@ -34,11 +34,14 @@ CUDA card and ``nvcc``). Phases, each printing its own lines:
    and bfloat16, twice each and required bitwise equal; the generic
    forward (B4) and backward (B5) in float32 on the headline batch
    (uniform and Zipf 1.05), a tt_ndim-2 model (uniform and Zipf 1.05), a
-   tt_ndim-4 and a rank-64 model, two tables with weights and a live-count
-   tail, B5 run twice and required bitwise equal, each case printing and
-   requiring B5's path (the pivot pass at tt_ndim 2 and 3, the chain pass
-   at tt_ndim 4; the wrapper's choice and the library's query must
-   agree);
+   tt_ndim-4 and a rank-64 model, two tables with weights, a live-count
+   tail and a tt_ndim-3 model whose last core (q_0 q_1 = 12, r_2 = 8) B4
+   multiplies on the CUDA cores, B4 and B5 each run twice and required
+   bitwise equal (B4 also where its wrapper sorts core 1 itself), each
+   case printing and
+   requiring B4's and B5's paths (the pivot pass at tt_ndim 2 and 3, the
+   chain pass at tt_ndim 4; the library's query and its Python copy must
+   agree, for B4 also on the shapes of FWD_RULE_SHAPES);
 4. serve: the headline model (p=[200,220,250], q=[4,4,4], ranks [32,32]:
    E=11M, D=64) with random cores from seed 0 serves five requests of
    B=512 at pooling 20 (uniform and Zipf 1.05 row ids) and one of B=1024
@@ -82,9 +85,11 @@ CUDA card and ``nvcc``). Phases, each printing its own lines:
    B6 beside these on the same inputs
    (``scripts/time_span_kernels.py``, one process per run, in turns old,
    new, new, old) and its B4 and B5 on the generic cases
-   (``scripts/check_generic_kernels.py``, likewise); B5's bound both at
-   the float32 CUDA-core peak and, for the pivot pass, as three TF32
-   products at the tensor-core peak (the kernels' line); host-clock
+   (``scripts/check_generic_kernels.py``, likewise, with each pass's
+   kernels); B4's and B5's bounds both at the float32 CUDA-core peak (the
+   ``[time]`` lines) and, for the pivot passes, as three TF32 products at
+   the tensor-core peak (``bound_ms``), beside each one's ``path`` (the
+   kernels' line); host-clock
    medians of the serve per request, the training step per call at
    B=512, 1024 and 2048, the ``impl="pallas"`` serve and step at B=512, the B=512 step with LFU counting on (beside
    the reference's V100 figure), the cached step with its hit rate, the
@@ -127,6 +132,17 @@ KERNELS = {
     "tt_fwd": (CSRC + "tt_fwd.cu", TT_KERNEL + ":274"),
     "tt_bwd": (CSRC + "tt_bwd.cu", TT_KERNEL + ":400"),
 }
+# (q, inner ranks) on which B4's path rule is asked of the library and of
+# its Python copy: tests/test_torch_port_fwd.py's path cases, and tt_ndim-3
+# shapes whose last core's product runs fused (r_2 = 32, q_2 4 and 8), on
+# the tensor cores (r_2 16) and on the CUDA cores (q_0 q_1 = 4)
+FWD_RULE_SHAPES = (
+    ([8, 8], [32]), ([4, 4], [16]), ([4, 4, 4], [32, 32]),
+    ([4, 4, 4], [64, 64]), ([2, 4, 2], [8, 8]), ([4, 4, 4], [12, 8]),
+    ([4, 3, 4], [8, 5]), ([4, 4, 4, 4], [32, 32, 32]),
+    ([4, 8, 4], [128, 128]), ([256, 256], [64]), ([4, 4, 8], [32, 32]),
+    ([4, 4, 4], [32, 16]), ([2, 2, 4], [8, 8]), ([3, 4, 5], [16, 8]),
+)
 PATHS = ("serve", "train", "serve_generic", "train_generic", "serve_cached",
          "train_cached", "train_dg0")
 LR, EPS = 0.005, 1.0        # training steps of the check (EPS: Adagrad)
@@ -560,8 +576,8 @@ def generic_bound(gk, idx, rowv, weights, tb, backward, tf32x3=False):
     live lookups only: the chain (B4), or the forward up to the last
     core's input, the cotangent back through every core and each core's
     outer product (B5), at the float32 CUDA-core peak, or with ``tf32x3``
-    three TF32 products each at the TF32 tensor-core peak (B5's pivot
-    pass)."""
+    three TF32 products each at the TF32 tensor-core peak (the pivot passes
+    of B4 and B5)."""
     import torch
 
     from fbtt_embedding_tpu_torch.ops.kernels.tt_fwd import chain_dims
@@ -698,6 +714,7 @@ def main():
         seg_transform_plain,
     )
     from fbtt_embedding_tpu_torch.ops.kernels import tt_bwd as tt_bwd_mod
+    from fbtt_embedding_tpu_torch.ops.kernels import tt_fwd as tt_fwd_mod
     from fbtt_embedding_tpu_torch.ops.kernels.tt_bwd import tt_bwd, tt_bwd_plain
     from fbtt_embedding_tpu_torch.ops.kernels.tt_fwd import (
         chain_dims,
@@ -737,10 +754,10 @@ def main():
         for line in lib.with_suffix(".log").read_text().splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build] {stem}: {line.strip()}")
-    # the bf16 passes of B1 and B3 run on the tensor cores: HMMA in their
-    # SASS
+    # the bf16 passes of B1 and B3 and the pivot passes of B4 and B5 run on
+    # the tensor cores: HMMA in their SASS
     cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
-    for stem in ("seg_transform", "seg_accum"):
+    for stem in ("seg_transform", "seg_accum", "tt_fwd", "tt_bwd"):
         sass = subprocess.run([str(cuobjdump), "-sass", str(libs[stem])],
                               capture_output=True, text=True, check=True,
                               timeout=300).stdout
@@ -936,11 +953,24 @@ def main():
                   f"{errs[1]:.3e} (rtol = atol = 1e-5), bitwise repeatable, "
                   "ok")
 
+    # B4's path rule: the library's answer and its Python copy (code on the
+    # CPU, the tests) agree on every shape of the CPU tests' path cases and
+    # on each way of the last core's product
+    for q_, r_ in FWD_RULE_SHAPES:
+        rk_ = tuple(tt_kernel.full_ranks(q_, r_))
+        took, rule = (tt_fwd_mod.fwd_path(q_, rk_, card=True),
+                      tt_fwd_mod.fwd_path(q_, rk_))
+        if took != rule:
+            fail(f"tt_fwd path rule, q={q_} ranks={r_}: the library says "
+                 f"{took}, the Python copy {rule}")
+    print(f"[kernel] tt_fwd path rule: the library and its Python copy "
+          f"agree on {len(FWD_RULE_SHAPES)} shapes")
+
     # B4 and B5 in float32 on whole batches (the generic path has no
-    # bfloat16 staging); B5 twice each
+    # bfloat16 staging); each twice
     grad_tol = dict(rtol=1e-4, atol=1e-5)  # the JAX suite's, for gradients
     gen_cases = [  # name, p, q, inner ranks, B, pooling, tables, zipf,
-        #            weights, live share, B5's path
+        #            weights, live share, B4's and B5's path
         ("headline uniform", P, Q, R[1:-1], B, POOL, 1, False, False, None,
          "pivot"),
         ("headline zipf1.05", P, Q, R[1:-1], B, POOL, 1, True, False, None,
@@ -956,24 +986,37 @@ def main():
          "pivot"),
         ("live-count tail", P, Q, R[1:-1], 256, POOL, 1, True, True, 0.75,
          "pivot"),
+        # B4's last-core product on the CUDA cores (q_0 q_1 = 12, r_2 = 8)
+        ("ndim3 q=[3,4,5] r=[16,8]", [60] * 3, [3, 4, 5], [16, 8], 128, 8, 1,
+         True, True, None, "pivot"),
     ]
     for name, p_, q_, r_, b_, pool, tables, zipf, wts, live, path in \
             gen_cases:
         gk, gidx, rowv, wv, order, starts, sched, dout = generic_inputs(
             rng, p_, q_, r_, b_, pool, tables, zipf, wts, live)
         qk, rk = chain_dims(gk)
-        # the library's path query, as the launch asks it, and its Python
-        # copy for the CPU
-        took = tt_bwd_mod.bwd_path(qk, rk, card=True)
-        rule = tt_bwd_mod.bwd_path(qk, rk)
-        if took[0] != path or took != rule:
-            fail(f"tt_bwd {name}: takes the {took[0]} pass (chunk, CTAs an "
-                 f"SM: {took[1:]}; the Python rule says {rule}), expected "
-                 f"{path}")
-        out = tt_fwd(gk, gidx, rowv, wv, order, starts)
+        # the library's path queries, as the launches ask them, and their
+        # Python copies for the CPU
+        for kname, mod in (("tt_fwd", tt_fwd_mod), ("tt_bwd", tt_bwd_mod)):
+            query = getattr(mod, "fwd_path" if kname == "tt_fwd"
+                            else "bwd_path")
+            took, rule = query(qk, rk, card=True), query(qk, rk)
+            if took[0] != path or took != rule:
+                fail(f"{kname} {name}: takes the {took[0]} pass (chunk, CTAs "
+                     f"an SM: {took[1:]}; the Python rule says {rule}), "
+                     f"expected {path}")
+        # core 1's order, as the step's forward builds it for both kernels
+        core1 = tuple(x[1] for x in sched[:2])
+        out = tt_fwd(gk, gidx, rowv, wv, order, starts, core1=core1)
+        out2 = tt_fwd(gk, gidx, rowv, wv, order, starts, core1=core1)
         g1 = tt_bwd(gk, gidx, rowv, wv, dout, *sched, seg=tt_kernel.SEG)
         g2 = tt_bwd(gk, gidx, rowv, wv, dout, *sched, seg=tt_kernel.SEG)
         torch.cuda.synchronize()
+        if not torch.equal(out, out2):
+            fail(f"tt_fwd {name}: two runs differ (not bitwise repeatable)")
+        if not torch.equal(out, tt_fwd(gk, gidx, rowv, wv, order, starts)):
+            fail(f"tt_fwd {name}: differs where the wrapper sorts core 1 "
+                 "itself")
         if not all(torch.equal(a, c) for a, c in zip(g1, g2)):
             fail(f"tt_bwd {name}: two runs differ (not bitwise repeatable)")
         ferr = check_close(f"tt_fwd {name}", out,
@@ -986,11 +1029,13 @@ def main():
         max_err["tt_fwd"] = max(max_err["tt_fwd"], ferr)
         max_err["tt_bwd"] = max(max_err["tt_bwd"], *gerrs)
         print(f"[kernel] tt_fwd / tt_bwd {name} (nnz {gidx.shape[1]}, "
-              f"{int((rowv < 0).sum())} dead; B5 {took[0]} pass, chunk "
-              f"{took[1]}): max_abs_err forward {ferr:.3e} (rtol = atol = "
+              f"{int((rowv < 0).sum())} dead; B4 "
+              f"{tt_fwd_mod.fwd_path(qk, rk, card=True)[:2]}, B5 "
+              f"{tt_bwd_mod.bwd_path(qk, rk, card=True)[:2]}, (pass, "
+              f"chunk)): max_abs_err forward {ferr:.3e} (rtol = atol = "
               "1e-5), core gradients "
               + ", ".join(f"{e:.3e}" for e in gerrs)
-              + " (rtol 1e-4, atol 1e-5), tt_bwd bitwise repeatable, ok")
+              + " (rtol 1e-4, atol 1e-5), both bitwise repeatable, ok")
 
     # 4. serve at full width
     cores = fbt.init_tt_cores(np.random.default_rng(0), "uniform", 1, E, D,
@@ -1520,13 +1565,13 @@ def main():
                 new_us = [c[key] for c in news]
                 mhz = " against ".join(" / ".join(str(c[mkey]) for c in cs)
                                        for cs in (olds, news))
+                stem = key[:-3]
                 print(f"[ab] {kname} {name}, device us per call: "
                       f"{ab_root.name} {old_us[0]:.2f} / {old_us[1]:.2f}, "
                       f"this tree {new_us[0]:.2f} / {new_us[1]:.2f} "
-                      + (f"({new0['path']} pass: " + " + ".join(
+                      f"({new0[stem + '_path']} pass: " + " + ".join(
                           f"{k} {v:.2f}" for k, v in
-                          new0["tt_bwd_parts"].items()) + ")"
-                         if kname == "B5" else "")
+                          new0[stem + "_parts"].items()) + ")"
                       + f": {sum(old_us) / sum(new_us):.2f}x; SM MHz {mhz} "
                       f"[{card}]")
     else:
@@ -1559,25 +1604,29 @@ def main():
             np.random.default_rng(2), P, Q, R[1:-1], B, POOL, zipf=zipf)
         fargs = (gk, gidx, rowv, wv, order, starts)
         bargs = (gk, gidx, rowv, wv, dout, *sched)
+        # core 1's order as the step builds it: its sort is not timed
+        fkw = dict(core1=tuple(x[1] for x in sched[:2]))
         kseg = dict(seg=tt_kernel.SEG)
-        for kname, fn, ref_fn, args, kw in (
-                ("tt_fwd", tt_fwd, tt_fwd_plain, fargs, {}),
-                ("tt_bwd", tt_bwd, tt_bwd_plain, bargs, kseg)):
+        for kname, fn, ref_fn, args, kw, query in (
+                ("tt_fwd", tt_fwd, tt_fwd_plain, fargs, fkw,
+                 tt_fwd_mod.fwd_path),
+                ("tt_bwd", tt_bwd, tt_bwd_plain, bargs, kseg,
+                 tt_bwd_mod.bwd_path)):
             t = kernel_times(lambda: fn(*args, **kw),
                              lambda: ref_fn(*args, **kw), 5, 3)
+            backward = kname == "tt_bwd"
             t["bound_ms"], t["bound_by"] = generic_bound(
-                gk, gidx, rowv, wv, B, kname == "tt_bwd")
-            extra = ""
-            if kname == "tt_bwd":
-                # the pivot pass runs its products as 3xTF32 on the tensor
-                # cores: its bound is that of three TF32 products
-                t["path"] = tt_bwd_mod.bwd_path(*chain_dims(gk), card=True)[0]
-                f32_ms = t["bound_ms"]
-                if t["path"] == "pivot":
-                    t["bound_ms"], t["bound_by"] = generic_bound(
-                        gk, gidx, rowv, wv, B, True, tf32x3=True)
-                extra = (f"; {t['path']} pass, bound at the float32 "
-                         f"CUDA-core peak {f32_ms * 1e3:.2f} us")
+                gk, gidx, rowv, wv, B, backward)
+            # the pivot passes run their products as 3xTF32 on the tensor
+            # cores: their bound is that of three TF32 products, the
+            # float32 CUDA-core bound beside it
+            t["path"] = query(*chain_dims(gk), card=True)[0]
+            bound_f32_ms = t["bound_ms"]
+            if t["path"] == "pivot":
+                t["bound_ms"], t["bound_by"] = generic_bound(
+                    gk, gidx, rowv, wv, B, backward, tf32x3=True)
+            extra = (f"; {t['path']} pass, bound at the float32 "
+                     f"CUDA-core peak {bound_f32_ms * 1e3:.2f} us")
             if label == "uniform":
                 times[kname] = [t]
             print(f"[time] {kname} headline B={B} pooling {POOL} {label} "

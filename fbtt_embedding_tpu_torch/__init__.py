@@ -75,7 +75,11 @@ from fbtt_embedding_tpu_torch.ops.kernels.tt_flat import (
     flat_train_apply,
 )
 from fbtt_embedding_tpu_torch.ops.kernels.tt_bwd import tt_bwd, tt_bwd_plain
-from fbtt_embedding_tpu_torch.ops.kernels.tt_fwd import tt_fwd, tt_fwd_plain
+from fbtt_embedding_tpu_torch.ops.kernels.tt_fwd import (
+    tt_fwd,
+    tt_fwd_pivot_plain,
+    tt_fwd_plain,
+)
 from fbtt_embedding_tpu_torch.ops.kernels.tt_kernel import (
     generic_available,
     tt_backward_kernel,
@@ -143,6 +147,7 @@ __all__ = [
     "tt_forward",
     "tt_forward_kernel",
     "tt_fwd",
+    "tt_fwd_pivot_plain",
     "tt_fwd_plain",
     "tt_grads_from_row_cotangents",
     "tt_rows",

@@ -63,8 +63,10 @@
 // L2).
 
 #include "tt_chain.cuh"
+#include "tt_mma.cuh"
 
 using namespace fbtt_chain;
+using namespace fbtt_mma;
 
 // acc[k][col] += sum over the chunk's lookups l and rows i of
 // x[l][i][k] * y[l][i][col] (x [mi, rk], y [mi, w] per lookup), in lookup
@@ -198,26 +200,12 @@ constexpr int kPivotSmemPref = 100 * 1024;  // take the largest lc within this
 constexpr int kPivotSmemMax = 200 * 1024;   // else lc = 4 within this
 constexpr int kWarps = kThreads / 32;
 constexpr int kTilesMax = 16;               // 16 x 8 tiles of dG_1 per warp
-constexpr int kIndexMax = 1 << 16;          // FastDiv's range
 constexpr int kEndChunk = 32;               // rows per chunk of the end cores' sums
 constexpr int kRedFloats = kWarps * 128;    // the K-split warps' dG_1 tiles
 constexpr int kIdWindow = 64;               // rows whose ids a pivot CTA stages
 
 // Pivot CTAs an SM holds at once with TPW tiles of dG_1 a warp.
 __host__ __device__ constexpr int pivot_ctas_per_sm(int tpw) { return tpw <= 4 ? 2 : 1; }
-
-// x / d for 0 <= x, d < 2^16 as one multiply-high: m = floor(2^32 / d) + 1
-// (x m / 2^32 exceeds x / d by less than x / 2^32 < 1 / d).
-struct FastDiv {
-  unsigned d, m;
-};
-inline FastDiv fast_div(int d) {
-  return FastDiv{static_cast<unsigned>(d),
-                 d == 1 ? 0u : static_cast<unsigned>((1ull << 32) / d + 1)};
-}
-__device__ __forceinline__ int operator/(int x, const FastDiv& f) {
-  return f.d == 1 ? x : static_cast<int>(__umulhi(static_cast<unsigned>(x), f.m));
-}
 
 // The pivot core's shapes (core 1; at tt_ndim 2 also the last core).
 struct Pivot {
@@ -313,80 +301,6 @@ __host__ __device__ inline int end_lanes(int tile) {
   return lanes;
 }
 
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-// x as a TF32 part hi (x with its 13 low mantissa bits cleared) and the
-// rest lo = x - hi (exact in float32), which the tensor cores read
-// truncated to TF32: hi + lo keeps 21 of x's 24 significant bits. Two
-// integer and float operations, where cvt.rna.tf32 runs at a fraction of
-// the ALU rate.
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  hi = __float_as_uint(x) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
-// d += a (16 x 8, row) * b (8 x 8, col); TF32 in, float32 accumulate
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// One warp, NT tiles of 16 x 8 that share their rows: d[i] (the tile at
-// the origin of a and at column block i of b) += sum over k of a(r, k)
-// b(k, 8 i + n), with a(r, k) = a[r ar + k ac] and b(k, n) = b[k bk + n
-// bn], for k = k0, k0 + kstep, .. < k1 in steps of 8, as 3xTF32: each
-// operand is split into a TF32 part and the rest (split_tf32), the products lo hi
-// and hi lo accumulate in a second set of tiles (so that consecutive mma
-// are independent) and hi hi in d, all in float32; the second set is added
-// at the end (float32 accuracy: each product within ~2^-19 of its value,
-// the lo lo term and the truncation of lo dropped). Lane (g, t) = (lane / 4, lane % 4) holds a(g | g + 8, t | t +
-// 4), b(t | t + 4, g) and d(g | g + 8, 2t | 2t + 1).
-template <int NT>
-__device__ __forceinline__ void mma_3xtf32(float (&d)[NT][4], const float* a, int ar, int ac,
-                                           const float* b, int bk, int bn, int k0, int k1,
-                                           int kstep) {
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const float* a_g = a + g * ar + t * ac;
-  const float* b_g = b + t * bk + g * bn;
-  float ds[NT][4] = {};
-#pragma unroll 4
-  for (int k = k0; k < k1; k += kstep) {
-    const float av[4] = {a_g[k * ac], a_g[8 * ar + k * ac], a_g[(k + 4) * ac],
-                         a_g[8 * ar + (k + 4) * ac]};
-    uint32_t ah[4], al[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) split_tf32(av[i], ah[i], al[i]);
-#pragma unroll
-    for (int i = 0; i < NT; ++i) {
-      const float* bi = b_g + i * 8 * bn;
-      const float bv[2] = {bi[k * bk], bi[(k + 4) * bk]};
-      uint32_t bh[2], bl[2];
-#pragma unroll
-      for (int h = 0; h < 2; ++h) split_tf32(bv[h], bh[h], bl[h]);
-      mma_tf32(ds[i], al, bh[0], bh[1]);
-      mma_tf32(d[i], ah, bh[0], bh[1]);
-      mma_tf32(ds[i], ah, bl[0], bl[1]);
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < NT; ++i)
-#pragma unroll
-    for (int v = 0; v < 4; ++v) d[i][v] += ds[i][v];
-}
-
-template <int N>
-struct IntC {
-  static constexpr int value = N;
-};
-
 // The span (core-t row) of lookup lk, as core_orders keyed it: rows_t
 // (the sentinel) for a dead or padding lookup.
 __device__ __forceinline__ int span_key(const Chain& c, const int* __restrict__ rowv, int t,
@@ -460,7 +374,8 @@ tt_bwd_pivot_kernel(Chain c, Pivot p, const float* __restrict__ weights,
       __syncthreads();  // the previous sub-chunk's rows and ids are no longer read
       if (cb + n > we) {  // CTA-uniform: stage the ids of the next rows
         wb = cb;
-        we = min(hi, cb + kIdWindow);
+        // live rows only: the sentinel span's may be padding past nnz
+        we = min(min(hi, rn[rows1]), cb + kIdWindow);
         if (threadIdx.x < we - wb) {
           const int lk = ord[wb + threadIdx.x];
           const int row = rowv[lk];

@@ -1,8 +1,8 @@
-// Per-lookup TT chain in shared memory, for Hopper (sm_90a). Shared by
-// tt_fwd.cu (kernel B4) and the chain pass of tt_bwd.cu (kernel B5 at
-// tt_ndim 4, and where its pivot pass cannot stage the middle core; the
-// pivot pass shares each span's slab instead, see there); see those files
-// for what each replaces.
+// Per-lookup TT chain in shared memory, for Hopper (sm_90a). Shared by the
+// chain passes of tt_fwd.cu (kernel B4) and tt_bwd.cu (kernel B5), which
+// run at tt_ndim 4 and where the pivot passes cannot stage the middle core
+// (the pivot passes share each span's slab instead, see there); see those
+// files for what each replaces.
 //
 // A lookup's row is the chain G_0[i_0] G_1[i_1] ... G_{n-1}[i_{n-1}]
 // (tt_ndim n = 2..4). With m_t = q_0 * ... * q_t, the running state before
@@ -27,8 +27,9 @@
 // a transposed copy of the core (gt, made by the wrapper) for the same
 // reason. Float32 throughout, on the CUDA cores. Bound: each slab element
 // read from L2 feeds only kRowBlock multiply-adds, ~3 FLOP a byte at the
-// headline shape: such a pass runs far from the CUDA cores' 67 TFLOP/s
-// (B4 ~5.6 us of operations at nnz 10240; root PERF.md for its times).
+// headline shape: such a pass runs far from the CUDA cores' 67 TFLOP/s,
+// which is why tt_ndim 2 and 3 take the pivot passes (root PERF.md for the
+// times of both).
 
 #pragma once
 

@@ -44,6 +44,8 @@ import torch
 
 from fbtt_embedding_tpu_torch.ops.kernels.tt_fwd import (
     _SMEM_MAX,
+    _aligned,
+    _sm_count,
     chain_dims,
     chain_rows,
     chunk_for,
@@ -51,6 +53,7 @@ from fbtt_embedding_tpu_torch.ops.kernels.tt_fwd import (
     check_int32,
     check_lookups,
     live_inputs,
+    pivot_sub,
     state_floats,
 )
 
@@ -165,18 +168,6 @@ def partial_floats(pivot: bool, nza: int, rows, tiles, seg: int,
     tiles per core (:func:`core_chunks`)."""
     return sum((-(-nza // ch) + n) * tile for ch, n, tile in zip(
         core_chunks(pivot, len(rows), seg, sub), rows, tiles))
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-def pivot_sub(nza: int, per_sm: int, sms: int) -> int:
-    """Rows of core 1's order per CTA of the pivot pass: the lookups spread
-    evenly over the CTAs the card holds at once (``per_sm`` on each of
-    ``sms`` SMs, :func:`bwd_path`), so that they run in one wave."""
-    return max(1, -(-nza // (sms * per_sm)))
 
 
 def tt_bwd_plain(gk, idx, rowv, weights, dout, orders, runs, first, cnt, *,
@@ -340,12 +331,6 @@ def tt_bwd(gk, idx, rowv, weights, dout, orders, runs, first, cnt, *, seg):
                         cnt, seg, stream)
     tt_bwd.launches += 1
     return grads
-
-
-def _aligned(t):
-    """``t``, or a copy of it where its data does not start on 16 bytes (the
-    pivot pass reads rows as float4)."""
-    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _launch(gk, idx, rowv, weights, dout, orders, runs, first, cnt, seg,

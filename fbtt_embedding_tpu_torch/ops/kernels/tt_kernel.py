@@ -13,10 +13,14 @@ counterpart of the JAX ``_block_inputs``): per-core rows offset by table
 dead lookup, float32 weights. The TPU's padding of nnz to whole blocks is
 not carried over (the kernels take any nnz), nor are its multiple-of-8 and
 VMEM gates: :func:`generic_available` asks only that a lookup's chain fit
-the kernels' shared memory. The kernels' schedules are sorts on the
-device: lookups grouped by bag for the forward (:func:`bag_order`) and, for
+the kernels' shared memory. The kernels' schedules are stable sorts on
+the device: lookups grouped by bag for the forward (:func:`bag_order`),
+sorted by core 1's row for its pivot pass (:func:`core1_order`) and, for
 the backward, sorted by each core's row into fixed segments
-(:func:`core_orders`).
+(:func:`core_orders`). In a training step ``GenericLookup`` prepares the
+lookups once (:func:`forward_lookups`, :func:`backward_lookups`) and the
+backward takes the forward's core-1 order, so a step sorts once per core
+and once by bag.
 """
 
 from __future__ import annotations
@@ -71,10 +75,11 @@ def full_ranks(p, r):
 
 
 def segment_spans(runs: torch.Tensor, nseg: int, seg: int):
-    """``(first, cnt)`` int32 ``[nseg]``: the first span (``runs[j] ..
-    runs[j+1]``) that meets each ``seg``-row segment, and how many do."""
-    seg_starts = torch.arange(nseg, dtype=torch.int32,
-                              device=runs.device) * seg
+    """``(first, cnt)`` int32 ``[..., nseg]``: the first span (``runs[...,
+    j] .. runs[..., j+1]``) that meets each ``seg``-row segment, and how
+    many do, for each row of ``runs [..., rstride]``."""
+    seg_starts = (torch.arange(nseg, dtype=torch.int32, device=runs.device)
+                  * seg).expand(*runs.shape[:-1], nseg).contiguous()
     first = torch.searchsorted(runs, seg_starts, right=True,
                                out_int32=True) - 1
     last = torch.searchsorted(runs, seg_starts + (seg - 1), right=True,
@@ -128,51 +133,108 @@ def block_inputs(idx_parts, rowidx, tableidx, weights, live_count,
     return torch.stack(parts).contiguous(), rowv.contiguous(), wv
 
 
+def key_dtype(top: int) -> torch.dtype:
+    """The narrowest sort key type that holds ``0 .. top``: the card's radix
+    sort passes over every bit of the key's type, so a narrow key takes
+    fewer passes."""
+    if top < 2 ** 8:
+        return torch.uint8
+    return torch.int16 if top < 2 ** 15 else torch.int32
+
+
 def bag_order(rowv: torch.Tensor, tb: int):
     """``(order, starts)`` int32: the lookups grouped by pooled row, each
     bag in lookup order (one stable sort; dead lookups last, in no bag),
     and bag ``b``'s range ``starts[b] .. starts[b+1]`` of ``order``."""
-    key = torch.where(rowv >= 0, rowv, torch.full_like(rowv, tb))
+    kd = key_dtype(tb)
+    key = torch.where(rowv >= 0, rowv, tb).to(kd)
     ks, order = torch.sort(key, stable=True)
-    edges = torch.arange(tb + 1, dtype=torch.int32, device=rowv.device)
+    edges = torch.arange(tb + 1, dtype=kd, device=rowv.device)
     starts = torch.searchsorted(ks.contiguous(), edges, out_int32=True)
     return order.to(torch.int32), starts
 
 
-def core_orders(idx: torch.Tensor, rowv: torch.Tensor, rows: Sequence[int],
-                seg: int = SEG):
-    """The backward kernel's schedule: for every core t the lookups sorted
-    stably by their core-t row (dead lookups and the padding up to whole
-    segments take the sentinel row ``rows[t]``), and its span tables.
-    Returns ``orders [ndim, nza]``, ``runs [ndim, max(rows) + 2]`` (span j
-    is ``runs[t, j] .. runs[t, j+1]``), ``first``, ``cnt [ndim, nseg]``
-    (the first span meeting each segment, and how many do), all int32."""
-    ndim, nnz = idx.shape
+def core_order(key: torch.Tensor, rowv: torch.Tensor, rows_t: int,
+               rstride: Optional[int] = None, seg: int = SEG):
+    """One core's sorted order: the lookups sorted stably by their core row
+    ``key [nnz]`` (dead lookups and the padding up to whole segments take
+    the sentinel row ``rows_t``), one stable sort. Returns ``order [nza]``
+    and ``runs [rstride]`` (default ``rows_t + 2``; span j is ``runs[j] ..
+    runs[j+1]``, the live lookups are ``order[:runs[rows_t]]``), int32."""
+    nnz = key.shape[0]
     nza = -(-nnz // seg) * seg
-    nseg = nza // seg
-    dev = idx.device
-    i32 = torch.int32
-    live = rowv >= 0
-    edges = torch.arange(max(rows) + 2, dtype=i32, device=dev)
-    orders, runs, first, cnt = [], [], [], []
-    for t in range(ndim):
-        key = torch.full((nza,), rows[t], dtype=i32, device=dev)
-        key[:nnz] = torch.where(live, idx[t], torch.full_like(idx[t],
-                                                             rows[t]))
-        ks, order = torch.sort(key, stable=True)
-        rn = torch.searchsorted(ks.contiguous(), edges, out_int32=True)
-        f, c = segment_spans(rn, nseg, seg)
-        orders.append(order.to(i32))
-        runs.append(rn)
-        first.append(f)
-        cnt.append(c)
-    return (torch.stack(orders), torch.stack(runs), torch.stack(first),
-            torch.stack(cnt))
+    dev = key.device
+    rstride = rstride or rows_t + 2
+    kd = key_dtype(rstride - 1)
+    k = torch.full((nza,), rows_t, dtype=kd, device=dev)
+    k[:nnz] = torch.where(rowv >= 0, key, rows_t)
+    ks, order = torch.sort(k, stable=True)
+    edges = torch.arange(rstride, dtype=kd, device=dev)
+    runs = torch.searchsorted(ks.contiguous(), edges, out_int32=True)
+    return order.to(torch.int32), runs
+
+
+def core1_order(idx: torch.Tensor, rowv: torch.Tensor, rows: Sequence[int],
+                seg: int = SEG):
+    """Core 1's :func:`core_order` with :func:`core_orders`' stride, for
+    kernel B4's pivot pass and, in a training step, kernel B5."""
+    return core_order(idx[1], rowv, rows[1], max(rows) + 2, seg)
+
+
+def core_orders(idx: torch.Tensor, rowv: torch.Tensor, rows: Sequence[int],
+                seg: int = SEG, core1=None):
+    """The backward kernel's schedule: :func:`core_order` of every core t
+    (sentinel row ``rows[t]``), stacked, and each core's segment spans:
+    ``orders [ndim, nza]``, ``runs [ndim, max(rows) + 2]``, ``first``,
+    ``cnt [ndim, nseg]`` (:func:`segment_spans`). ``core1``: core 1's
+    order and runs from :func:`core1_order` (the forward's), taken in place
+    of a sort."""
+    rstride = max(rows) + 2
+    per_core = [core1 if t == 1 and core1 is not None
+                else core_order(idx[t], rowv, rows[t], rstride, seg)
+                for t in range(idx.shape[0])]
+    orders, runs = (torch.stack(x) for x in zip(*per_core))
+    return (orders, runs) + segment_spans(runs, orders.shape[1] // seg, seg)
 
 
 def _kernel_cores(tt_cores, p, q, r):
     return tuple(g.to(torch.float32).contiguous()
                  for g in kernel_core_layouts(tt_cores, p, q, r))
+
+
+def forward_lookups(tt_cores: Sequence[torch.Tensor], tt_p_shapes,
+                    tt_q_shapes, tt_ranks, batch_size: int, lookups,
+                    core1=None) -> torch.Tensor:
+    """:func:`tt_forward_kernel` on the lookups :func:`block_inputs`
+    prepared, ``(idx, rowv, weights)``; ``core1`` from :func:`core1_order`
+    (else B4's wrapper sorts core 1 itself where its pivot pass runs)."""
+    p, q = tuple(tt_p_shapes), tuple(tt_q_shapes)
+    r = tuple(full_ranks(p, tt_ranks))
+    t = tt_cores[0].shape[0]
+    idx, rowv, wv = lookups
+    order, starts = bag_order(rowv, t * batch_size)
+    out = tt_fwd(_kernel_cores(tt_cores, p, q, r), idx, rowv, wv, order,
+                 starts, core1=core1)
+    return out.reshape(t, batch_size, math.prod(q))
+
+
+def backward_lookups(tt_cores: Sequence[torch.Tensor], tt_p_shapes,
+                     tt_q_shapes, tt_ranks, batch_size: int, lookups,
+                     d_output: torch.Tensor,
+                     core1=None) -> Tuple[torch.Tensor, ...]:
+    """:func:`tt_backward_kernel` on the lookups :func:`block_inputs`
+    prepared; ``core1`` from :func:`core1_order`, taken in place of
+    sorting core 1 again."""
+    p, q = tuple(tt_p_shapes), tuple(tt_q_shapes)
+    r = tuple(full_ranks(p, tt_ranks))
+    t = tt_cores[0].shape[0]
+    idx, rowv, wv = lookups
+    rows = [t * p_ for p_ in p]
+    orders, runs, first, cnt = core_orders(idx, rowv, rows, SEG, core1)
+    dout = d_output.reshape(t * batch_size, -1).to(torch.float32).contiguous()
+    dgs = tt_bwd(_kernel_cores(tt_cores, p, q, r), idx, rowv, wv, dout,
+                 orders, runs, first, cnt, seg=SEG)
+    return grads_to_module_layout(dgs, p, q, r, t)
 
 
 def tt_forward_kernel(tt_cores: Sequence[torch.Tensor], tt_p_shapes,
@@ -187,15 +249,11 @@ def tt_forward_kernel(tt_cores: Sequence[torch.Tensor], tt_p_shapes,
     (its plain version on CPU tensors). ``live_count`` ([1]): lookups at
     later positions add nothing; ``dead_mask`` ([nnz] bool) marks such
     lookups in place."""
-    p, q = tuple(tt_p_shapes), tuple(tt_q_shapes)
-    r = tuple(full_ranks(p, tt_ranks))
-    t = tt_cores[0].shape[0]
-    gk = _kernel_cores(tt_cores, p, q, r)
-    idx, rowv, wv = block_inputs(idx_parts, rowidx, tableidx, weights,
-                                 live_count, p, t, batch_size, dead_mask)
-    order, starts = bag_order(rowv, t * batch_size)
-    out = tt_fwd(gk, idx, rowv, wv, order, starts)
-    return out.reshape(t, batch_size, math.prod(q))
+    lookups = block_inputs(idx_parts, rowidx, tableidx, weights, live_count,
+                           tt_p_shapes, tt_cores[0].shape[0], batch_size,
+                           dead_mask)
+    return forward_lookups(tt_cores, tt_p_shapes, tt_q_shapes, tt_ranks,
+                           batch_size, lookups)
 
 
 def tt_backward_kernel(tt_cores: Sequence[torch.Tensor], tt_p_shapes,
@@ -210,14 +268,8 @@ def tt_backward_kernel(tt_cores: Sequence[torch.Tensor], tt_p_shapes,
     """Core gradients in module layout for ``d_output [T, B, D]``, through
     kernel B5 (its plain version on CPU tensors); ``live_count`` and
     ``dead_mask`` as in :func:`tt_forward_kernel`."""
-    p, q = tuple(tt_p_shapes), tuple(tt_q_shapes)
-    r = tuple(full_ranks(p, tt_ranks))
-    t = tt_cores[0].shape[0]
-    gk = _kernel_cores(tt_cores, p, q, r)
-    idx, rowv, wv = block_inputs(idx_parts, rowidx, tableidx, weights,
-                                 live_count, p, t, batch_size, dead_mask)
-    rows = [t * p_ for p_ in p]
-    orders, runs, first, cnt = core_orders(idx, rowv, rows, SEG)
-    dout = d_output.reshape(t * batch_size, -1).to(torch.float32).contiguous()
-    dgs = tt_bwd(gk, idx, rowv, wv, dout, orders, runs, first, cnt, seg=SEG)
-    return grads_to_module_layout(dgs, p, q, r, t)
+    lookups = block_inputs(idx_parts, rowidx, tableidx, weights, live_count,
+                           tt_p_shapes, tt_cores[0].shape[0], batch_size,
+                           dead_mask)
+    return backward_lookups(tt_cores, tt_p_shapes, tt_q_shapes, tt_ranks,
+                            batch_size, lookups, d_output)

@@ -30,9 +30,11 @@ from fbtt_embedding_tpu_torch.ops.kernels.tt_flat import (
     flat_forward,
 )
 from fbtt_embedding_tpu_torch.ops.kernels.tt_kernel import (
+    backward_lookups,
+    block_inputs,
+    core1_order,
+    forward_lookups,
     generic_available,
-    tt_backward_kernel,
-    tt_forward_kernel,
 )
 
 
@@ -123,10 +125,12 @@ def tt_dense_backward(tt_cores: Sequence[torch.Tensor], tt_p_shapes,
 class GenericLookup(torch.autograd.Function):
     """The pooled lookup through the generic per-lookup kernels: the JAX
     package's ``_make_pooled_pallas_vjp``. Forward runs kernel B4
-    (:func:`tt_forward_kernel`), backward kernel B5
-    (:func:`tt_backward_kernel`); indices, weights and the live count get
-    no gradient. Nothing but the inputs is kept for the backward, which
-    recomputes the chain (the reference's recompute strategy).
+    (:func:`forward_lookups`), backward kernel B5
+    (:func:`backward_lookups`); indices, weights and the live count get
+    no gradient. The backward recomputes the chain (the reference's
+    recompute strategy); of the forward it keeps the lookups as the
+    kernels take them (:func:`block_inputs`) and core 1's sorted order
+    (:func:`core1_order`), built once for both kernels.
 
     ``apply(cfg, idx_parts, rowidx, tableidx, weights, live, dead, *cores)``
     with ``cfg = (p, q, ranks, batch_size)`` and ``idx_parts`` a tuple of
@@ -136,22 +140,22 @@ class GenericLookup(torch.autograd.Function):
     def forward(ctx, cfg, idx_parts, rowidx, tableidx, weights, live, dead,
                 *cores):
         p, q, r, batch_size = cfg
-        out = tt_forward_kernel(cores, p, q, r, batch_size, idx_parts,
-                                rowidx, tableidx, weights, live, dead)
+        t = cores[0].shape[0]
+        lookups = block_inputs(idx_parts, rowidx, tableidx, weights, live, p,
+                               t, batch_size, dead)
+        core1 = None
         if any(ctx.needs_input_grad[7:]):
+            core1 = core1_order(*lookups[:2], [t * p_ for p_ in p])
             ctx.save_for_backward(*cores)
-            ctx.cfg = cfg
-            ctx.lookups = (idx_parts, rowidx, tableidx, weights, live, dead)
-        return out
+            ctx.cfg, ctx.lookups, ctx.core1 = cfg, lookups, core1
+        return forward_lookups(cores, p, q, r, batch_size, lookups, core1)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, d_output):
         p, q, r, batch_size = ctx.cfg
-        idx_parts, rowidx, tableidx, weights, live, dead = ctx.lookups
-        grads = tt_backward_kernel(
-            ctx.saved_tensors, p, q, r, batch_size, idx_parts, rowidx,
-            d_output, tableidx, weights, live, dead)
+        grads = backward_lookups(ctx.saved_tensors, p, q, r, batch_size,
+                                 ctx.lookups, d_output, ctx.core1)
         return (None,) * 7 + tuple(grads)
 
 

@@ -12,24 +12,29 @@ and on this one, in turns.
 For each case (the headline model at B=512, pooling 20, uniform and Zipf
 1.05 row ids; a tt_ndim-2 model, uniform and Zipf; a tt_ndim-4 model; a
 rank-64 model; two weighted tables; a live-count tail), with random cores
-from seed 2, it runs ``tt_fwd`` and ``tt_bwd`` (twice) on the card,
+from seed 2, it runs ``tt_fwd`` and ``tt_bwd`` twice each on the card,
 holds them against ``tt_fwd_plain`` / ``tt_bwd_plain`` (forward rtol =
-atol = 1e-5, gradients rtol 1e-4, atol 1e-5), checks that the two B5 runs
-are bitwise equal, and times both kernels as device time per call (the
-summed durations of the call's kernels over 20 calls under
+atol = 1e-5, gradients rtol 1e-4, atol 1e-5), checks that each kernel's
+two runs are bitwise equal, and times both kernels as device time per
+call (the summed durations of the call's kernels over 20 calls under
 ``torch.profiler``, ``chip_smoke.device_ms``, with the SM clock read in
-each window) and between CUDA events (``chip_smoke.cuda_ms``). It prints
-B5's path where the package has a path query (``tt_bwd.bwd_path``; an
-older tree runs the chain pass) and the compiler's register report first.
-It runs WARM_S seconds of float32 products before the first case, so that
-a fresh process does not time the card at its idle clocks. The last line
-is one JSON object: ``{"root": ..., "card": ..., "cases": {name: {"path":
-..., "tt_fwd_us": .., "tt_bwd_us": .., "tt_fwd_mhz": .., "tt_bwd_mhz": ..,
-"tt_fwd_event_us": .., "tt_bwd_event_us": .., "tt_bwd_parts": {kernel:
-us}}}}``. Exits 1 if a check fails.
+each window) and between CUDA events (``chip_smoke.cuda_ms``). B4 gets
+core 1's order as the step's forward builds it (``core1``, where the
+package's ``tt_fwd`` takes it), so its sort is not timed. It prints each
+kernel's path where the package has a path query (``tt_fwd.fwd_path``,
+``tt_bwd.bwd_path``; an older tree runs the chain pass) and the
+compiler's register report first. It runs WARM_S seconds of float32
+products before the first case, so that a fresh process does not time the
+card at its idle clocks. The last line is one JSON object: ``{"root":
+..., "card": ..., "cases": {name: {"path": ..., "tt_fwd_path": ...,
+"tt_bwd_path": ..., "tt_fwd_us": .., "tt_bwd_us": .., "tt_fwd_mhz": ..,
+"tt_bwd_mhz": .., "tt_fwd_event_us": .., "tt_bwd_event_us": ..,
+"tt_fwd_parts": {kernel: us}, "tt_bwd_parts": {kernel: us}}}}`` (``path``
+is B5's, as before). Exits 1 if a check fails.
 """
 
 import argparse
+import inspect
 import json
 import sys
 import time
@@ -81,6 +86,7 @@ def main():
     import fbtt_embedding_tpu_torch as fbt
     from fbtt_embedding_tpu_torch.ops.kernels import _build
     from fbtt_embedding_tpu_torch.ops.kernels import tt_bwd as bwd_mod
+    from fbtt_embedding_tpu_torch.ops.kernels import tt_fwd as fwd_mod
     from fbtt_embedding_tpu_torch.ops.kernels import tt_kernel as K
     from fbtt_embedding_tpu_torch.ops.kernels.tt_fwd import chain_dims
 
@@ -107,11 +113,15 @@ def main():
             zipf, weights, live)
         fargs = (gk, idx, rowv, wv, order, starts)
         bargs = (gk, idx, rowv, wv, dout, *sched)
-        out_k = fbt.tt_fwd(*fargs)
+        fkw = ({"core1": tuple(x[1] for x in sched[:2])} if "core1" in
+               inspect.signature(fbt.tt_fwd).parameters else {})
+        out_k = fbt.tt_fwd(*fargs, **fkw)
+        out_2 = fbt.tt_fwd(*fargs, **fkw)
         g1 = fbt.tt_bwd(*bargs, seg=K.SEG)
         g2 = fbt.tt_bwd(*bargs, seg=K.SEG)
         torch.cuda.synchronize()
-        repeat = all(torch.equal(x, y) for x, y in zip(g1, g2))
+        repeat = (torch.equal(out_k, out_2)
+                  and all(torch.equal(x, y) for x, y in zip(g1, g2)))
         ref = fbt.tt_fwd_plain(*fargs)
         gref = fbt.tt_bwd_plain(*bargs, seg=K.SEG)
         errs = [(x - y).abs().max().item() for x, y in zip(g1, gref)]
@@ -126,26 +136,35 @@ def main():
         ok = ok and case_ok
         path = (bwd_mod.bwd_path(*chain_dims(gk), card=True)
                 if hasattr(bwd_mod, "bwd_path") else ("chain", None))
-        f_ms, _, f_mhz = device_ms(lambda: fbt.tt_fwd(*fargs))
+        fpath = (fwd_mod.fwd_path(*chain_dims(gk), card=True)
+                 if hasattr(fwd_mod, "fwd_path") else ("chain", None))
+        f_ms, f_parts, f_mhz = device_ms(lambda: fbt.tt_fwd(*fargs, **fkw))
         f_us = f_ms * 1e3
         b_ms, b_parts, b_mhz = device_ms(
             lambda: fbt.tt_bwd(*bargs, seg=K.SEG))
-        f_ev = cuda_ms(lambda: fbt.tt_fwd(*fargs), reps=10, inner=5) * 1e3
+        f_ev = cuda_ms(lambda: fbt.tt_fwd(*fargs, **fkw), reps=10,
+                       inner=5) * 1e3
         b_ev = cuda_ms(lambda: fbt.tt_bwd(*bargs, seg=K.SEG), reps=10,
                        inner=5) * 1e3
+        fparts = {kernel_name(k): v * 1e3 for k, v in f_parts.items()}
         parts = {kernel_name(k): v * 1e3 for k, v in b_parts.items()}
-        out[name] = {"path": path[0], "tt_fwd_us": f_us,
+        out[name] = {"path": path[0], "tt_fwd_path": fpath[0],
+                     "tt_bwd_path": path[0], "tt_fwd_us": f_us,
                      "tt_bwd_us": b_ms * 1e3, "tt_fwd_mhz": f_mhz,
                      "tt_bwd_mhz": b_mhz, "tt_fwd_event_us": f_ev,
-                     "tt_bwd_event_us": b_ev, "tt_bwd_parts": parts}
+                     "tt_bwd_event_us": b_ev, "tt_fwd_parts": fparts,
+                     "tt_bwd_parts": parts}
         print(f"{name}: p={p} q={q} ranks={ranks} T={tables} B={b} pooling "
               f"{pool} (nnz {idx.shape[1]}, {int((rowv < 0).sum())} dead): "
-              f"B5 path {path[0]} (chunk {path[1]}); forward max_abs_err "
+              f"B4 path {fpath[0]} (chunk {fpath[1]}), B5 path {path[0]} "
+              f"(chunk {path[1]}); forward max_abs_err "
               f"{(out_k - ref).abs().max().item():.2e}, gradients "
               + ", ".join(f"{x:.2e}" for x in errs)
-              + f"; B5 bitwise repeatable {repeat}; ok {case_ok}; device "
-              f"B4 {f_us:.2f} us ({mhz_text(f_mhz)}), B5 {b_ms * 1e3:.2f} "
-              "us (" + " + ".join(f"{k} {v:.2f}" for k, v in parts.items())
+              + f"; B4 and B5 bitwise repeatable {repeat}; ok {case_ok}; "
+              f"device B4 {f_us:.2f} us ("
+              + " + ".join(f"{k} {v:.2f}" for k, v in fparts.items())
+              + f"; {mhz_text(f_mhz)}), B5 {b_ms * 1e3:.2f} us ("
+              + " + ".join(f"{k} {v:.2f}" for k, v in parts.items())
               + f"; {mhz_text(b_mhz)}); events B4 {f_ev:.2f} us, B5 "
               f"{b_ev:.2f} us [{card}]")
     print(json.dumps({"root": str(Path(fbt.__file__).parents[1]),

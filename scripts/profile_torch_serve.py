@@ -2,18 +2,21 @@
 """Where the time of one serve of fbtt_embedding_tpu_torch goes, on a GPU.
 
 Usage: ``python3 scripts/profile_torch_serve.py [--batch 512] [--iters 20]
-[--root DIR]`` from the root of a checkout, on a machine with one CUDA
-card. ``--root`` names the checkout whose ``fbtt_embedding_tpu_torch`` is
-imported and built (default: this one), so that an older tree unpacked
-into ``build/ab_old/`` is profiled by the same script.
+[--impl pallas] [--root DIR]`` from the root of a checkout, on a machine
+with one CUDA card. ``--root`` names the checkout whose
+``fbtt_embedding_tpu_torch`` is imported and built (default: this one), so
+that an older tree unpacked into ``build/ab_old/`` is profiled by the same
+script.
 
 Serves the headline model (p=[200,220,250], q=[4,4,4], ranks [32,32]; random
 cores from seed 0) at pooling 20 under ``torch.profiler`` and prints:
-the host-clock time per request, the device time per request summed over
-all kernels, the device busy share (device time over host time), the
-device operations (kernel launches and copies) per request, and the
-CUDA kernels and host operators ranked by time. ``--trace PATH`` also
-writes the Chrome trace.
+the host-clock time per request without the profiler and under it, the
+device time per request summed over all kernels, the device busy share
+(device time over the host time without the profiler), the device
+operations (kernel launches and copies) per request, and the CUDA kernels
+and host operators ranked by time. ``--impl pallas`` profiles the generic
+per-lookup serve (kernel B4, float32) in place of the flat pipeline.
+``--trace PATH`` also writes the Chrome trace.
 """
 
 import argparse
@@ -30,6 +33,8 @@ def main():
     ap.add_argument("--batch", type=int, default=512)
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--trace", help="write the Chrome trace here")
+    ap.add_argument("--impl", choices=("auto", "pallas"), default="auto",
+                    help="the serve's lookup path (make_serving_fn)")
     ap.add_argument("--root", default=str(ROOT),
                     help="checkout whose package is profiled")
     args = ap.parse_args()
@@ -47,13 +52,22 @@ def main():
     cores = fbt.init_tt_cores(np.random.default_rng(0), "uniform", 1, e, 64,
                               p, q, r)
     params = fbt.params_from_jax(cores, device="cuda")
-    serve = fbt.make_serving_fn(p, q, r, 1, b, device="cuda")
+    serve = fbt.make_serving_fn(p, q, r, 1, b, impl=args.impl,
+                                device="cuda")
     rng = np.random.default_rng(1)
     idx = torch.as_tensor(rng.integers(0, e, size=b * pool), device="cuda")
     offs = torch.arange(0, b * pool + 1, pool, device="cuda")
     for _ in range(5):
         serve(params, idx, offs)
     torch.cuda.synchronize()
+    # the host clock without the profiler, which adds its own cost to every
+    # operation it records
+    bare = []
+    for _ in range(args.iters):
+        t0 = time.perf_counter()
+        serve(params, idx, offs)
+        torch.cuda.synchronize()
+        bare.append((time.perf_counter() - t0) * 1e3)
 
     host = []
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -70,11 +84,14 @@ def main():
            if ev.device_type == torch.autograd.DeviceType.CUDA]
     dev_ms = sum(ev.self_device_time_total for ev in dev) / 1e3 / args.iters
     launches = sum(ev.count for ev in dev) / args.iters
-    host_ms = statistics.median(host)
-    print(f"[profile] {card} B={b} pooling {pool}: host {host_ms:.3f} ms/"
-          f"request (median, under the profiler), device {dev_ms:.3f} ms/"
-          f"request (kernel sum), device busy share "
-          f"{dev_ms / host_ms:.3f}, {launches:.1f} device ops/request "
+    host_ms, bare_ms = statistics.median(host), statistics.median(bare)
+    what = f" impl={args.impl}" if args.impl != "auto" else ""
+    print(f"[profile] {card} serve B={b} pooling {pool}{what}: host "
+          f"{bare_ms:.3f} ms/request (median, without the profiler), "
+          f"{host_ms:.3f} ms/request (under it), device {dev_ms:.3f} ms/"
+          f"request (kernel sum), device busy share {dev_ms / bare_ms:.3f} "
+          f"(over the host time without the profiler), {launches:.1f} "
+          f"device ops/request "
           f"(kernel launches and copies); package {Path(fbt.__file__).parent}")
     print(events.table(sort_by="self_device_time_total", row_limit=25))
     print(events.table(sort_by="self_cpu_time_total", row_limit=25))

@@ -11,8 +11,10 @@ into ``build/ab_old/`` is profiled by the same script.
 Runs the fused SGD step (``make_fused_train_step``) of the headline model
 (p=[200,220,250], q=[4,4,4], ranks [32,32]; random cores from seed 0) at
 pooling 20 under ``torch.profiler`` and prints: the host-clock time per
-step, the device time per step summed over all kernels, the device busy
-share (device time over host time), the device operations per step
+step without the profiler and under it, the device time per step summed
+over all kernels, the device busy
+share (device time over the host time without the profiler), the device
+operations per step
 (kernel launches and copies), and the CUDA kernels and host operators
 ranked by time. ``--count`` turns LFU counting on, as the reference
 benchmark's step does (``use_cache``; a direct-mode cache with
@@ -72,6 +74,14 @@ def main():
     for _ in range(5):
         step(params, idx, offs, d_out, lr_eps)
     torch.cuda.synchronize()
+    # the host clock without the profiler, which adds its own cost to every
+    # operation it records
+    bare = []
+    for _ in range(args.iters):
+        t0 = time.perf_counter()
+        step(params, idx, offs, d_out, lr_eps)
+        torch.cuda.synchronize()
+        bare.append((time.perf_counter() - t0) * 1e3)
 
     host = []
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -88,14 +98,15 @@ def main():
            if ev.device_type == torch.autograd.DeviceType.CUDA]
     dev_ms = sum(ev.self_device_time_total for ev in dev) / 1e3 / args.iters
     launches = sum(ev.count for ev in dev) / args.iters
-    host_ms = statistics.median(host)
+    host_ms, bare_ms = statistics.median(host), statistics.median(bare)
     what = (" with LFU counting" if args.count else "") + (
         f" impl={args.impl}" if args.impl != "auto" else "")
     print(f"[profile] {card} train step SGD B={b} pooling {pool}{what}: host "
-          f"{host_ms:.3f} ms/step (median, under the profiler), device "
-          f"{dev_ms:.3f} ms/step (kernel sum), device busy share "
-          f"{dev_ms / host_ms:.3f}, {launches:.1f} device ops/step (kernel "
-          f"launches and copies); package {Path(fbt.__file__).parent}")
+          f"{bare_ms:.3f} ms/step (median, without the profiler), "
+          f"{host_ms:.3f} ms/step (under it), device {dev_ms:.3f} ms/step "
+          f"(kernel sum), device busy share {dev_ms / bare_ms:.3f} (over "
+          f"the host time without the profiler), {launches:.1f} device "
+          f"ops/step (kernel launches and copies); package {Path(fbt.__file__).parent}")
     # wide names: the two gradient kernels differ only in template arguments
     print(events.table(sort_by="self_device_time_total", row_limit=30,
                        max_name_column_width=110))

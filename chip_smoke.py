@@ -31,7 +31,11 @@ CUDA card and ``nvcc``). Phases, each printing its own lines:
    folded by 2 only; the gradient
    pass with dG0 fused (B6) at the headline i1 pass (uniform and Zipf
    1.05 first-core rows), a tt_ndim-4 first pass and two tables, in float32
-   and bfloat16, twice each and required bitwise equal; the generic
+   and bfloat16, twice each and required bitwise equal, on the path B6's
+   rule gives (the bfloat16 headline cases must take the tensor cores with
+   dz0 over y; the headline's bfloat16 inputs also run on the dz0 tile and
+   the CUDA cores), and B6's path rule asked of the library and of its
+   Python copy on DG0_RULE_SHAPES, which must agree; the generic
    forward (B4) and backward (B5) in float32 on the headline batch
    (uniform and Zipf 1.05), a tt_ndim-2 model (uniform and Zipf 1.05), a
    tt_ndim-4 and a rank-64 model, two tables with weights, a live-count
@@ -142,6 +146,18 @@ FWD_RULE_SHAPES = (
     ([4, 3, 4], [8, 5]), ([4, 4, 4, 4], [32, 32, 32]),
     ([4, 8, 4], [128, 128]), ([256, 256], [64]), ([4, 4, 8], [32, 32]),
     ([4, 4, 4], [32, 16]), ([2, 2, 4], [8, 8]), ([3, 4, 5], [16, 8]),
+)
+# (blocks, bw_x, bw_y, seg, bfloat16) on which B6's path rule is asked of
+# the library and of its Python copy: tests/test_torch_port_dg0.py's path
+# cases, each limit of the rule from both sides
+DG0_RULE_SHAPES = (
+    (4, 32, 128, 64, True), (4, 32, 128, 64, False), (4, 24, 128, 64, True),
+    (4, 32, 64, 64, True), (4, 32, 48, 64, True), (1, 64, 160, 64, True),
+    (1, 80, 160, 64, True), (4, 32, 320, 64, True), (4, 32, 336, 64, True),
+    (4, 80, 80, 64, True), (4, 96, 80, 64, True), (1, 32, 128, 16, True),
+    (1, 32, 128, 8, True), (4, 128, 128, 64, False),
+    (4, 136, 128, 64, False), (32, 32, 64, 16, True),
+    (34, 32, 64, 16, True), (1, 8, 2048, 1, False), (1, 8, 2056, 1, False),
 )
 PATHS = ("serve", "train", "serve_generic", "train_generic", "serve_cached",
          "train_cached", "train_dg0")
@@ -702,6 +718,9 @@ def main():
         seg_accum_plain,
     )
     from fbtt_embedding_tpu_torch.ops.kernels.seg_accum_dg0 import (
+        PATH_NAMES as DG0_PATHS,
+        dg0_path,
+        dg0_takes,
         seg_accum_dg0,
         seg_accum_dg0_plain,
     )
@@ -922,7 +941,9 @@ def main():
                       " bfloat16 one ulp), bitwise repeatable, ok")
 
     # B6 at the headline i1 pass (uniform and Zipf(1.05) first-core rows),
-    # a tt_ndim-4 first pass and two tables (tp0 = 2 * p0), twice each
+    # a tt_ndim-4 first pass and two tables (tp0 = 2 * p0), twice each, on
+    # the path its rule gives (bfloat16: the tensor cores with dz0 over y);
+    # the headline's bfloat16 inputs also on the other two paths
     dg0_cases = [  # name, blocks, bw_x, bw_y, p_rows, nza, tp0, zipf i0
         ("headline i1", 4, 32, 128, 220, 10240, 200, False),
         ("headline i1, zipf1.05 i0", 4, 32, 128, 220, 10240, 200, True),
@@ -931,6 +952,7 @@ def main():
     ]
     for name, blocks, bw_x, bw_y, p_rows, nza, tp0, zipf in dg0_cases:
         for dtype in (torch.float32, torch.bfloat16):
+            bf16_in = dtype == torch.bfloat16
             runs, first, cnt, x, y, table = span_case(
                 rng, nza, blocks, bw_x, bw_y, p_rows, dtype, seg,
                 y_width=bw_y)
@@ -938,20 +960,42 @@ def main():
                     i0_rows(rng, runs, p_rows, nza, tp0, zipf), table)
             kw = dict(blocks=blocks, bw_x=bw_x, bw_y=bw_y, p_rows=p_rows,
                       tp0=tp0, seg=seg)
-            got = seg_accum_dg0(*args, **kw)
-            again = seg_accum_dg0(*args, **kw)
-            torch.cuda.synchronize()
-            if not all(torch.equal(a, b) for a, b in zip(got, again)):
-                fail(f"seg_accum_dg0 {name}: two runs differ (not bitwise "
-                     "repeatable)")
+            path = dg0_path(bf16_in, seg, blocks, bw_x, bw_y, card=True)
+            if bf16_in and name.startswith("headline") and path != 2:
+                fail(f"seg_accum_dg0 {name} bf16 takes the "
+                     f"{DG0_PATHS.get(path)} path, not the tensor cores with "
+                     "dz0 over y")
+            others = [p for p in DG0_PATHS if p != path and dg0_takes(
+                p, bf16_in, seg, blocks, bw_x, bw_y)] \
+                if (name, bf16_in) == ("headline i1", True) else []
             want = seg_accum_dg0_plain(*args, **kw)
-            errs = [check_close(f"seg_accum_dg0 {name} {out}", g, w, f32_tol)
-                    for out, g, w in zip(("acc", "dG0"), got, want)]
-            max_err["seg_accum_dg0"] = max(max_err["seg_accum_dg0"], *errs)
-            print(f"[kernel] seg_accum_dg0 {name} {str(dtype)[6:]} (tp0 "
-                  f"{tp0}): max_abs_err acc, dG0 {errs[0]:.3e}, "
-                  f"{errs[1]:.3e} (rtol = atol = 1e-5), bitwise repeatable, "
-                  "ok")
+            for p in [path] + others:
+                got = seg_accum_dg0(*args, path=p, **kw)
+                again = seg_accum_dg0(*args, path=p, **kw)
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                    fail(f"seg_accum_dg0 {name} ({DG0_PATHS[p]}): two runs "
+                         "differ (not bitwise repeatable)")
+                errs = [check_close(f"seg_accum_dg0 {name} {out}", g, w,
+                                    f32_tol)
+                        for out, g, w in zip(("acc", "dG0"), got, want)]
+                max_err["seg_accum_dg0"] = max(max_err["seg_accum_dg0"],
+                                               *errs)
+                print(f"[kernel] seg_accum_dg0 {name} {str(dtype)[6:]} (tp0 "
+                      f"{tp0}, {DG0_PATHS[p]}"
+                      f"{', the rule' if p == path else ''}): max_abs_err "
+                      f"acc, dG0 {errs[0]:.3e}, {errs[1]:.3e} (rtol = atol = "
+                      "1e-5), bitwise repeatable, ok")
+    # B6's path rule: the library's answer and its Python copy agree
+    for blocks, bw_x, bw_y, rseg, bf16_in in DG0_RULE_SHAPES:
+        took = dg0_path(bf16_in, rseg, blocks, bw_x, bw_y, card=True)
+        rule = dg0_path(bf16_in, rseg, blocks, bw_x, bw_y)
+        if took != rule:
+            fail(f"seg_accum_dg0 path rule, blocks={blocks} {bw_x} x {bw_y} "
+                 f"seg={rseg} bf16={bf16_in}: the library says {took}, the "
+                 f"Python copy {rule}")
+    print(f"[kernel] seg_accum_dg0 path rule: the library and its Python copy "
+          f"agree on {len(DG0_RULE_SHAPES)} shapes")
 
     # B4's path rule: the library's answer and its Python copy (code on the
     # CPU, the tests) agree on every shape of the CPU tests' path cases and
@@ -1487,6 +1531,8 @@ def main():
             if kname == "seg_accum_dg0":  # i0c goes before the table
                 args = args[:5] + (i0c,) + args[5:]
                 kw["tp0"] = P[0]
+                path = DG0_PATHS[dg0_path(dt == torch.bfloat16, seg, Q[0],
+                                          bw_x, bw_y, card=True)]
             fn = wrappers[kname]
             ref_fn = {"seg_fused_i2": seg_fused_i2_plain,
                       "seg_accum": seg_accum_plain,
@@ -1498,14 +1544,17 @@ def main():
                 bw_x, bw_y, P[ti], kw.get("z_dtype", dt),
                 kname == "seg_fused_i2",
                 P[0] if kname == "seg_accum_dg0" else 0, kw.get("mm", 1))
+            if kname == "seg_accum_dg0":
+                t["path"] = path
             if label == "uniform":
                 times[kname] = [t]
             if kname == "seg_fused_i2":  # dZ1, s2 -> s1: B3's y
                 dz = fn(*args, **kw)[1][rplan.perm_bwd[0].long()]
             print(f"[time] {kname} pass i{ti}, {label} batch (x "
                   f"{tuple(xs.shape)}, y {tuple(ys.shape)} bf16, bw "
-                  f"{bw_x}x{bw_y}, mm {kw.get('mm', 1)}): {times_text(t)} "
-                  f"[{card}]")
+                  f"{bw_x}x{bw_y}, mm {kw.get('mm', 1)}"
+                  + (f", {t['path']}" if "path" in t else "")
+                  + f"): {times_text(t)} [{card}]")
 
     # an older tree's B1, B2, B3 and B6 beside these, where one is unpacked in
     # build/ab_old: the same inputs, a process per run, in turns old, new,

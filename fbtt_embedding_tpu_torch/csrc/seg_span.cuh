@@ -2,8 +2,9 @@
 // (sm_90a). Shared by seg_accum.cu (kernel B3, replacing the Pallas TPU
 // kernel tt_flat.py :: _seg_accum_call) and seg_fused_i2.cu (kernel B2,
 // replacing _seg_fused_i2_call), and in part by seg_accum_dg0.cu (kernel
-// B6, which uses the CUDA-core helpers and the span reduction below) and
-// seg_transform.cu (kernel B1, which uses the staging and mma primitives).
+// B6, which runs the tensor-core kernel below with its own z epilogue, and
+// the CUDA-core helpers and the span reduction) and seg_transform.cu
+// (kernel B1, which uses the staging and mma primitives).
 //
 // Lookups are sorted by one core index j, so the rows of core row j form
 // one contiguous span runs[j] .. runs[j+1]. For every span j < p_rows and
@@ -52,7 +53,9 @@
 //    z = Y_j T_j^T with M = the span's rows x blocks (row-major T_j is the
 //    col-major B operand as it lies), acc_j = X_j^T Y_j with K = the span's
 //    rows x blocks through ldmatrix.trans, items outside the span zeroed in
-//    both fragments of the k-steps at the span's edges.
+//    both fragments of the k-steps at the span's edges. What becomes of z
+//    is the kernel's epilogue, a template parameter: B3 writes it to device
+//    memory (ZToDevice); B6 keeps it in shared memory (seg_accum_dg0.cu).
 //  - narrow tensor cores (bf16, kx 16, 32 or 64, ky 2, 4 or 8, B2 and B3):
 //    the folded last core, B2 at the headline shape (kx 32, ky 4, 16
 //    sub-blocks), is a stream of ~27 MB (bound ~8 us) with only 4
@@ -209,7 +212,7 @@ __device__ void zero_sentinel_rows(const SpanArgs<Tin, Tz>& a, int base) {
 }
 
 // ---------------------------------------------------------------------------
-// CUDA-core helpers (the fallback path and B6)
+// CUDA-core helpers (the fallback path, and B6's in float32)
 
 // out[r - out_row0, b*n_out + o0 + c] = sum_k in[r, b*n_in + k] * w[k * nc + c]
 // for the rows [st, en) and the nc columns c of one chunk: w is an [n_in, nc]
@@ -656,11 +659,45 @@ inline size_t tc_smem_bytes(int seg, int nb, int kx, int ky) {
               2 * static_cast<size_t>(kx) * (ky + kTcPad));
 }
 
+// B3's epilogue of the tensor-core kernel: z rows to device memory, each
+// element rounded once to Tz; the sentinel span's rows get exact zeros.
+// An epilogue gives the kernel:
+//  - kInPlace: z overwrites the span's own y rows in shared memory, so the
+//    acc product runs first, then a barrier, then the z product;
+//  - kPasses: 32-column passes of z a warp holds in registers before it
+//    stores any (in place, an m-tile's y rows are read by every pass);
+//  - Args, what it needs beyond SpanArgs (its own shared memory, if any,
+//    follows the slab buffers: the launch adds it);
+//  - begin(a, base), while the segment's rows are staged; store(item,
+//    column, v0, v1), two neighbouring z elements of one item of the
+//    segment; finish(), after the span walk, every z element stored and
+//    visible.
 template <typename Tz>
+struct ZToDevice {
+  static constexpr bool kInPlace = false;
+  static constexpr int kPasses = 1;
+  struct Args {};
+
+  Tz* z;  // the segment's first z row
+  int kx;
+  __device__ ZToDevice(const SpanArgs<__nv_bfloat16, Tz>& a, const Args&, __nv_bfloat16*,
+                       int, void*, int base)
+      : z(a.z + static_cast<size_t>(base) * a.nb * a.kx), kx(a.kx) {}
+  __device__ void begin(const SpanArgs<__nv_bfloat16, Tz>& a, int base) const {
+    zero_sentinel_rows<__nv_bfloat16, Tz, false>(a, base);
+  }
+  __device__ void store(int it, int col, float v0, float v1) const {
+    store2(z + static_cast<size_t>(it) * kx + col, v0, v1);
+  }
+  __device__ void finish() const {}
+};
+
+template <typename Tz, typename Epi>
 __global__ void __launch_bounds__(kThreads, 2)
-seg_span_tc_kernel(const SpanArgs<__nv_bfloat16, Tz> a) {
+seg_span_tc_kernel(const SpanArgs<__nv_bfloat16, Tz> a, const typename Epi::Args ea) {
   extern __shared__ float4 smem4[];
   using bf16 = __nv_bfloat16;
+  constexpr int NP = Epi::kPasses;
   const int kx = a.kx, ky = a.ky;
   const int xs = kx + kTcPad, ys = ky + kTcPad;  // padded row strides
   const int items = a.seg * a.nb;
@@ -675,6 +712,7 @@ seg_span_tc_kernel(const SpanArgs<__nv_bfloat16, Tz> a) {
   const int base = s * a.seg;
   const int j0 = a.first[s];
   const int nspan = a.cnt[s];
+  Epi epi(a, ea, y_s, ys, t_s + static_cast<size_t>(2) * kx * ys, base);
 
   auto live = [&](int k) {  // span k of this segment has rows and a slab
     const int j = j0 + k;
@@ -712,7 +750,7 @@ seg_span_tc_kernel(const SpanArgs<__nv_bfloat16, Tz> a) {
   int k = next_live(0);
   if (k < nspan) stage_slab(k, 0);
   cp_async_commit();
-  zero_sentinel_rows<bf16, Tz, false>(a, base);
+  epi.begin(a, base);
   cp_async_wait_all();
   __syncthreads();
 
@@ -727,104 +765,122 @@ seg_span_tc_kernel(const SpanArgs<__nv_bfloat16, Tz> a) {
     const int m_lo = lo & ~15;
     const bf16* ts_ = t_s + static_cast<size_t>(buf) * kx * ys;
 
-    // z = Y_j T_j^T: m16 item tiles dealt to warps, 32 columns at a time
-    for (int m0 = m_lo + warp * 16; m0 < hi; m0 += kWarps * 16) {
-      for (int n0 = 0; n0 < kx; n0 += 32) {
-        const int npairs = min(2, (kx - n0) / 16);
-        float c[4][4];
+    // z = Y_j T_j^T: m16 item tiles dealt to warps, 32 * NP columns at a
+    // time. Rows of a tile outside [lo, hi) are computed and dropped (in
+    // place, rows before lo hold the previous span's z).
+    auto z_product = [&]() {
+      for (int m0 = m_lo + warp * 16; m0 < hi; m0 += kWarps * 16) {
+        for (int n0 = 0; n0 < kx; n0 += 32 * NP) {
+          float c[4 * NP][4];
 #pragma unroll
-        for (int q = 0; q < 4; ++q)
+          for (int q = 0; q < 4 * NP; ++q)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) c[q][e] = 0.f;
-        for (int k0 = 0; k0 < ky; k0 += 16) {
-          uint32_t af[4];
-          ldsm_x4(af, y_s + (m0 + (lane & 15)) * ys + k0 + (lane >> 4) * 8);
+            for (int e = 0; e < 4; ++e) c[q][e] = 0.f;
+          for (int k0 = 0; k0 < ky; k0 += 16) {
+            uint32_t af[4];
+            ldsm_x4(af, y_s + (m0 + (lane & 15)) * ys + k0 + (lane >> 4) * 8);
 #pragma unroll
-          for (int p = 0; p < 2; ++p) {
-            if (p < npairs) {
-              uint32_t bf[4];
-              const int q = lane >> 3;
-              ldsm_x4(bf, ts_ + (n0 + p * 16 + (q >> 1) * 8 + (lane & 7)) * ys + k0 +
-                              (q & 1) * 8);
-              mma_bf16(c[2 * p], af, bf[0], bf[1]);
-              mma_bf16(c[2 * p + 1], af, bf[2], bf[3]);
+            for (int p = 0; p < 2 * NP; ++p) {
+              if (n0 + p * 16 < kx) {
+                uint32_t bf[4];
+                const int q = lane >> 3;
+                ldsm_x4(bf, ts_ + (n0 + p * 16 + (q >> 1) * 8 + (lane & 7)) * ys + k0 +
+                                (q & 1) * 8);
+                mma_bf16(c[2 * p], af, bf[0], bf[1]);
+                mma_bf16(c[2 * p + 1], af, bf[2], bf[3]);
+              }
+            }
+          }
+          if (Epi::kInPlace) __syncwarp();  // the tile's y rows are read
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int it = m0 + g + h * 8;
+            if (it < lo || it >= hi) continue;
+#pragma unroll
+            for (int q = 0; q < 4 * NP; ++q) {
+              if (n0 + (q >> 1) * 16 < kx) {
+                epi.store(it, n0 + q * 8 + 2 * t4, c[q][2 * h], c[q][2 * h + 1]);
+              }
             }
           }
         }
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int it = m0 + g + h * 8;
-          if (it < lo || it >= hi) continue;
-          Tz* zr = a.z + (static_cast<size_t>(base) * a.nb + it) * kx + n0 + 2 * t4;
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            if (q < 2 * npairs) store2(zr + q * 8, c[q][2 * h], c[q][2 * h + 1]);
-          }
-        }
       }
-    }
+    };
 
     // acc_j = X_j^T Y_j: units of (16 columns of ky) x (up to 64 rows of
     // kx) dealt to warps; each warp runs the span's whole K, in order
-    const int n_np = ky / 16;
-    const int n_mg = (kx + 63) / 64;
-    float* dst = a.partial + static_cast<size_t>(s + j) * tile;
-    for (int u = warp; u < n_np * n_mg; u += kWarps) {
-      const int n0 = (u % n_np) * 16;
-      const int mb = (u / n_np) * 64;
-      const int mtiles = min(4, (kx - mb) / 16);
-      float c[4][2][4];
+    auto acc_product = [&]() {
+      const int n_np = ky / 16;
+      const int n_mg = (kx + 63) / 64;
+      float* dst = a.partial + static_cast<size_t>(s + j) * tile;
+      for (int u = warp; u < n_np * n_mg; u += kWarps) {
+        const int n0 = (u % n_np) * 16;
+        const int mb = (u / n_np) * 64;
+        const int mtiles = min(4, (kx - mb) / 16);
+        float c[4][2][4];
 #pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
+        for (int mi = 0; mi < 4; ++mi)
 #pragma unroll
-        for (int q = 0; q < 2; ++q)
+          for (int q = 0; q < 2; ++q)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) c[mi][q][e] = 0.f;
-      for (int k0 = m_lo; k0 < hi; k0 += 16) {
-        const int q = lane >> 3;
-        uint32_t bf[4];  // Y rows k0.., columns n0..n0+16 (two n8 tiles)
-        ldsm_x4_t(bf, y_s + (k0 + (q & 1) * 8 + (lane & 7)) * ys + n0 + (q >> 1) * 8);
-        const bool edge = k0 < lo || k0 + 16 > hi;  // warp-uniform
-        if (edge) {
-          bf[0] = mask_pair(bf[0], k0 + 2 * t4, lo, hi);
-          bf[1] = mask_pair(bf[1], k0 + 8 + 2 * t4, lo, hi);
-          bf[2] = mask_pair(bf[2], k0 + 2 * t4, lo, hi);
-          bf[3] = mask_pair(bf[3], k0 + 8 + 2 * t4, lo, hi);
+            for (int e = 0; e < 4; ++e) c[mi][q][e] = 0.f;
+        for (int k0 = m_lo; k0 < hi; k0 += 16) {
+          const int q = lane >> 3;
+          uint32_t bf[4];  // Y rows k0.., columns n0..n0+16 (two n8 tiles)
+          ldsm_x4_t(bf, y_s + (k0 + (q & 1) * 8 + (lane & 7)) * ys + n0 + (q >> 1) * 8);
+          const bool edge = k0 < lo || k0 + 16 > hi;  // warp-uniform
+          if (edge) {  // also clears the previous span's z bits, in place
+            bf[0] = mask_pair(bf[0], k0 + 2 * t4, lo, hi);
+            bf[1] = mask_pair(bf[1], k0 + 8 + 2 * t4, lo, hi);
+            bf[2] = mask_pair(bf[2], k0 + 2 * t4, lo, hi);
+            bf[3] = mask_pair(bf[3], k0 + 8 + 2 * t4, lo, hi);
+          }
+#pragma unroll
+          for (int mi = 0; mi < 4; ++mi) {
+            if (mi < mtiles) {
+              uint32_t af[4];  // X^T: X rows k0.., columns mb + mi*16 ..
+              ldsm_x4_t(af, x_s + (k0 + (q >> 1) * 8 + (lane & 7)) * xs + mb + mi * 16 +
+                                (q & 1) * 8);
+              if (edge) {
+                af[0] = mask_pair(af[0], k0 + 2 * t4, lo, hi);
+                af[1] = mask_pair(af[1], k0 + 2 * t4, lo, hi);
+                af[2] = mask_pair(af[2], k0 + 8 + 2 * t4, lo, hi);
+                af[3] = mask_pair(af[3], k0 + 8 + 2 * t4, lo, hi);
+              }
+              mma_bf16(c[mi][0], af, bf[0], bf[1]);
+              mma_bf16(c[mi][1], af, bf[2], bf[3]);
+            }
+          }
         }
 #pragma unroll
         for (int mi = 0; mi < 4; ++mi) {
           if (mi < mtiles) {
-            uint32_t af[4];  // X^T: X rows k0.., columns mb + mi*16 ..
-            ldsm_x4_t(af, x_s + (k0 + (q >> 1) * 8 + (lane & 7)) * xs + mb + mi * 16 +
-                              (q & 1) * 8);
-            if (edge) {
-              af[0] = mask_pair(af[0], k0 + 2 * t4, lo, hi);
-              af[1] = mask_pair(af[1], k0 + 2 * t4, lo, hi);
-              af[2] = mask_pair(af[2], k0 + 8 + 2 * t4, lo, hi);
-              af[3] = mask_pair(af[3], k0 + 8 + 2 * t4, lo, hi);
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              float* dr =
+                  dst + static_cast<size_t>(mb + mi * 16 + g + h * 8) * ky + n0 + 2 * t4;
+              store2(dr, c[mi][0][2 * h], c[mi][0][2 * h + 1]);
+              store2(dr + 8, c[mi][1][2 * h], c[mi][1][2 * h + 1]);
             }
-            mma_bf16(c[mi][0], af, bf[0], bf[1]);
-            mma_bf16(c[mi][1], af, bf[2], bf[3]);
           }
         }
       }
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi) {
-        if (mi < mtiles) {
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            float* dr = dst + static_cast<size_t>(mb + mi * 16 + g + h * 8) * ky + n0 + 2 * t4;
-            store2(dr, c[mi][0][2 * h], c[mi][0][2 * h + 1]);
-            store2(dr + 8, c[mi][1][2 * h], c[mi][1][2 * h + 1]);
-          }
-        }
-      }
+    };
+
+    if constexpr (Epi::kInPlace) {
+      acc_product();
+      __syncthreads();  // every warp has read span j's y rows: z may replace them
+      z_product();
+    } else {
+      z_product();
+      acc_product();
     }
     cp_async_wait_all();
     __syncthreads();  // span kn's slab is in; nobody reads buffer `buf` now
     buf ^= 1;
     k = kn;
   }
+  epi.finish();
 }
 
 // ---------------------------------------------------------------------------
@@ -1214,11 +1270,11 @@ int launch(const int* runs, const int* first, const int* cnt, const void* x,
     if (path == kPathTc) {
       if constexpr (kBf16 && !kRowsOut) {
         const size_t smem = tc_smem_bytes(seg, a.nb, a.kx, a.ky);
-        auto kern = seg_span_tc_kernel<Tz>;
+        auto kern = seg_span_tc_kernel<Tz, ZToDevice<Tz>>;
         err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                    static_cast<int>(smem));
         if (err != cudaSuccess) return static_cast<int>(err);
-        kern<<<nseg, kThreads, smem, stream>>>(a);
+        kern<<<nseg, kThreads, smem, stream>>>(a, typename ZToDevice<Tz>::Args{});
       }
     } else if (path == kPathTcNarrow) {
       if constexpr (kBf16) {

@@ -127,13 +127,15 @@ def _bd_widths(tt_q_shapes, ranks):
     return out
 
 
-def _dg0_fused_gate(width: int) -> bool:
+def _dg0_fused_gate(dtype: torch.dtype, blocks: int, bw_x: int,
+                    bw_y: int) -> bool:
     """Whether the innermost gradient pass folds dG0 in (kernel B6):
-    ``FBTT_DG0=fused`` and a z0 width ``width = q0*r1`` whose per-segment
-    dz0 tile fits B6's shared memory (:func:`dg0_fits`). Default "onehot":
-    off, as in the JAX package. The TPU's span-row and VMEM limits do not
-    apply."""
-    return knobs.get_str("FBTT_DG0") == "fused" and dg0_fits(width, SEG)
+    ``FBTT_DG0=fused`` and widths (``blocks = q0``, ``bw_x = r1``, ``bw_y
+    = q1*r2``) staged in ``dtype`` that one of B6's paths takes
+    (:func:`dg0_fits`). Default "onehot": off, as in the JAX package. The
+    TPU's span-row and VMEM limits do not apply."""
+    return knobs.get_str("FBTT_DG0") == "fused" and dg0_fits(
+        dtype == torch.bfloat16, SEG, blocks, bw_x, bw_y)
 
 
 def flat_available(tt_p_shapes, tt_q_shapes, tt_ranks, num_tables: int,
@@ -499,7 +501,7 @@ def _grad_passes(plan: FlatPlan, stages, dz, top, g0f, tables, widths, p, q,
         span = (plan.runs[ti - 1], plan.first[ti - 1], plan.cnt[ti - 1])
         kw = dict(blocks=q[0], bw_x=bw_in, bw_y=bw_out, p_rows=t * p[ti],
                   seg=seg)
-        if ti == 1 and _dg0_fused_gate(q[0] * bw_in):
+        if ti == 1 and _dg0_fused_gate(dt, q[0], bw_in, bw_out):
             dgs[1], dg0 = seg_accum_dg0(*span, x_stage, dz, _i0c(plan, tp0),
                                         tables[0], tp0=tp0, **kw)
             dgs[0] = dg0.reshape(tp0, q[0], r[1])

@@ -16,7 +16,9 @@ made by the package's own plan and table helpers: B1 on the first pass
 (i1) and the last pass (i2, as in the serve), B2 on the last pass
 (i2), B3 on the first pass (i1, float32 z, as in the fused step) and on the
 last pass (bfloat16 z, as in the two-pass backward of the autograd path),
-B6 on the first pass, all staged in ``--dtype`` (bfloat16 by default, as
+B6 on the first pass and what it replaces there (B3 with a float32 z, then
+the float32 one-hot dG0 product, ``tt_flat._dg0``, as the onehot step runs
+them), all staged in ``--dtype`` (bfloat16 by default, as
 the step stages them). ``--ndim4`` adds B2 and B3 (z in the staging dtype)
 on the last pass of a tt_ndim-4 model (q=[4]*4, ranks 32: G[j] 32 x 4
 over 16 sub-blocks of x [nnz, 4*512], y [nnz, 4*64]) in float32 and
@@ -146,6 +148,10 @@ def main():
             "B6 i1": lambda: seg_accum_dg0(
                 *span(1), z0, dz1, i0c, tables[0], tp0=P[0],
                 **{k: v for k, v in kw(1).items() if k != "mm"}),
+            "B3 i1 + one-hot dG0": lambda: tt_flat._dg0(
+                plan, seg_accum(*span(1), z0, dz1, tables[0],
+                                z_dtype=torch.float32, **kw(1))[1],
+                P[0], Q[0], R[1]),
         }
         for name, fn in calls.items():
             timed(name, label, fn)

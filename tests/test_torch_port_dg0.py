@@ -3,6 +3,12 @@
 - B6's plain version (``seg_accum_dg0_plain``: B3's plain pass and a
   float32 one-hot dG0) against the Pallas kernel ``_seg_accum_i1`` in
   interpret mode, rtol = atol = 1e-5, with a sentinel tail of dead rows;
+- the plain model of the kernels' schedule (``seg_accum_dg0_sched_plain``:
+  per-segment keyed partial rows, the fixed-order reduces) against both,
+  rtol = atol = 1e-5: a sentinel tail, Zipf first-core rows with the hot
+  row in every segment, T=2, a tt_ndim-4 first pass, keys >= tp0 inside
+  live spans and valid keys on the sentinel span's rows;
+- the path rule's Python copy (``dg0_path``) on both sides of each limit;
 - ``flat_train_apply`` and the ``FlatLookup`` backward with
   ``FBTT_DG0=fused`` against the JAX package's own with the same knob
   (interpret mode), float32, rtol 1e-6: dead masks, pair mode, tt_ndim 2,
@@ -21,9 +27,12 @@ from fbtt_embedding_tpu.ops.pallas import tt_flat as jflat
 from fbtt_embedding_tpu_torch.ops.kernels import tt_flat as tflat
 from fbtt_embedding_tpu_torch.ops.kernels.seg_accum import seg_accum
 from fbtt_embedding_tpu_torch.ops.kernels.seg_accum_dg0 import (
+    PATH_NAMES,
     dg0_fits,
+    dg0_path,
     seg_accum_dg0,
     seg_accum_dg0_plain,
+    seg_accum_dg0_sched_plain,
 )
 from fbtt_embedding_tpu_torch.ops.lookup import pooled_tt_lookup as t_lookup
 from fbtt_embedding_tpu_torch.utils import knobs
@@ -115,18 +124,121 @@ def test_seg_accum_dg0_checks_inputs():
 
 
 def test_dg0_gate_and_knobs(monkeypatch):
+    f32, bf16 = torch.float32, torch.bfloat16
+    gate = tflat._dg0_fused_gate
     monkeypatch.delenv("FBTT_DG0", raising=False)
-    assert not tflat._dg0_fused_gate(128)  # "onehot" by default
+    assert not gate(bf16, 4, 32, 128)  # "onehot" by default
     monkeypatch.setenv("FBTT_DG0", "onehot")
-    assert not tflat._dg0_fused_gate(128)
+    assert not gate(bf16, 4, 32, 128)
     monkeypatch.setenv("FBTT_DG0", "fused")
-    assert tflat._dg0_fused_gate(128) and tflat._dg0_fused_gate(512)
-    # the one Hopper limit: the segment's float32 dz0 tile in shared memory
-    assert not tflat._dg0_fused_gate(520)
-    assert dg0_fits(512, 64) and not dg0_fits(520, 64)
+    assert gate(bf16, 4, 32, 128) and gate(f32, 4, 32, 128)
+    assert gate(f32, 4, 128, 128)
+    # where no path takes the widths: the CUDA-core path's float32 dz0 tile
+    # passes 128 KB of shared memory (q0*r1 = 544 > 512 at seg 64)
+    assert not gate(f32, 4, 136, 128) and not gate(bf16, 4, 136, 128)
+    assert dg0_fits(False, 64, 4, 128, 128)
+    assert not dg0_fits(False, 64, 4, 136, 128)
     assert knobs.get_str("FBTT_DG0") == "fused"
     with pytest.raises(KeyError):
         knobs.get_str("FBTT_SEG")  # the TPU's knobs are not carried over
+
+
+# blocks, bw_x, bw_y, seg, in bfloat16, path taken (2 tensor cores with
+# dz0 over y, 1 tensor cores with a dz0 tile, 0 CUDA cores, -1 none): each
+# limit of the rule from both sides
+PATH_RULE_CASES = [
+    (4, 32, 128, 64, True, 2),      # the headline i1 pass
+    (4, 32, 128, 64, False, 0),     # float32: the CUDA cores
+    (4, 24, 128, 64, True, 0),      # bw_x not a multiple of 16
+    (4, 32, 64, 64, True, 2),       # 2*bw_x <= bw_y + 8 ...
+    (4, 32, 48, 64, True, 1),       # ... or the dz0 tile
+    (1, 64, 160, 64, True, 2),      # bw_x <= 64 ...
+    (1, 80, 160, 64, True, 1),      # ... or the dz0 tile
+    (4, 32, 320, 64, True, 2),      # B3's staging within 227 KB ...
+    (4, 32, 336, 64, True, 0),      # ... or the CUDA cores
+    (4, 80, 80, 64, True, 1),       # staging and dz0 tile within 227 KB ...
+    (4, 96, 80, 64, True, 0),       # ... or the CUDA cores
+    (1, 32, 128, 16, True, 2),      # seg * blocks a multiple of 16 ...
+    (1, 32, 128, 8, True, 0),       # ... or the CUDA cores
+    (4, 128, 128, 64, False, 0),    # the CUDA cores' dz0 tile <= 128 KB ...
+    (4, 136, 128, 64, False, -1),   # ... or no path
+    (32, 32, 64, 16, True, 2),      # blocks * bw_x <= 1024 ...
+    (34, 32, 64, 16, True, -1),     # ... or no path
+    (1, 8, 2048, 1, False, 0),      # widths up to 2048 ...
+    (1, 8, 2056, 1, False, -1),     # ... or no path
+]
+
+
+@pytest.mark.parametrize("blocks,bw_x,bw_y,seg,bf16,want", PATH_RULE_CASES)
+def test_dg0_path_rule(blocks, bw_x, bw_y, seg, bf16, want):
+    got = dg0_path(bf16, seg, blocks, bw_x, bw_y)
+    assert got == want, (got, PATH_NAMES.get(got))
+    assert dg0_fits(bf16, seg, blocks, bw_x, bw_y) == (want >= 0)
+
+
+# name, (blocks, bw_x (r1), bw_y, p_rows (T*p1), nza, seg, tp0 (T*p0))
+SCHED_CASES = [
+    ("sentinel tail", (4, 16, 32, 22, 512, 64, 20)),
+    ("zipf i0, hot row in every segment", (4, 16, 32, 22, 512, 64, 20)),
+    ("T=2", (4, 8, 64, 2 * 15, 256, 64, 2 * 20)),
+    # q=[2,2,2,2], ranks [8,8,8] (test_torch_port_flat CASES[7]), pass 1
+    ("ndim4 pass 1", (2, 8, 16, 9, 256, 64, 8)),
+    ("keys >= tp0 in live spans", (2, 8, 16, 12, 256, 64, 10)),
+]
+
+
+def _sched_inputs(name, shape):
+    keys, jtabs, ttabs, x, y, table, i0c = _dg0_inputs(shape)
+    p_rows, nza, seg, tp0 = shape[3], shape[4], shape[5], shape[6]
+    rng = np.random.default_rng(len(name))
+    live = keys < p_rows
+    if name.startswith("zipf"):
+        i0c = ((rng.zipf(1.05, size=nza) - 1) % tp0).astype(np.int32)
+        i0c[::seg] = 0  # the hot row has a row in every segment
+        assert live[::seg].all()
+        i0c[~live] = tp0
+    if name.startswith("keys"):
+        bad = rng.choice(np.flatnonzero(live), size=8, replace=False)
+        i0c[bad[:4]] = tp0
+        i0c[bad[4:]] = tp0 + 5
+        # the sentinel span's rows carry valid keys: dropped all the same
+        i0c[~live] = rng.integers(0, tp0, size=int((~live).sum()))
+    return keys, jtabs, ttabs, x, y, table, i0c
+
+
+@pytest.mark.parametrize("name,shape", SCHED_CASES)
+def test_dg0_schedule_model_matches_plain_and_pallas(name, shape):
+    blocks, bw_x, bw_y, p_rows, nza, seg, tp0 = shape
+    keys, jtabs, ttabs, x, y, table, i0c = _sched_inputs(name, shape)
+    assert (keys >= p_rows).any()  # a sentinel tail is exercised
+    want_acc, want_dg0 = jflat._seg_accum_i1(
+        nza // seg, blocks, bw_x, bw_y, p_rows, tp0, "float32", True,
+        *jtabs, jnp.asarray(x), jnp.asarray(y), jnp.asarray(i0c),
+        jnp.asarray(table), seg=seg)
+    kw = dict(blocks=blocks, bw_x=bw_x, bw_y=bw_y, p_rows=p_rows, tp0=tp0,
+              seg=seg)
+    args = (*ttabs, torch.as_tensor(x), torch.as_tensor(y),
+            torch.as_tensor(i0c), torch.as_tensor(table))
+    acc, dg0, part, part_key = seg_accum_dg0_sched_plain(*args, **kw)
+    plain_acc, plain_dg0 = seg_accum_dg0_plain(*args, **kw)
+    for got, want in ((acc, plain_acc), (dg0, plain_dg0),
+                      (acc, np.asarray(want_acc)),
+                      (dg0, np.asarray(want_dg0))):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TIGHT)
+    # the keyed rows: ascending distinct keys in [0, tp0), then INT_MAX;
+    # each segment's count is its live rows' distinct keys
+    nseg = nza // seg
+    kept = (keys < p_rows) & (i0c >= 0) & (i0c < tp0)
+    pk = part_key.numpy()
+    for s in range(nseg):
+        sl = slice(s * seg, (s + 1) * seg)
+        want_keys = np.unique(i0c[sl][kept[sl]])
+        n = want_keys.size
+        np.testing.assert_array_equal(pk[s, :n], want_keys)
+        assert (pk[s, n:] == np.iinfo(np.int32).max).all()
+        assert not part[s, n:].any()
+    if name.startswith("zipf"):
+        assert (pk[:, 0] == 0).all()  # the hot row's partial in every segment
 
 
 def _count(monkeypatch):

@@ -76,6 +76,27 @@ CUDA card and ``nvcc``). Phases, each printing its own lines:
    with B1, B2, B3 once; and with ``FBTT_DG0=fused`` steps of B=512,
    B=1024 (pair mode), B=2048 (autograd) and the cached B=512 step, with
    B6 once and B3 off the i1 pass;
+5b. module: ``TTEmbeddingBag`` on the same model (approx-normal cores from
+   seed 0, the LFU cache at its default sizes: direct, E rows counted,
+   0.1 E cached) takes four forward + SGD ``backward`` calls of B=512 at
+   pooling 20 (uniform and Zipf 1.05; counts checked exactly against a
+   ``torch.bincount``), ``cache_populate()``, then two calls that probe the
+   cache (each printing ``cache_hit_rate()``), one under ``FBTT_DG0=fused``
+   and one with ``impl="pallas"``; an ``EXACT_ADAGRAD`` module on the
+   populated cache with float32 staging, and in bfloat16 beside the fused
+   step on the same state and batch; a ``sparse=False`` module (the core
+   gradients and ``d_cache_weight``); a ``TableBatchedTTEmbeddingBag`` of
+   two tables. Each call is held against a second module loaded with the
+   same state (``impl="xla", precision="highest"``): output, cores and
+   cache at the step's limits (float32 ones with ``impl="pallas"`` or
+   float32 staging), with the launches of the forward and of the backward
+   checked (B1 twice forward, B3 twice backward; B6 for B3's i1 pass under
+   ``FBTT_DG0=fused``; B4 and B5 once with ``impl="pallas"``) and no plain
+   kernel version or plain lookup run. Then ``full_weight()`` (11M x 64,
+   float32) against single-id bags of the forward on 512 sampled rows, an
+   ``import_full_weight`` round trip on a 110k-row model, and host-clock
+   medians of the module's forward and forward + backward at B=512 with
+   counting, beside the fused counting step, in turns;
 6. times: each kernel pass's time per call on two yardsticks, beside its
    bound and its plain version's on both: between CUDA events over
    back-to-back calls (the kernels' line's ``ms`` and ``plain_ms``; the
@@ -160,7 +181,7 @@ DG0_RULE_SHAPES = (
     (34, 32, 64, 16, True), (1, 8, 2048, 1, False), (1, 8, 2056, 1, False),
 )
 PATHS = ("serve", "train", "serve_generic", "train_generic", "serve_cached",
-         "train_cached", "train_dg0")
+         "train_cached", "train_dg0", "module")
 LR, EPS = 0.005, 1.0        # training steps of the check (EPS: Adagrad)
 # bf16 staging against the float32 plain step: outputs within 5e-3 of
 # max|out| (the serve's limit); each core's update within 3e-2 of its
@@ -686,6 +707,366 @@ def clone_cache(c):
 
     return CacheState(*(t.clone() for t in (c.keys, c.freq, c.slots,
                                             c.weight, c.opt_state)))
+
+
+@contextlib.contextmanager
+def plain_watch():
+    """Count, inside the block, the calls of every kernel's plain version
+    and of the plain lookup chain (``ops.lookup.tt_forward``): yields a
+    dict {function name: calls} that stays empty where none ran."""
+    import importlib
+
+    pkg = "fbtt_embedding_tpu_torch.ops."
+    targets = [(pkg + "kernels." + stem, stem + "_plain") for stem in (
+        "seg_transform", "seg_fused_i2", "seg_accum", "seg_accum_dg0",
+        "tt_fwd", "tt_bwd")] + [(pkg + "lookup", "tt_forward")]
+    calls, saved = {}, []
+    for mod_name, name in targets:
+        mod = importlib.import_module(mod_name)
+        fn = getattr(mod, name)
+        saved.append((mod, name, fn))
+
+        def counted(*a, _fn=fn, _name=name, **k):
+            calls[_name] = calls.get(_name, 0) + 1
+            return _fn(*a, **k)
+
+        setattr(mod, name, counted)
+    try:
+        yield calls
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def module_phase(fbt, card, wrappers, request, fused_step):
+    """Phase 5b of the docstring, the modules at full width; returns the
+    launches of the module calls."""
+    import numpy as np
+    import torch
+
+    from fbtt_embedding_tpu_torch.ops.cache import CacheState
+    from fbtt_embedding_tpu_torch.ops.kernels import tt_flat
+
+    def zero_counts():
+        for fn in wrappers.values():
+            fn.launches = 0
+
+    def counts():
+        return {name: fn.launches for name, fn in wrappers.items()}
+
+    def want(**kw):
+        short = {"B1": "seg_transform", "B2": "seg_fused_i2",
+                 "B3": "seg_accum", "B4": "tt_fwd", "B5": "tt_bwd",
+                 "B6": "seg_accum_dg0"}
+        return {**dict.fromkeys(wrappers, 0),
+                **{short[k]: v for k, v in kw.items()}}
+
+    def text(c):
+        names = ("B1", "B2", "B3", "B4", "B5", "B6")
+        return " ".join(f"{n} {c[k]}" for n, k in zip(names, (
+            "seg_transform", "seg_fused_i2", "seg_accum", "tt_fwd", "tt_bwd",
+            "seg_accum_dg0")) if c[k])
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(3)
+    kw = dict(tt_p_shapes=P, tt_q_shapes=Q, seed=0, learning_rate=LR,
+              eps=EPS, device="cuda")
+    plain = dict(impl="xla", precision="highest")
+    mod = fbt.TTEmbeddingBag(E, D, R[1:-1], **kw)
+    ref = fbt.TTEmbeddingBag(E, D, R[1:-1], **kw, **plain)
+    launches = dict.fromkeys(wrappers, 0)
+
+    def batch(zipf, tables=1):
+        idx, offs = request(tables * B, zipf)
+        d_out = torch.as_tensor(rng.standard_normal((tables, B, D)),
+                                dtype=torch.float32, device="cuda")
+        return idx, offs, d_out
+
+    def checked(m, r, bt, fwd_want, bwd_want, label, tols=(OUT_TOL,
+                                                          UPDATE_TOL)):
+        """One forward + backward of module ``m`` and of the plain module
+        ``r`` loaded with the same state; launches (forward, backward) and
+        no plain kernel version checked, then the output, the update (or
+        the dense gradients) and the cache against the plain module's."""
+        idx, offs, d_out = bt
+        old = {k: v.clone() for k, v in m.state_dict().items()}
+        r.load_state_dict(old)
+        r.warmup = m.warmup
+        zero_counts()
+        with plain_watch() as plains:
+            out = m(idx, offs)
+            torch.cuda.synchronize()
+            fwd = counts()
+            res = m.backward(d_out)
+            torch.cuda.synchronize()
+        bwd = {k: v - fwd[k] for k, v in counts().items()}
+        for k in wrappers:
+            launches[k] += fwd[k] + bwd[k]
+        if plains:
+            fail(f"module {label}: plain versions ran on the card: {plains}")
+        if fwd != fwd_want or bwd != bwd_want:
+            fail(f"module {label}: launches forward {fwd}, backward {bwd}; "
+                 f"expected {fwd_want}, {bwd_want}")
+        hit = m.cache_hit_rate()
+        ref_out = r(idx, offs)
+        ref_res = r.backward(d_out)
+        b_ = offs.shape[0] - 1
+        if out.shape[-2:] != (b_ // m.num_tables, D) \
+                or not torch.isfinite(out).all():
+            fail(f"module {label}: bad output {tuple(out.shape)}")
+        line = (f"[module] {label}: hit rate {hit:.4f}; launches forward "
+                f"{text(fwd)}, backward {text(bwd)}, plain versions 0")
+        old_p = fbt.TTEmbeddingParams(tuple(
+            old[f"tt_cores.{i}"] for i in range(m.tt_ndim)))
+        if res is None:  # sparse: the cores (and cache rows) updated
+            line = hold_step(line, out, ref_out, m.params, r.params, old_p,
+                             *tols, f"module {label}")
+        else:  # dense: the gradients against the plain module's
+            scale = ref_out.abs().max().item()
+            err = (out - ref_out).abs().max().item()
+            line += (f"; output max_abs_err {err:.3e} (limit {tols[0]} x "
+                     f"{scale:.3e})")
+            if not err <= tols[0] * scale:
+                fail(f"module {label}: output disagrees with the plain one")
+            for t, (g, g_ref) in enumerate(zip(res[0], ref_res[0])):
+                big = g_ref.abs().max().item()
+                gerr = (g - g_ref).abs().max().item()
+                line += (f"; d_core {t} max_abs_err {gerr:.3e} (limit "
+                         f"{tols[1]} x {big:.3e})")
+                if not (torch.isfinite(g).all() and gerr <= tols[1] * big):
+                    fail(f"module {label}: d_core {t} disagrees")
+            dc, dc_ref = res[1], ref_res[1]
+            big = dc_ref.abs().max().item()
+            cerr = (dc - dc_ref).abs().max().item()
+            line += (f"; d_cache_weight max_abs_err {cerr:.3e} (limit 1e-6 "
+                     f"x {big:.3e})")
+            if not (big > 0 and cerr <= 1e-6 * big):
+                fail(f"module {label}: d_cache_weight disagrees")
+        if m.cache is not None and not m.warmup and res is None:
+            old_c = CacheState(*(old[f"cache.{f}"] for f in (
+                "keys", "freq", "slots", "weight", "opt_state")))
+            line = hold_cache(line, m.params.cache, r.params.cache, old_c,
+                              f"module {label}")
+        print(line)
+        return out
+
+    # warm-up: forward + sparse SGD backward, counting every id
+    two = want(B1=2)
+    b3x2 = want(B3=2)
+    warm = [batch(z) for z in (False, True, False, True)]
+    for i, bt in enumerate(warm):
+        checked(mod, ref, bt, two, b3x2,
+                f"TTEmbeddingBag SGD B={B} pooling {POOL} "
+                f"{'zipf1.05' if i % 2 else 'uniform'} warm-up call {i}")
+    want_freq = torch.bincount(torch.cat([bt[0] for bt in warm]),
+                               minlength=E)
+    if not torch.equal(mod.cache.freq.long(), want_freq):
+        fail("module: LFU counts differ from torch.bincount")
+    print(f"[module] LFU counts after {len(warm)} warm-up calls equal "
+          f"torch.bincount of the traffic ({int(want_freq.sum())} lookups; "
+          f"direct mode, hashtbl_size {mod.cache.freq.shape[0]}, cache_size "
+          f"{mod.cache.weight.shape[0]})")
+    t0 = time.perf_counter()
+    mod.cache_populate()
+    torch.cuda.synchronize()
+    print(f"[module] cache_populate: {int((mod.cache.slots >= 0).sum())} "
+          f"rows in {time.perf_counter() - t0:.2f} s, warmup {mod.warmup}")
+    for i in range(2):
+        checked(mod, ref, batch(True), two, b3x2,
+                f"TTEmbeddingBag SGD B={B} zipf1.05 probed call {i}")
+
+    # EXACT_ADAGRAD on the populated cache (full [C, D] cache state), from
+    # zero state. (a) float32 staging (B1 and B3 on their float32 paths)
+    # against the plain module at the float32 limits
+    ada = fbt.OptimType.EXACT_ADAGRAD
+    amod = fbt.TTEmbeddingBag(E, D, R[1:-1], optimizer=ada,
+                              precision="highest", **kw)
+    aref = fbt.TTEmbeddingBag(E, D, R[1:-1], optimizer=ada, **kw, **plain)
+    state = {k: v.clone() for k, v in mod.state_dict().items()}
+    for i, c in enumerate(mod.tt_cores):
+        state[f"optimizer_state.{i}"] = torch.zeros_like(c)
+    state["cache.opt_state"] = torch.zeros_like(mod.cache.weight)
+    amod.load_state_dict(state)
+    amod.warmup = False
+    abt = batch(True)
+    checked(amod, aref, abt, two, b3x2,
+            f"TTEmbeddingBag EXACT_ADAGRAD precision='highest' B={B} "
+            "zipf1.05 probed", (F32_OUT_TOL, F32_UPDATE_TOL))
+    # (b) bfloat16 staging. Adagrad's first step divides each element by
+    # |g| + eps, which lifts the staging error of an element with a small
+    # gradient to the size of the whole update, so it is not held to the
+    # SGD steps' limit against the plain step; the module's update is held
+    # to that limit against the fused step's on the same state and batch
+    # (the same staging), and both are printed against the plain one
+    # (``aref`` after (a))
+    del amod
+    bmod = fbt.TTEmbeddingBag(E, D, R[1:-1], optimizer=ada, **kw)
+    bmod.load_state_dict(state)
+    bmod.warmup = False
+    zero_counts()
+    with plain_watch() as plains:
+        bmod(*abt[:2])
+        bmod.backward(abt[2])
+        torch.cuda.synchronize()
+    got = counts()
+    for k in wrappers:
+        launches[k] += got[k]
+    if plains or got != want(B1=2, B3=2):
+        fail(f"module EXACT_ADAGRAD bf16: launches {got}, plain {plains}")
+    fstep = fbt.make_fused_train_step(P, Q, R, 1, B, optimizer=ada,
+                                      use_cache=True, probe_cache=True,
+                                      device="cuda")
+    _, fused_new = fstep(fbt.params_from_state_dict(state, 3, True, "cuda"),
+                         *abt, (LR, EPS))
+    line = f"[module] TTEmbeddingBag EXACT_ADAGRAD B={B} zipf1.05 probed, bf16"
+    for t in range(len(P)):
+        o = state[f"tt_cores.{t}"]
+        d_mod = bmod.tt_cores[t].detach() - o
+        d_fused = fused_new.tt_cores[t] - o
+        d_plain = aref.tt_cores[t].detach() - o
+
+        def rel(a, b_):
+            return ((a - b_).abs().max() / b_.abs().max()).item()
+
+        r_mf, r_mp, r_fp = (rel(d_mod, d_fused), rel(d_mod, d_plain),
+                            rel(d_fused, d_plain))
+        line += (f"; core {t} max|dcore - dcore_fused| / max|dcore_fused| "
+                 f"{r_mf:.4f} (limit {UPDATE_TOL}), against the plain "
+                 f"module: this {r_mp:.4f}, the fused step {r_fp:.4f}")
+        if not (torch.isfinite(d_mod).all() and r_mf <= UPDATE_TOL):
+            fail(f"module EXACT_ADAGRAD bf16: core {t} update disagrees with "
+                 "the fused step's")
+    print(line)
+    del bmod, aref, state, fused_new
+
+    # FBTT_DG0=fused: B6 takes the i1 pass from B3
+    with dg0_knob("fused"):
+        checked(mod, ref, batch(True), two, want(B3=1, B6=1),
+                f"TTEmbeddingBag SGD B={B} zipf1.05 probed, FBTT_DG0=fused")
+
+    # impl="pallas": B4 forward, B5 backward, float32 (live lookups first)
+    pmod = fbt.TTEmbeddingBag(E, D, R[1:-1], impl="pallas", **kw)
+    pmod.load_state_dict(mod.state_dict())
+    pmod.warmup = False
+    checked(pmod, ref, batch(True), want(B4=1), want(B5=1),
+            f"TTEmbeddingBag impl='pallas' SGD B={B} zipf1.05 probed",
+            (F32_OUT_TOL, F32_UPDATE_TOL))
+    del pmod
+
+    # sparse=False: backward returns the core gradients and d_cache_weight
+    dmod = fbt.TTEmbeddingBag(E, D, R[1:-1], sparse=False, **kw)
+    dref = fbt.TTEmbeddingBag(E, D, R[1:-1], sparse=False, **kw, **plain)
+    dmod.load_state_dict(mod.state_dict())
+    dmod.warmup = False
+    checked(dmod, dref, batch(True), two, b3x2,
+            f"TTEmbeddingBag sparse=False B={B} zipf1.05 probed")
+    del dmod, dref
+
+    # two tables at the same widths, forward + SGD
+    tmod = fbt.TableBatchedTTEmbeddingBag(2, E, D, R[1:-1], **kw)
+    tref = fbt.TableBatchedTTEmbeddingBag(2, E, D, R[1:-1], **kw, **plain)
+    tbt = batch(False, tables=2)
+    nza = -(-tbt[0].shape[0] // tt_flat.SEG) * tt_flat.SEG
+    pair = tt_flat._pair_gate(nza, 2, tuple(P), tuple(Q), tuple(R), 2)
+    checked(tmod, tref, tbt, want(B1=1 if pair else 2), b3x2,
+            f"TableBatchedTTEmbeddingBag T=2 SGD B={B} pooling {POOL} "
+            f"uniform ({'pair mode' if pair else 'two-pass'})")
+    del tmod, tref
+
+    # full_weight at E' = 11M against single-id bags of the forward
+    t0 = time.perf_counter()
+    w = mod.full_weight()
+    torch.cuda.synchronize()
+    w_s = time.perf_counter() - t0
+    ids = torch.as_tensor(np.concatenate([[0, E - 1], rng.integers(
+        0, E, 510)]), device="cuda")
+    offs = torch.arange(ids.shape[0] + 1, device="cuda")
+    ref.load_state_dict(mod.state_dict())
+    with torch.no_grad():
+        zero_counts()
+        rows = mod(ids, offs, warmup=True)
+        fwd = counts()
+        ref_rows = ref(ids, offs, warmup=True)
+    want_rows = w[ids.long()]
+    scale = want_rows.abs().max().item()
+    err = (rows - want_rows).abs().max().item()
+    perr = (ref_rows - want_rows).abs().max().item()
+    for k in wrappers:
+        launches[k] += fwd[k]
+    print(f"[module] full_weight {tuple(w.shape)} float32 in {w_s:.3f} s; "
+          f"{ids.shape[0]} sampled rows against single-id bags: the module's "
+          f"forward ({text(fwd)}) max_abs_err {err:.3e} (limit {OUT_TOL} x "
+          f"{scale:.3e}), the plain module's {perr:.3e} (limit "
+          f"{F32_OUT_TOL} x {scale:.3e})")
+    if w.shape != (E, D) or not (fwd["seg_transform"] > 0
+                                 and err <= OUT_TOL * scale
+                                 and perr <= F32_OUT_TOL * scale):
+        fail("module: full_weight rows disagree with the forward")
+    del w, want_rows
+    torch.cuda.empty_cache()
+
+    # import_full_weight round trip on a 110k-row model (p=[20, 22, 250];
+    # the TT-SVD of the 11M-row table is seconds of host LAPACK)
+    small_p = [20, 22, 250]
+    e_small = 20 * 22 * 250
+    small = fbt.TTEmbeddingBag(e_small, D, R[1:-1], tt_p_shapes=small_p,
+                               tt_q_shapes=Q, seed=0, device="cuda")
+    ws = small.full_weight()
+    fresh = fbt.TTEmbeddingBag(e_small, D, R[1:-1], tt_p_shapes=small_p,
+                               tt_q_shapes=Q, seed=1, device="cuda")
+    t0 = time.perf_counter()
+    fresh.import_full_weight(ws)
+    svd_s = time.perf_counter() - t0
+    scale = ws.abs().max().item()
+    err = (fresh.full_weight() - ws).abs().max().item()
+    print(f"[module] import_full_weight round trip E={e_small} "
+          f"(p={small.tt_p_shapes}): TT-SVD {svd_s:.2f} s on the host, "
+          f"full_weight max_abs_err {err:.3e} (limit 1e-4 x {scale:.3e})")
+    if not err <= 1e-4 * scale:
+        fail("module: import_full_weight does not round-trip")
+    del small, fresh, ws
+
+    # host clock: the module's forward and forward + backward (counting,
+    # no probe) beside the fused counting step, in turns
+    tmod = fbt.TTEmbeddingBag(E, D, R[1:-1], tt_p_shapes=P, tt_q_shapes=Q,
+                              seed=0, learning_rate=1e-4, device="cuda")
+    fprm = fbt.TTEmbeddingParams(
+        tuple(c.detach().clone() for c in tmod.tt_cores), (),
+        fbt.make_cache_state(E, E // 10, D, num_embeddings=E,
+                             device="cuda"))
+    idx, offs, d_out = batch(False)
+
+    def fwd_only():
+        with torch.no_grad():
+            tmod(idx, offs)
+
+    def fwd_bwd():
+        tmod(idx, offs)
+        tmod.backward(d_out)
+
+    def fused():
+        fused_step(fprm, idx, offs, d_out, (1e-4, EPS))
+
+    ms = {"forward": [], "forward + backward": [], "fused step": []}
+    for order in (("forward", "forward + backward", "fused step"),
+                  ("fused step", "forward + backward", "forward")):
+        for name in order:
+            fn = {"forward": fwd_only, "forward + backward": fwd_bwd,
+                  "fused step": fused}[name]
+            ms[name].append(host_ms(fn))
+    dev = {name: device_ms(fn)[0] for name, fn in (
+        ("forward + backward", fwd_bwd), ("fused step", fused))}
+    print(f"[time] module B={B} pooling {POOL} uniform, LFU counting on (no "
+          "probe), host-clock medians of 25, in turns: "
+          + ", ".join(f"{k} {v[0]:.3f} / {v[1]:.3f} ms" for k, v in
+                      ms.items())
+          + "; device time per call: " + ", ".join(
+              f"{k} {v:.3f} ms" for k, v in dev.items())
+          + f" (the fused counting step, make_fused_train_step: B1 1, B2 1, "
+          f"B3 1; the module: B1 2 forward, B3 2 backward) [{card}]")
+    print(f"[module] phase took {time.perf_counter() - t_phase:.1f} s; "
+          f"launches {launches}")
+    return launches
 
 
 def check_close(name, got, want, tol):
@@ -1447,6 +1828,9 @@ def main():
     print(f"[train] launches on the FBTT_DG0=fused training path: "
           f"{dtrain_launches}")
 
+    # 5b. the modules at full width
+    module_launches = module_phase(fbt, card, wrappers, request, count_step)
+
     # 6. times. B1 on the inputs the B=512 uniform and Zipf(1.05) serves
     # hand it, beside one torch._grouped_mm call on the same inputs; the
     # uniform one's times go into the kernels' line
@@ -1762,7 +2146,7 @@ def main():
     by_path = dict(zip(PATHS, (serve_launches, train_launches,
                                gserve_launches, gtrain_launches,
                                cserve_launches, ctrain_launches,
-                               dtrain_launches)))
+                               dtrain_launches, module_launches)))
     kernels = []
     for name, rows in times.items():
         src, replaces = KERNELS[name]

@@ -13,16 +13,25 @@ last-core training pass (B2), the gradient pass (B3) and, with
 in (B6); with ``impl="pallas"`` the same entry points run the generic
 per-lookup kernels (B4 forward, B5 backward). Both entries take the LFU
 cache (``ops.cache``: counting, populate, probing, the cached rows'
-updates; direct and hashed int32 keys). Also the dense-mode functions
-(``tt_forward``, ``tt_dense_backward``, ``tt_sgd_backward``, ...).
+updates; direct and hashed int32 keys). The modules
+``TableBatchedTTEmbeddingBag`` and ``TTEmbeddingBag`` (``torch.nn.Module``:
+``out = emb(indices, offsets)``, then ``emb.backward(d_out)``,
+``emb.cache_populate()``, ...) run on the same kernels. Also the
+dense-mode functions (``tt_forward``, ``tt_dense_backward``,
+``tt_sgd_backward``, ...), ``tt_embedding_forward``, ``tt_matrix_to_full``
+and the TT-SVD import ``tt_decompose``.
 """
 
 from fbtt_embedding_tpu_torch.models.tt_embedding import (
     OptimType,
+    TableBatchedTTEmbeddingBag,
+    TTEmbeddingBag,
     TTEmbeddingParams,
     make_fused_train_step,
     make_serving_fn,
     params_from_jax,
+    params_from_state_dict,
+    tt_embedding_forward,
 )
 from fbtt_embedding_tpu_torch.ops.cache import (
     CacheState,
@@ -40,7 +49,11 @@ from fbtt_embedding_tpu_torch.ops.cache import (
     reset_cache,
     update_cache_state,
 )
-from fbtt_embedding_tpu_torch.ops.contraction import tt_rows, validate_tt_shapes
+from fbtt_embedding_tpu_torch.ops.contraction import (
+    tt_matrix_to_full,
+    tt_rows,
+    validate_tt_shapes,
+)
 from fbtt_embedding_tpu_torch.ops.indexing import (
     decompose_indices,
     decompose_indices64,
@@ -94,6 +107,7 @@ from fbtt_embedding_tpu_torch.ops.lookup import (
     tt_forward,
     tt_grads_from_row_cotangents,
 )
+from fbtt_embedding_tpu_torch.utils.decompose import tt_decompose
 from fbtt_embedding_tpu_torch.utils.init import core_shapes, init_tt_cores
 from fbtt_embedding_tpu_torch.utils.shapes import suggested_tt_shapes
 
@@ -102,7 +116,9 @@ __all__ = [
     "FlatLookup",
     "GenericLookup",
     "OptimType",
+    "TTEmbeddingBag",
     "TTEmbeddingParams",
+    "TableBatchedTTEmbeddingBag",
     "adagrad_step",
     "cache_backward_adagrad",
     "cache_backward_dense",
@@ -122,6 +138,7 @@ __all__ = [
     "make_fused_train_step",
     "make_serving_fn",
     "params_from_jax",
+    "params_from_state_dict",
     "pool_rows",
     "pooled_tt_lookup",
     "populate_plan",
@@ -142,14 +159,17 @@ __all__ = [
     "tt_backward_kernel",
     "tt_bwd",
     "tt_bwd_plain",
+    "tt_decompose",
     "tt_dense_backward",
     "tt_embedding_bag_forward",
+    "tt_embedding_forward",
     "tt_forward",
     "tt_forward_kernel",
     "tt_fwd",
     "tt_fwd_pivot_plain",
     "tt_fwd_plain",
     "tt_grads_from_row_cotangents",
+    "tt_matrix_to_full",
     "tt_rows",
     "tt_sgd_backward",
     "tt_strides",

@@ -10,24 +10,35 @@ default and the generic per-lookup kernels (B4 forward, B5 backward) with
 CacheState` in the params, the step counts row frequencies (``use_cache``)
 and both entries probe the LFU cache (``probe_cache``): cache hits are
 served from the decompressed rows and reach the TT kernels only as dead
-lookups. The modules, the native optimizers and the wide-key (int64) cache
-are not ported yet.
+lookups. The modules :class:`TableBatchedTTEmbeddingBag` and
+:class:`TTEmbeddingBag` (``torch.nn.Module``) run the same lookups and
+updates through the stateful forward / ``backward(d_output)`` flow, and
+:func:`tt_embedding_forward` is the plain differentiable forward. The
+native optimizers, the folded serve and the wide-key (int64) cache are not
+ported yet.
 """
 
 from __future__ import annotations
 
+import logging
 from dataclasses import dataclass
 from enum import Enum, unique
-from typing import Any, Optional, Sequence, Tuple
+from typing import Any, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from fbtt_embedding_tpu_torch.ops import cache as cache_ops
 from fbtt_embedding_tpu_torch.ops.cache import CacheState
-from fbtt_embedding_tpu_torch.ops.contraction import validate_tt_shapes
+from fbtt_embedding_tpu_torch.ops.contraction import (
+    tt_matrix_to_full,
+    tt_rows,
+    validate_tt_shapes,
+)
 from fbtt_embedding_tpu_torch.ops.fused_optim import adagrad_step, sgd_step
 from fbtt_embedding_tpu_torch.ops.indexing import (
+    decompose_indices64,
     rowidx_from_offsets,
     split_wide_keyrows,
 )
@@ -42,6 +53,11 @@ from fbtt_embedding_tpu_torch.ops.lookup import (
     pooled_tt_lookup,
     staging_dtype,
 )
+from fbtt_embedding_tpu_torch.utils.decompose import tt_decompose
+from fbtt_embedding_tpu_torch.utils.init import init_tt_cores
+from fbtt_embedding_tpu_torch.utils.shapes import suggested_tt_shapes
+
+logger = logging.getLogger(__name__)
 
 
 @unique
@@ -88,12 +104,15 @@ class TTEmbeddingParams:
 def params_from_jax(tt_cores_np: Sequence, optimizer_state_np: Sequence = (),
                     device="cuda", cache: Any = None) -> TTEmbeddingParams:
     """Parameters of the JAX package, as numpy arrays in module layout
-    (``np.asarray`` of its ``TTEmbeddingParams`` fields), -> this
-    package's :class:`TTEmbeddingParams` on ``device``. ``cache``: the JAX
-    ``CacheState``, or any object or mapping with its five fields
-    (``keys``, ``freq``, ``slots``, ``weight``, ``opt_state``) as arrays;
-    the wide-key layout raises NotImplementedError."""
+    (``np.asarray`` of its ``TTEmbeddingParams`` fields; tensors are taken
+    too), -> this package's :class:`TTEmbeddingParams` on ``device``, every
+    tensor a copy. ``cache``: the JAX ``CacheState``, or any object or
+    mapping with its five fields (``keys``, ``freq``, ``slots``,
+    ``weight``, ``opt_state``) as arrays; the wide-key layout raises
+    NotImplementedError."""
     def put(a):  # a copy: the params never alias the caller's arrays
+        if isinstance(a, torch.Tensor):
+            return a.detach().to(device, copy=True)
         return torch.tensor(np.asarray(a), device=device)
 
     cores = tuple(put(c).float() for c in tt_cores_np)
@@ -107,6 +126,42 @@ def params_from_jax(tt_cores_np: Sequence, optimizer_state_np: Sequence = (),
                 "the wide-key (int64 row id) cache is not ported yet")
     return TTEmbeddingParams(cores, tuple(put(s) for s in optimizer_state_np),
                              cstate)
+
+
+def params_from_state_dict(state: dict, tt_ndim: int, with_cache: bool,
+                           device="cuda") -> TTEmbeddingParams:
+    """A module state dict (the JAX module's or this package's: names
+    ``tt_cores.{i}``, ``optimizer_state.{i}``, ``cache.keys|freq|slots|
+    weight|opt_state``; numpy arrays or tensors) -> :class:`TTEmbedding
+    Params` on ``device`` (copies), the cache's fields read where
+    ``with_cache``.
+
+    The optimizer state has as many entries as the dict holds, but at
+    least one per core (the SGD family saves empty arrays): fewer means a
+    truncated or renamed checkpoint and raises KeyError, as the JAX
+    module's ``load_state_dict`` does."""
+    cores = [state[f"tt_cores.{i}"] for i in range(tt_ndim)]
+    opt_state = []
+    while f"optimizer_state.{len(opt_state)}" in state:
+        opt_state.append(state[f"optimizer_state.{len(opt_state)}"])
+    if len(opt_state) < tt_ndim:
+        raise KeyError(
+            f"state dict has {len(opt_state)} optimizer_state.* entries; "
+            f"expected at least {tt_ndim} (one per TT core, empty arrays "
+            "for the SGD family)")
+    cache = ({f: state[f"cache.{f}"] for f in _CACHE_FIELDS}
+             if with_cache else None)
+    return params_from_jax(cores, opt_state, device=device, cache=cache)
+
+
+def _reference_semantics(optim_semantics: str) -> None:
+    """Only the reference's optimizer semantics are ported: "native"
+    raises NotImplementedError, any other name ValueError."""
+    if optim_semantics not in ("reference", "native"):
+        raise ValueError(f"unknown optim_semantics {optim_semantics!r}")
+    if optim_semantics == "native":
+        raise NotImplementedError(
+            "optim_semantics='native' is not ported yet")
 
 
 def _no_wide_cache(cache, wide: bool):
@@ -287,17 +342,11 @@ def make_fused_train_step(
 
     Not ported yet, and raising NotImplementedError:
     ``optim_semantics="native"``."""
-    if optim_semantics not in ("reference", "native"):
-        raise ValueError(f"unknown optim_semantics {optim_semantics!r}")
-    if optim_semantics == "native":
-        raise NotImplementedError(
-            "optim_semantics='native' is not ported yet")
+    _reference_semantics(optim_semantics)
     del optim_hparams
     ranks = validate_tt_shapes(tt_p_shapes, tt_q_shapes, tt_ranks)
     shapes = (tuple(tt_p_shapes), tuple(tt_q_shapes), tuple(ranks))
     ndim = len(tt_p_shapes)
-    is_sgd = optimizer in _SGD_OPTIMS
-    exact_cache = optimizer == OptimType.EXACT_ADAGRAD
     device = torch.device(device)
 
     def step(params: TTEmbeddingParams, indices, offsets, d_output, lr_eps,
@@ -320,26 +369,11 @@ def make_fused_train_step(
                                       dtype=torch.float32)
         rowidx, tableidx = rowidx_from_offsets(offsets, nnz, num_tables, bs)
         tbl = tableidx if num_tables > 1 else None
-        if use_cache and cache is not None and count:
-            cache_ops.update_cache_state(cache, indices,
-                                         scale=count_interval)
-        locations = (cache_ops.cache_lookup(cache, indices)
-                     if probe_cache and cache is not None else None)
-        # the TT path skips cache-served lookups: the flat pipeline sorts
-        # them into its dead span, the generic kernels skip the blocks past
-        # live_count (live lookups packed first), the plain path weighs
-        # them 0
-        use_flat = (impl in ("auto", "pallas_sorted")
-                    and flat_servable(*shapes, num_tables, bs))
-        dead = live = None
-        indices_p, rowidx_p, tbl_p, w_p = indices, rowidx, tbl, weights
-        if locations is not None and use_flat:
-            dead = locations >= 0
-        elif locations is not None and impl == "pallas" and parts is None:
-            indices_p, rowidx_p, tbl_p, w_p, live = _live_first(
-                locations, indices, rowidx, tbl, weights)
-        elif locations is not None:
-            w_p = _masked_weights(locations < 0, weights)
+        locations = _count_and_probe(cache, indices, use_cache and count,
+                                     probe_cache, count_interval)
+        indices_p, rowidx_p, tbl_p, w_p, dead, live = _tt_path_inputs(
+            locations, impl, shapes, num_tables, bs, indices, parts, rowidx,
+            tbl, weights)
         cores = params.tt_cores
         if (impl in ("auto", "pallas_sorted")
                 and nnz <= _FUSED_APPLY_NNZ_MAX
@@ -361,24 +395,12 @@ def make_fused_train_step(
             output = out.detach()
         output = _cached_pool(output, cache, locations, weights, rowidx, tbl,
                               num_tables, bs)
-        if is_sgd:
-            new_cores = sgd_step(cores, grads, lr)
-            new_opt = params.optimizer_state
-        else:
-            new_cores, new_opt = adagrad_step(
-                cores, params.optimizer_state, grads, lr, eps)
-        if locations is not None:  # cache rows: the reference's families
-            if is_sgd:
-                cache_ops.cache_backward_sgd(cache, d_output, locations,
-                                             rowidx, lr, weights=weights)
-            elif exact_cache:
-                cache_ops.cache_backward_adagrad(
-                    cache, d_output, locations, rowidx, lr, eps,
-                    weights=weights)
-            else:
-                cache_ops.cache_backward_rowwise_adagrad_approx(
-                    cache, d_output, locations, rowidx, lr, eps,
-                    weights=weights)
+        new_cores, new_opt = _update_cores(optimizer, cores,
+                                           params.optimizer_state, grads, lr,
+                                           eps)
+        if locations is not None:
+            _update_cache_rows(optimizer, cache, d_output, locations, rowidx,
+                               lr, eps, weights)
         return output, TTEmbeddingParams(new_cores, new_opt, cache)
 
     return step
@@ -405,3 +427,565 @@ def _live_first(locations, indices, rowidx, tbl, weights):
 
     return (packed(indices), packed(rowidx), packed(tbl),
             packed(_masked_weights(alive, weights)), live_count.reshape(1))
+
+
+def _count_and_probe(cache: Optional[CacheState], indices, count: bool,
+                     probe: bool, scale: int):
+    """LFU counting where ``count`` (in place; each id adds ``scale``), then
+    each lookup's cache row (-1 = not cached) where ``probe``, else None."""
+    if cache is None:
+        return None
+    if count:
+        cache_ops.update_cache_state(cache, indices, scale=scale)
+    return cache_ops.cache_lookup(cache, indices) if probe else None
+
+
+def _tt_path_inputs(locations, impl: str, shapes, num_tables: int, bs: int,
+                    indices, parts, rowidx, tbl, weights):
+    """The TT path's lookups: ``(indices, rowidx, tableidx, weights,
+    dead_mask, live_count)``. Without cache rows (``locations`` None) the
+    lookups as given. Else the TT path skips the cache-served lookups: the
+    flat pipeline sorts them into its dead span (``dead_mask``), the
+    generic kernels (``impl="pallas"``, flat row ids) skip the blocks past
+    ``live_count`` (live lookups packed first), the plain path weighs them
+    0."""
+    if locations is None:
+        return indices, rowidx, tbl, weights, None, None
+    if impl in ("auto", "pallas_sorted") and flat_servable(*shapes,
+                                                           num_tables, bs):
+        return indices, rowidx, tbl, weights, locations >= 0, None
+    if impl == "pallas" and parts is None:
+        *packed, live = _live_first(locations, indices, rowidx, tbl, weights)
+        return (*packed, None, live)
+    return (indices, rowidx, tbl, _masked_weights(locations < 0, weights),
+            None, None)
+
+
+def _update_cores(optimizer: OptimType, cores, optimizer_state, grads, lr,
+                  eps):
+    """The fused update of the cores, in place: SGD for the SGD family,
+    full-element Adagrad for every other name; ``(cores, state)``."""
+    if optimizer in _SGD_OPTIMS:
+        return sgd_step(cores, grads, lr), tuple(optimizer_state)
+    return adagrad_step(cores, optimizer_state, grads, lr, eps)
+
+
+def _update_cache_rows(optimizer: OptimType, cache: CacheState, d_output,
+                       locations, rowidx, lr, eps, weights):
+    """The cache-served lookups' rows, in place, by the reference's update
+    families: SGD for the SGD family, full-element Adagrad (``[C, D]``
+    state) for ``EXACT_ADAGRAD``, row-wise Adagrad (``[C]``) otherwise."""
+    if optimizer in _SGD_OPTIMS:
+        cache_ops.cache_backward_sgd(cache, d_output, locations, rowidx, lr,
+                                     weights=weights)
+    elif optimizer == OptimType.EXACT_ADAGRAD:
+        cache_ops.cache_backward_adagrad(cache, d_output, locations, rowidx,
+                                         lr, eps, weights=weights)
+    else:
+        cache_ops.cache_backward_rowwise_adagrad_approx(
+            cache, d_output, locations, rowidx, lr, eps, weights=weights)
+
+
+def tt_embedding_forward(
+    params: TTEmbeddingParams,
+    tt_p_shapes: Sequence[int],
+    tt_q_shapes: Sequence[int],
+    tt_ranks: Sequence[int],
+    batch_size: int,
+    indices: torch.Tensor,
+    rowidx: torch.Tensor,
+    tableidx: Optional[torch.Tensor],
+    cache_locations: Optional[torch.Tensor] = None,
+    weights: Optional[torch.Tensor] = None,
+    precision: Optional[str] = None,
+) -> torch.Tensor:
+    """Pooled forward with the optional cache path, ``[T, B, D]`` float32,
+    by the plain ``tt_rows`` chain (as the JAX function, which reaches no
+    kernel).
+
+    Differentiable by torch autograd with respect to ``params.tt_cores``
+    and ``params.cache.weight`` (where they require grad): a lookup with
+    ``cache_locations >= 0`` takes its cache row and sends its cotangent
+    there, every other lookup its TT row and the cores. ``precision`` is
+    accepted for the JAX signature; the chain runs in float32."""
+    del precision
+    num_tables = params.tt_cores[0].shape[0]
+    rows = tt_rows(params.tt_cores, tt_p_shapes, tt_q_shapes, tt_ranks,
+                   indices, tableidx)
+    if cache_locations is not None and params.cache is not None:
+        cached = cache_locations >= 0
+        cached_rows = params.cache.weight[cache_locations.clamp(min=0).long()]
+        rows = torch.where(cached[:, None], cached_rows, rows)
+    if weights is not None:
+        rows = rows * weights[:, None].to(rows.dtype)
+    return pool_rows(rows, rowidx, tableidx, num_tables, batch_size)
+
+
+class _BufferList(nn.Module):
+    """Tensors held as buffers ``"0"``, ``"1"``, ...: in a parent's
+    ``state_dict`` they are ``<name>.0``, ``<name>.1``, ... (the JAX
+    module's ``optimizer_state.{i}``)."""
+
+    def __init__(self, tensors: Sequence[torch.Tensor] = ()):
+        super().__init__()
+        for i, t in enumerate(tensors):
+            self.register_buffer(str(i), t)
+
+    def __len__(self) -> int:
+        return len(self._buffers)
+
+    def __iter__(self):
+        return iter(self._buffers.values())
+
+    def __getitem__(self, i: int) -> torch.Tensor:
+        return list(self._buffers.values())[i]
+
+
+class _CacheBuffers(nn.Module):
+    """The LFU cache's five tensors as buffers (``cache.keys``, ``.freq``,
+    ``.slots``, ``.weight``, ``.opt_state`` in a parent's ``state_dict``);
+    :meth:`state` views them as a :class:`CacheState`, whose in-place
+    updates are the buffers'."""
+
+    def __init__(self, state: CacheState):
+        super().__init__()
+        self.load(state)
+
+    def load(self, state: CacheState) -> None:
+        """Hold ``state``'s tensors (not copies)."""
+        for f in _CACHE_FIELDS:
+            self.register_buffer(f, getattr(state, f))
+
+    def state(self) -> CacheState:
+        return CacheState(*(getattr(self, f) for f in _CACHE_FIELDS))
+
+
+def _host_ids(indices) -> np.ndarray:
+    """Row ids as int64 numpy on the host (tensors from any device)."""
+    if isinstance(indices, torch.Tensor):
+        indices = indices.detach().cpu().numpy()
+    return np.asarray(indices, dtype=np.int64).reshape(-1)
+
+
+class TableBatchedTTEmbeddingBag(nn.Module):
+    """Batched TT EmbeddingBag over ``num_tables`` same-shape tables: the
+    JAX package's module, as a ``torch.nn.Module`` on this package's
+    kernels.
+
+    The constructor mirrors the reference's (``tt_embeddings_ops.py:
+    435-599``), plus ``device`` (``"cuda"`` unless the caller passes
+    ``"cpu"``, where every kernel runs its plain version). The cores are
+    ``tt_cores``, an ``nn.ParameterList`` of ``[T, p_t, r_t q_t r_{t+1}]``
+    float32 tensors drawn from ``np.random.default_rng(seed)`` (the JAX
+    module's cores, bit for bit); ``state_dict()`` holds ``tt_cores.{i}``,
+    ``optimizer_state.{i}`` (empty for the SGD family, else one
+    zero-initialised tensor per core) and, with ``use_cache``, ``cache.
+    keys|freq|slots|weight|opt_state``: the JAX module's names.
+
+    Use: ``out = m(indices, offsets)`` then ``m.backward(d_out)``. Sparse
+    mode applies the fused update in place; dense mode (``sparse=False``)
+    returns the gradients. The forward keeps the autograd graph of its
+    lookup (``pooled_tt_lookup``: on the flat path kernel B1 forward and
+    B3, or B6 under ``FBTT_DG0=fused``, backward; with ``impl="pallas"``
+    B4 and B5), and ``backward`` takes the cores' gradients from that
+    graph: the gradient JAX's module recomputes through the plain chain.
+    The output is detached; where the forward ran without grad mode, or
+    the cores changed since, ``backward`` runs the lookup again.
+
+    Not ported, raising NotImplementedError: ``optim_semantics="native"``,
+    ``freeze_for_serving``, and ``use_cache`` on a table of 2^31 rows or
+    more (the wide-key cache)."""
+
+    def __init__(
+        self,
+        num_tables: int,
+        num_embeddings: int,
+        embedding_dim: int,
+        tt_ranks: List[int],
+        tt_p_shapes: Optional[List[int]] = None,
+        tt_q_shapes: Optional[List[int]] = None,
+        optimizer: OptimType = OptimType.SGD,
+        learning_rate: float = 0.1,
+        eps: float = 1.0e-10,
+        sparse: bool = True,
+        use_cache: bool = False,
+        cache_size: int = 0,
+        hashtbl_size: int = 0,
+        weight_dist: str = "approx-normal",
+        enforce_embedding_dim: bool = False,
+        seed: int = 0,
+        precision: Optional[str] = None,
+        impl: str = "auto",
+        cache_count_interval: int = 1,
+        optim_semantics: str = "reference",
+        optim_hparams: Optional[dict] = None,
+        device="cuda",
+    ) -> None:
+        super().__init__()
+        assert num_tables > 0
+        assert num_embeddings > 0
+        assert embedding_dim > 0
+        assert num_tables == 1 or not use_cache, (
+            "cannot use cache when num_tables != 1")
+        _reference_semantics(optim_semantics)
+        del optim_hparams
+        self.tt_p_shapes: List[int] = (
+            suggested_tt_shapes(num_embeddings, len(tt_ranks) + 1)
+            if tt_p_shapes is None else list(tt_p_shapes))
+        self.tt_q_shapes: List[int] = (
+            suggested_tt_shapes(embedding_dim, len(tt_ranks) + 1,
+                                allow_round_up=not enforce_embedding_dim)
+            if tt_q_shapes is None else list(tt_q_shapes))
+        assert len(self.tt_p_shapes) == len(self.tt_q_shapes)
+        assert len(tt_ranks) + 1 == len(self.tt_p_shapes)
+        assert int(np.prod(self.tt_p_shapes)) >= num_embeddings
+        assert int(np.prod(self.tt_q_shapes)) == embedding_dim
+        self.tt_ranks: List[int] = validate_tt_shapes(
+            self.tt_p_shapes, self.tt_q_shapes, list(tt_ranks))
+        self.tt_ndim = len(self.tt_p_shapes)
+        self.num_tables = num_tables
+        self.num_embeddings = num_embeddings
+        self.embedding_dim = embedding_dim
+        # row ids past int32 decompose on the host in int64
+        self._big_e = (int(np.prod(self.tt_p_shapes))
+                       > np.iinfo(np.int32).max)
+        if use_cache and self._big_e:
+            raise NotImplementedError(
+                "use_cache on a table of 2**31 rows or more needs the "
+                "wide-key (int64 row id) cache, which is not ported yet")
+        self.optimizer = optimizer
+        self.learning_rate = float(learning_rate)
+        self.eps = float(eps)
+        self.sparse = sparse
+        self.precision = precision
+        self.impl = impl
+        logger.info(
+            "Creating TTEmbeddingBag tt_p_shapes: %s, tt_q_shapes: %s, "
+            "tt_ranks: %s, sparse: %s, optimizer: %s, learning_rate: %s, "
+            "eps: %s, use_cache: %s, cache_size: %s, hashtbl_size: %s",
+            self.tt_p_shapes, self.tt_q_shapes, self.tt_ranks, sparse,
+            optimizer, learning_rate, eps, use_cache, cache_size,
+            hashtbl_size)
+
+        cores_np = init_tt_cores(
+            np.random.default_rng(seed), weight_dist, num_tables,
+            num_embeddings, embedding_dim, self.tt_p_shapes,
+            self.tt_q_shapes, self.tt_ranks)
+        self.tt_cores = nn.ParameterList(
+            nn.Parameter(torch.tensor(np.asarray(c, np.float32),
+                                      device=device)) for c in cores_np)
+        if optimizer in _SGD_OPTIMS:
+            state = [torch.zeros((0,), dtype=torch.float32, device=device)
+                     for _ in range(self.tt_ndim)]
+        else:
+            state = [torch.zeros_like(c) for c in self.tt_cores]
+        self.optimizer_state = _BufferList(
+            [s.detach() for s in state])
+
+        self.use_cache = use_cache
+        self.cache: Optional[_CacheBuffers] = None
+        if use_cache:
+            if cache_size <= 0:
+                cache_size = int(0.1 * num_embeddings)
+            if hashtbl_size <= 0:
+                hashtbl_size = num_embeddings
+            assert hashtbl_size >= cache_size
+            if sparse and optimizer not in _SGD_OPTIMS:
+                kind = ("full" if optimizer == OptimType.EXACT_ADAGRAD
+                        else "rowwise")
+            else:
+                kind = "none"
+            self.cache = _CacheBuffers(cache_ops.make_cache_state(
+                hashtbl_size, cache_size, embedding_dim, kind,
+                num_embeddings=num_embeddings, device=device))
+        self.warmup = True
+        # rows decompressed at a time by cache_populate (None: the
+        # library's default)
+        self.populate_chunk: Optional[int] = None
+        self._saved_ctx: Optional[dict] = None
+        # sampled LFU counting: every k-th forward counts, each id adding k
+        self.cache_count_interval = max(1, int(cache_count_interval))
+        self._count_calls = 0
+
+    # ---------------------------------------------------------------- state
+
+    def _device(self) -> torch.device:
+        return self.tt_cores[0].device
+
+    def _cache_state(self) -> Optional[CacheState]:
+        return self.cache.state() if self.cache is not None else None
+
+    @property
+    def params(self) -> TTEmbeddingParams:
+        """The module's tensors as :class:`TTEmbeddingParams`: views that
+        share storage (``make_fused_train_step`` on them updates the module
+        in place); clone them to keep a copy."""
+        return TTEmbeddingParams(
+            tuple(c.detach() for c in self.tt_cores),
+            tuple(self.optimizer_state), self._cache_state())
+
+    def load_params(self, params: TTEmbeddingParams) -> None:
+        """Copy ``params`` into the module: the cores into its parameters,
+        the optimizer state and the cache as copies on its device."""
+        dev = self._device()
+        with torch.no_grad():
+            for c, new in zip(self.tt_cores, params.tt_cores):
+                c.copy_(new)
+        self.optimizer_state = _BufferList(
+            [s.detach().to(dev, copy=True) for s in params.optimizer_state])
+        if params.cache is None:
+            self.cache = None
+            return
+        state = CacheState(*(getattr(params.cache, f).detach().to(
+            dev, copy=True) for f in _CACHE_FIELDS))
+        if self.cache is None:
+            self.cache = _CacheBuffers(state)
+        else:
+            self.cache.load(state)
+
+    def load_state_dict(self, state_dict, strict: bool = True,
+                        assign: bool = False):
+        """Load a state dict of this module's or of the JAX module's names
+        (numpy arrays or tensors; :func:`params_from_state_dict`). A
+        truncated ``optimizer_state.*`` set raises KeyError. ``strict`` and
+        ``assign`` are accepted for ``nn.Module``'s signature; the values
+        are always copied."""
+        del strict, assign
+        self.load_params(params_from_state_dict(
+            state_dict, self.tt_ndim, self.cache is not None,
+            device=self._device()))
+
+    def import_full_weight(self, weight, table: int = 0) -> None:
+        """Load a trained dense ``[E, D]`` table (numpy or a tensor) into
+        table ``table``'s cores by TT-SVD (:func:`~fbtt_embedding_tpu_torch.
+        utils.decompose.tt_decompose`, on the host). Resets that table's
+        optimizer-state slice; a cache past warm-up is populated again from
+        the new cores."""
+        cores = tt_decompose(weight, self.tt_p_shapes, self.tt_q_shapes,
+                             self.tt_ranks)
+        assert 0 <= table < self.num_tables, (table, self.num_tables)
+        with torch.no_grad():
+            for c, new in zip(self.tt_cores, cores):
+                c[table].copy_(torch.as_tensor(new))
+            for s in self.optimizer_state:
+                if s.dim() and s.numel():  # the SGD family's are empty
+                    s[table].zero_()
+        if self.cache is not None and not self.warmup:
+            self.cache_populate()
+
+    def freeze_for_serving(self, batch_size: int, probe_cache: bool = True,
+                           quantize: Optional[str] = None):
+        """The folded serve of the JAX module: not ported yet."""
+        raise NotImplementedError(
+            "freeze_for_serving (the folded serve) is not ported yet")
+
+    # ----------------------------------------------------------------- api
+
+    def full_weight(self) -> torch.Tensor:
+        """The materialized ``[E', D]`` table (``E' = prod(p) >= E``),
+        float32 on the cores' device, by :func:`tt_matrix_to_full`."""
+        assert self.num_tables == 1, (
+            "full_weight() only supported for num_tables == 1")
+        assert not self._big_e, (
+            "full_weight() would materialize >= 2**31 rows")
+        with torch.no_grad():
+            return tt_matrix_to_full(self.tt_p_shapes, self.tt_q_shapes,
+                                     self.tt_ranks, list(self.tt_cores))
+
+    def set_learning_rate(self, lr: float) -> None:
+        self.learning_rate = float(lr)
+
+    def get_params(self) -> List[torch.Tensor]:
+        """The trainable tensors, the cores and (with a cache) the cache's
+        rows, without changing the module (the reference's ``get_params``
+        appends to its own ParameterList)."""
+        params = list(self.tt_cores)
+        if self.use_cache and self.cache is not None:
+            params.append(self.cache.weight)
+        return params
+
+    # --------------------------------------------------------------- cache
+
+    def reset_cache(self) -> None:
+        if self.use_cache and self.cache is not None:
+            cache_ops.reset_cache(self.cache.state())
+
+    def update_cache(self, indices) -> None:
+        """Count ``indices`` into the LFU table (in place)."""
+        if self.use_cache and self.cache is not None:
+            cache_ops.update_cache_state(
+                self.cache.state(),
+                torch.as_tensor(indices, device=self._device()).reshape(-1))
+
+    def cache_populate(self) -> None:
+        """Keep the most counted rows, decompressed from the cores
+        (``populate_chunk`` rows at a time), and end the warm-up."""
+        if self.use_cache and self.cache is not None:
+            self.cache.load(cache_ops.cache_populate(
+                self.cache.state(), [c.detach() for c in self.tt_cores],
+                self.tt_p_shapes, self.tt_q_shapes, self.tt_ranks,
+                populate_chunk=self.populate_chunk))
+            self.warmup = False
+
+    def cache_hit_rate(self) -> float:
+        """Fraction of the last forward's lookups served by the cache."""
+        ctx = self._saved_ctx
+        if not ctx or ctx.get("locations") is None:
+            return 0.0
+        return float((ctx["locations"] >= 0).float().mean())
+
+    # ------------------------------------------------------------- forward
+
+    def forward(self, indices, offsets, weights=None,
+                warmup: Optional[bool] = None) -> torch.Tensor:
+        """Pooled lookup ``[num_tables, B, D]`` (float32, detached).
+
+        ``indices`` ``[nnz]`` row ids and ``offsets`` ``[T*B + 1]``
+        table-major CSR offsets, numpy arrays or tensors; ``weights``
+        ``[nnz]`` scale each lookup. With ``use_cache`` the forward counts
+        the ids (every ``cache_count_interval``-th call, each adding the
+        interval) and, past the warm-up, serves the cached ids from the
+        cache's rows. ``warmup`` overrides ``self.warmup`` (whether the
+        cache is probed) for this call; None defers to it."""
+        dev = self._device()
+        shapes = (self.tt_p_shapes, self.tt_q_shapes, self.tt_ranks)
+        t = self.num_tables
+        parts = None
+        if self._big_e:
+            parts = tuple(torch.as_tensor(x, device=dev) for x in
+                          decompose_indices64(_host_ids(indices),
+                                              self.tt_p_shapes))
+            indices, nnz = None, parts[0].shape[0]
+        else:
+            indices = torch.as_tensor(indices, device=dev).reshape(-1).to(
+                torch.int32)
+            nnz = indices.shape[0]
+        offsets = torch.as_tensor(offsets, device=dev).reshape(-1)
+        assert (offsets.shape[0] - 1) % t == 0
+        bs = (offsets.shape[0] - 1) // t
+        if weights is not None:
+            weights = torch.as_tensor(weights, device=dev,
+                                      dtype=torch.float32).reshape(-1)
+        warm = self.warmup if warmup is None else warmup
+        count = self.use_cache and (
+            self._count_calls % self.cache_count_interval == 0)
+        if self.use_cache:
+            self._count_calls += 1
+        rowidx, tableidx = rowidx_from_offsets(offsets, nnz, t, bs)
+        tbl = tableidx if t > 1 else None
+        cache = self._cache_state()
+        locations = _count_and_probe(
+            cache, indices, count, self.use_cache and not warm and t == 1,
+            self.cache_count_interval)
+        ctx = dict(lookup=_tt_path_inputs(locations, self.impl, shapes, t,
+                                          bs, indices, parts, rowidx, tbl,
+                                          weights) + (parts,),
+                   rowidx=rowidx, tableidx=tbl, locations=locations,
+                   weights=weights, batch_size=bs, graph=None)
+        out = self._tt_lookup(ctx)
+        if out.requires_grad:  # kept for backward, with the cores' versions
+            ctx["graph"] = (out, [c._version for c in self.tt_cores])
+        self._saved_ctx = ctx
+        return _cached_pool(out.detach(), cache, locations, weights, rowidx,
+                            tbl, t, bs)
+
+    def _tt_lookup(self, ctx: dict) -> torch.Tensor:
+        """The TT path of the forward on ``ctx``'s lookups."""
+        indices, rowidx, tbl, w, dead, live, parts = ctx["lookup"]
+        return pooled_tt_lookup(
+            list(self.tt_cores), self.tt_p_shapes, self.tt_q_shapes,
+            self.tt_ranks, ctx["batch_size"], indices, rowidx, tbl,
+            weights=w, precision=self.precision, impl=self.impl,
+            live_count=live, dead_mask=dead, idx_parts=parts)
+
+    # ------------------------------------------------------------ backward
+
+    def backward(self, d_output):
+        """Apply the fused update (sparse) or return dense gradients.
+
+        ``d_output``: the cotangent of the last forward's output, ``[T, B,
+        D]`` (or ``[B, D]``). Sparse mode updates the cores (and, for the
+        cache-served lookups, the cache rows and their optimizer state) in
+        place and returns None, as the reference's backward mutates its
+        weights. Dense mode returns ``(d_tt_cores, d_cache_weight)``; the
+        latter is None unless the forward probed the cache."""
+        assert self._saved_ctx is not None, "forward() must run first"
+        ctx = self._saved_ctx
+        d_output = torch.as_tensor(d_output, device=self._device(),
+                                   dtype=torch.float32)
+        if d_output.dim() == 2:
+            d_output = d_output[None]
+        grads = self._core_grads(ctx, d_output)
+        locations, rowidx, weights = (ctx["locations"], ctx["rowidx"],
+                                      ctx["weights"])
+        cache = self._cache_state()
+        if self.sparse:
+            _update_cores(self.optimizer, tuple(self.tt_cores),
+                          tuple(self.optimizer_state), grads,
+                          self.learning_rate, self.eps)
+            if locations is not None and cache is not None:
+                _update_cache_rows(self.optimizer, cache, d_output, locations,
+                                   rowidx, self.learning_rate, self.eps,
+                                   weights)
+            return None
+        d_cache_weight = None
+        if locations is not None and cache is not None:
+            d_cache_weight = cache_ops.cache_backward_dense(
+                cache, d_output, locations, rowidx, weights)
+        return grads, d_cache_weight
+
+    def _core_grads(self, ctx: dict, d_output) -> List[torch.Tensor]:
+        """The cores' gradients for ``d_output`` through the forward's
+        graph, used once; the lookup runs again where there is none or the
+        cores changed since. Cache-served lookups get none (dead lookups,
+        or weight 0), weighted ones their weight's share."""
+        graph, ctx["graph"] = ctx["graph"], None
+        cores = list(self.tt_cores)
+        with torch.enable_grad():
+            if graph is not None and graph[1] == [c._version for c in cores]:
+                out = graph[0]
+            else:
+                out = self._tt_lookup(ctx)
+            return list(torch.autograd.grad(out, cores, d_output))
+
+
+class TTEmbeddingBag(TableBatchedTTEmbeddingBag):
+    """Single-table TT EmbeddingBag; ``forward`` returns ``[B, D]``
+    (reference ``tt_embeddings_ops.py:889-934``). The LFU cache is on by
+    default."""
+
+    def __init__(
+        self,
+        num_embeddings: int,
+        embedding_dim: int,
+        tt_ranks: List[int],
+        tt_p_shapes: Optional[List[int]] = None,
+        tt_q_shapes: Optional[List[int]] = None,
+        optimizer: OptimType = OptimType.SGD,
+        learning_rate: float = 0.1,
+        eps: float = 1.0e-10,
+        sparse: bool = True,
+        use_cache: bool = True,
+        cache_size: int = 0,
+        hashtbl_size: int = 0,
+        weight_dist: str = "approx-normal",
+        enforce_embedding_dim: bool = False,
+        seed: int = 0,
+        precision: Optional[str] = None,
+        impl: str = "auto",
+        cache_count_interval: int = 1,
+        optim_semantics: str = "reference",
+        optim_hparams: Optional[dict] = None,
+        device="cuda",
+    ) -> None:
+        super().__init__(
+            1, num_embeddings, embedding_dim, tt_ranks, tt_p_shapes,
+            tt_q_shapes, optimizer, learning_rate, eps, sparse, use_cache,
+            cache_size, hashtbl_size, weight_dist, enforce_embedding_dim,
+            seed, precision, impl, cache_count_interval, optim_semantics,
+            optim_hparams, device)
+
+    def forward(self, indices, offsets, weights=None,
+                warmup: Optional[bool] = None) -> torch.Tensor:
+        """As :meth:`TableBatchedTTEmbeddingBag.forward`, ``[B, D]``."""
+        return super().forward(indices, offsets, weights, warmup)[0]

@@ -3,7 +3,9 @@
 Counterpart of ``fbtt_embedding_tpu.ops.contraction`` (forward only): gather
 each lookup's core slices and contract the chain with batched matrix
 products in float32. This is the whole-lookup plain reference the flat
-pipeline and its kernel are held against.
+pipeline and its kernel are held against. Also ``tt_matrix_to_full``, the
+whole table as one dense matrix (a chain of large matrix products outside
+any kernel, as in the JAX package).
 
 Core storage layout: core ``t`` is ``[num_tables, p_t, r_t * q_t * r_{t+1}]``
 with boundary ranks ``r_0 = r_T = 1``.
@@ -75,3 +77,40 @@ def tt_rows(
         m *= tt_q_shapes[t]
         z = z.reshape(nnz, m * ranks[t + 1])
     return z
+
+
+def tt_matrix_to_full(
+    tt_p_shapes: Sequence[int],
+    tt_q_shapes: Sequence[int],
+    tt_ranks: Sequence[int],
+    tt_cores: Sequence[torch.Tensor],
+    table: int = 0,
+) -> torch.Tensor:
+    """The full ``[prod(p), prod(q)]`` matrix of table ``table``'s cores
+    (module layout ``[T, p_t, r_t * q_t * r_{t+1}]``), float32 on the cores'
+    device: the reference's ``tt_matrix_to_full``, a chain of matrix
+    products over the ranks, then the even/odd (p, q) interleave permuted
+    to ``[p_0, p_1, .., q_0, q_1, ..]``. Differentiable by torch autograd;
+    call it under ``torch.no_grad()`` where no gradient is wanted (the
+    headline table is 2.8 GB)."""
+    ranks = validate_tt_shapes(tt_p_shapes, tt_q_shapes, tt_ranks)
+    ndim = len(tt_p_shapes)
+    # core t in [p, r, q, r'] storage -> canonical [r, p, q, r']
+    cores = [tt_cores[t][table].reshape(
+        tt_p_shapes[t], ranks[t], tt_q_shapes[t], ranks[t + 1]
+    ).permute(1, 0, 2, 3).float() for t in range(ndim)]
+    res = cores[0]
+    for t in range(1, ndim):
+        res = torch.matmul(res.reshape(-1, ranks[t]),
+                           cores[t].reshape(ranks[t], -1))
+    # res is [p0, q0, p1, q1, ...]; permute to [p0, p1, .., q0, q1, ..]
+    interleaved = []
+    for t in range(ndim):
+        interleaved += [int(tt_p_shapes[t]), int(tt_q_shapes[t])]
+    perm = list(range(0, 2 * ndim, 2)) + list(range(1, 2 * ndim, 2))
+    res = res.reshape(interleaved).permute(perm)
+    n = d = 1
+    for t in range(ndim):
+        n *= int(tt_p_shapes[t])
+        d *= int(tt_q_shapes[t])
+    return res.reshape(n, d)

@@ -58,6 +58,20 @@ CUDA card and ``nvcc``). Phases, each printing its own lines:
    counts Zipf(1.05) traffic (counts checked exactly against a
    ``torch.bincount``), is populated, and serves two Zipf B=512 requests
    with ``probe_cache`` against the plain path, B1 twice per request;
+4b. folded: the same params folded once (``make_folded_serving_fn``,
+   bf16 and int8, without and with the populated cache: flat mode with a
+   pair table of [p0*p1 + 1, q0*q1*r2] required; each fold's host seconds
+   and bytes printed) serve B=512 at pooling 20 (uniform, Zipf 1.05, and
+   Zipf probing the cache), B1 once per request and no plain kernel
+   version: bf16 against the plain float32 serve and the unfolded serve
+   within 5e-3 x max|out|, int8 against bf16 within 1e-2 x max|out| (the
+   int8 pair table's rounding printed against its row absmax);
+   ``refold_cache`` after one more populate against a fresh fold, bitwise;
+   the bucketed front-end (``make_bucketed_serving_fn``) on four odd
+   (B, nnz) requests against ``make_serving_fn`` on each exact shape;
+   ``TTEmbeddingBag.freeze_for_serving`` against the module's forward;
+   then device ms, host ms and device operations per request of the
+   unfolded, bf16 and int8 serves (uniform and Zipf), in turns;
 5. train: the same model trains with fused SGD: five steps of B=512 at
    pooling 20 (uniform and Zipf 1.05), one of B=1024 (pair mode) and one
    of B=2048 (nnz 40960: autograd through the flat lookup), then one
@@ -181,7 +195,8 @@ DG0_RULE_SHAPES = (
     (34, 32, 64, 16, True), (1, 8, 2048, 1, False), (1, 8, 2056, 1, False),
 )
 PATHS = ("serve", "train", "serve_generic", "train_generic", "serve_cached",
-         "train_cached", "train_dg0", "module")
+         "train_cached", "train_dg0", "module", "serve_folded",
+         "serve_folded_int8")
 LR, EPS = 0.005, 1.0        # training steps of the check (EPS: Adagrad)
 # bf16 staging against the float32 plain step: outputs within 5e-3 of
 # max|out| (the serve's limit); each core's update within 3e-2 of its
@@ -324,6 +339,7 @@ def device_ms(fn, n=20):
                   flush=True)
         if per and not any(c % n for c in count.values()):
             per = {k: v / n / 1e3 for k, v in per.items()}
+            device_ms.ops = sum(count.values()) / n
             return sum(per.values()), per, mhz
         short = {}
         for name, c in count.items():
@@ -336,6 +352,7 @@ def device_ms(fn, n=20):
 
 
 device_ms.side = None
+device_ms.ops = None  # device operations per call, of the last reading
 
 
 def kernel_times(fn, ref_fn, plain_reps=25, plain_inner=10):
@@ -736,6 +753,244 @@ def plain_watch():
     finally:
         for mod, name, fn in saved:
             setattr(mod, name, fn)
+
+
+def folded_phase(fbt, card, wrappers, params, serve, cache, cserve,
+                 request):
+    """Phase 4b of the docstring, the folded serve at full width: ``params``
+    and the unfolded ``serve`` of phase 4, the populated headline ``cache``
+    and its unfolded probing serve ``cserve``; returns the launches of the
+    bf16 folded serves and of the int8 ones."""
+    import numpy as np
+    import torch
+
+    t_phase = time.perf_counter()
+    b1 = {**dict.fromkeys(wrappers, 0), "seg_transform": 1}
+
+    def zero_counts():
+        for fn in wrappers.values():
+            fn.launches = 0
+
+    def counts():
+        return {name: fn.launches for name, fn in wrappers.items()}
+
+    def held(label, out, ref, tol, b=B, what="plain f32"):
+        if out.shape != (1, b, D) or not torch.isfinite(out).all():
+            fail(f"folded {label}: bad output {tuple(out.shape)}")
+        scale = ref.abs().max().item()
+        err = (out - ref).abs().max().item()
+        if not err <= tol * scale:
+            fail(f"folded {label}: max_abs_err {err:.3e} vs {what} past "
+                 f"{tol} x max|out| {scale:.3e}")
+        return (f"max_abs_err {err:.3e} vs {what} (limit {tol} x max|out| "
+                f"{scale:.3e})")
+
+    def held_bytes(fp):
+        ts = [fp.setup[0], *fp.setup[2]]
+        ts += list(fp.setup[1]) if isinstance(fp.setup[1], tuple) else [
+            fp.setup[1]]
+        if fp.cache is not None:
+            ts += [fp.cache.keys, fp.cache.slots, fp.cache.weight]
+        if fp.cache_scale is not None:
+            ts.append(fp.cache_scale)
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    def folded(probe, quantize):
+        """(fold, serve, fp, host seconds of the fold)."""
+        fold, fserve = fbt.make_folded_serving_fn(
+            P, Q, R, 1, B, probe_cache=probe, quantize=quantize,
+            device="cuda")
+        prm = fbt.TTEmbeddingParams(params.tt_cores, (),
+                                    cache if probe else None)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fp = fold(prm)
+        torch.cuda.synchronize()
+        return fold, fserve, fp, time.perf_counter() - t0
+
+    plain = fbt.make_serving_fn(P, Q, R, 1, B, probe_cache=False,
+                                impl="xla", precision="highest",
+                                device="cuda")
+    cplain = fbt.make_serving_fn(P, Q, R, 1, B, impl="xla",
+                                 precision="highest", device="cuda")
+    # 1. the folds: bf16 and int8, without and with the populated cache
+    folds = {}
+    for probe in (False, True):
+        for quant in (None, "int8"):
+            fold, fserve, fp, sec = folded(probe, quant)
+            if fp.setup is None or fp.params is not None:
+                fail(f"folded probe_cache={probe} quantize={quant}: the "
+                     "fold took its fallback mode")
+            tbl = fp.setup[1]
+            rows, width = P[0] * P[1] + 1, Q[0] * Q[1] * R[2]
+            if quant is None:
+                ok = (tbl is not None and tuple(tbl.shape) == (rows, width)
+                      and tbl.dtype == torch.bfloat16)
+            else:
+                ok = (isinstance(tbl, tuple)
+                      and tuple(tbl[0].shape) == (rows, width)
+                      and tbl[0].dtype == torch.int8
+                      and tuple(tbl[1].shape) == (rows,))
+            if not ok:
+                fail(f"folded quantize={quant}: no pair table of "
+                     f"[{rows}, {width}]")
+            if probe and (fp.cache is None or (quant == "int8") != (
+                    fp.cache.weight.dtype == torch.int8)):
+                fail(f"folded probe_cache quantize={quant}: cache not folded")
+            folds[probe, quant] = (fold, fserve, fp)
+            print(f"[folded] fold probe_cache={probe} quantize={quant}: "
+                  f"{sec:.3f} s on the host, holds "
+                  f"{held_bytes(fp) / 2**20:.1f} MiB (pair table "
+                  f"[{rows}, {width}] "
+                  f"{'int8 + float32 scales' if quant else 'bf16'})")
+    if folds[True, "int8"][2].cache_scale is None:
+        fail("folded int8 with the cache: no cache scales")
+
+    # 2.-3. the folded serves, bf16 then int8, uniform and Zipf(1.05),
+    # then (4.) with the populated cache on Zipf traffic; B1 once a request
+    reqs = [request(B, z) for z in (False, True)]
+    creqs = [request(B, True) for _ in range(2)]
+    runs = {}
+    launches = {}
+    for quant in (None, "int8"):
+        outs = []
+        zero_counts()
+        with plain_watch() as plains:
+            for probe, batch in ((False, reqs), (True, creqs)):
+                fserve, fp = folds[probe, quant][1:]
+                for idx, offs in batch:
+                    before = counts()
+                    outs.append(fserve(fp, idx, offs))
+                    got = {k: v - before[k] for k, v in counts().items()}
+                    if got != b1:
+                        fail(f"folded quantize={quant}: launches {got} in "
+                             "one request, expected B1 once")
+            torch.cuda.synchronize()
+        launches[quant] = counts()
+        if plains:
+            fail(f"folded quantize={quant}: plain versions ran on the card: "
+                 f"{plains}")
+        runs[quant] = outs
+    for i, ((idx, offs), out) in enumerate(zip(reqs + creqs, runs[None])):
+        cached = i >= len(reqs)
+        label = (f"B={B} pooling {POOL} "
+                 f"{'zipf1.05' if i % 2 or cached else 'uniform'}"
+                 + (" probe_cache" if cached else ""))
+        line = held(label, out, (cplain if cached else plain)(
+            fbt.TTEmbeddingParams(params.tt_cores, (), cache) if cached
+            else params, idx, offs), OUT_TOL)
+        unf = (cserve(fbt.TTEmbeddingParams(params.tt_cores, (), cache),
+                      idx, offs) if cached else serve(params, idx, offs))
+        line += "; " + held(label, out, unf, OUT_TOL,
+                            what="the unfolded serve")
+        q_line = held(label, runs["int8"][i], out, 1e-2,
+                      what="the bf16 fold")
+        print(f"[folded] {label}: bf16 fold {line}; int8 fold {q_line}; "
+              "launches B1 1 each, plain versions 0")
+    # the int8 pair table's rounding, against the bf16 table's row absmax
+    tbl = folds[False, None][2].setup[1].float()
+    q8, qs = folds[False, "int8"][2].setup[1]
+    amax = tbl.abs().amax(dim=1).clamp(min=1e-30)
+    rel = ((q8.float() * qs[:, None] - tbl).abs().amax(dim=1) / amax).max()
+    print(f"[folded] int8 pair table: max over rows of max|dequant - bf16| "
+          f"/ row absmax = {rel.item():.4e} (half a step: "
+          f"{0.5 / 127:.4e})")
+
+    # 4. refold_cache after one more populate, against a fresh fold
+    newer = clone_cache(cache)
+    fbt.update_cache_state(newer, request(B, True)[0])
+    newer = fbt.cache_populate(newer, params.tt_cores, P, Q, R)
+    prm2 = fbt.TTEmbeddingParams(params.tt_cores, (), newer)
+    for quant in (None, "int8"):
+        fold, fserve, fp = folds[True, quant]
+        re_fp = fbt.refold_cache(fp, prm2)
+        fresh = fold(prm2)
+        if re_fp.setup is not fp.setup:
+            fail(f"refold_cache quantize={quant}: the tables were rebuilt")
+        for idx, offs in creqs:
+            a, b_ = fserve(re_fp, idx, offs), fserve(fresh, idx, offs)
+            if not torch.equal(a, b_):
+                fail(f"refold_cache quantize={quant}: differs from a fresh "
+                     "fold")
+        print(f"[folded] refold_cache quantize={quant} after one more "
+              f"populate: equal to a fresh fold bitwise on "
+              f"{len(creqs)} Zipf requests")
+    del newer, prm2, re_fp, fresh
+
+    # 5. the bucketed front-end: four odd requests, each against the
+    # unfolded serve on its exact shape
+    bfold, bserve = fbt.make_bucketed_serving_fn(
+        P, Q, R, 1, batch_buckets=[64, B], nnz_buckets=[2048, B * POOL],
+        probe_cache=False, device="cuda")
+    bfp = bfold(params)
+    brng = np.random.default_rng(4)
+    breqs = [(bq, lq, brng.integers(0, E, size=bq * lq),
+              np.arange(0, bq * lq + 1, lq))
+             for bq, lq in ((5, 7), (61, 33), (300, 9), (B, POOL))]
+    zero_counts()
+    bouts = []
+    with plain_watch() as plains:
+        for _, _, idx, offs in breqs:
+            bouts.append(bserve(bfp, idx, offs))
+        torch.cuda.synchronize()
+    if plains or counts()["seg_transform"] != len(breqs):
+        fail(f"bucketed: launches {counts()}, plain versions {plains}")
+    for k in wrappers:
+        launches[None][k] += counts()[k]
+    for (bq, lq, idx, offs), out in zip(breqs, bouts):
+        exact = fbt.make_serving_fn(P, Q, R, 1, bq, probe_cache=False,
+                                    device="cuda")
+        line = held(f"bucketed B={bq} nnz {bq * lq}", out,
+                    exact(params, idx, offs), OUT_TOL, b=bq,
+                    what="make_serving_fn on the exact shape")
+        print(f"[folded] bucketed B={bq} nnz {bq * lq}: {line}; B1 1")
+
+    # 6. the module: freeze_for_serving against the module's forward
+    emb = fbt.TTEmbeddingBag(E, D, R[1:-1], tt_p_shapes=P, tt_q_shapes=Q,
+                             seed=0, device="cuda")
+    for z in (True, False, True):
+        emb(*request(B, z))
+    emb.cache_populate()
+    mfp, mserve = emb.freeze_for_serving(B)
+    midx, moffs = request(B, True)
+    zero_counts()
+    with plain_watch() as plains:
+        mout = mserve(mfp, midx, moffs)
+        torch.cuda.synchronize()
+    if plains or counts() != b1 or mfp.setup is None or mfp.cache is None:
+        fail(f"module freeze_for_serving: launches {counts()}, plain "
+             f"versions {plains}, flat mode {mfp.setup is not None}")
+    for k in wrappers:
+        launches[None][k] += counts()[k]
+    line = held(f"module B={B} zipf1.05", mout, emb(midx, moffs,
+                                                    warmup=False)[None],
+                OUT_TOL, what="the module's forward")
+    print(f"[folded] TTEmbeddingBag.freeze_for_serving(B={B}) with its "
+          f"populated cache, hit rate {emb.cache_hit_rate():.4f}: {line}; "
+          "launches B1 1, plain versions 0")
+    del emb, mfp
+
+    # 7. times per request, in turns: unfolded, bf16 fold, int8 fold, then
+    # the other way round
+    fp16, fpq = folds[False, None][2], folds[False, "int8"][2]
+    s16, sq = folds[False, None][1], folds[False, "int8"][1]
+    for label, (idx, offs) in zip(("uniform", "zipf1.05"), reqs):
+        calls = {"unfolded": lambda: serve(params, idx, offs),
+                 "folded": lambda: s16(fp16, idx, offs),
+                 "folded int8": lambda: sq(fpq, idx, offs)}
+        got = {k: [] for k in calls}
+        for name in ("unfolded", "folded", "folded int8", "folded int8",
+                     "folded", "unfolded"):
+            dev, _, mhz = device_ms(calls[name])
+            got[name].append((dev, device_ms.ops, host_ms(calls[name]), mhz))
+        for name, rs in got.items():
+            print(f"[time] serve {name} B={B} pooling {POOL} {label}: "
+                  + " / ".join(f"device {d:.4f} ms, host {h:.3f} ms, "
+                               f"{o:.1f} device ops" for d, o, h, _ in rs)
+                  + f" per request ({mhz_text(rs[-1][3])}) [{card}]")
+    print(f"[folded] phase took {time.perf_counter() - t_phase:.1f} s; "
+          f"launches bf16 {launches[None]}, int8 {launches['int8']}")
+    return launches[None], launches["int8"]
 
 
 def module_phase(fbt, card, wrappers, request, fused_step):
@@ -1592,6 +1847,10 @@ def main():
     print(f"[serve] launches on the cache-probing serving path: "
           f"{cserve_launches}")
 
+    # 4b. the folded serve at full width
+    folded_launches, int8_launches = folded_phase(
+        fbt, card, wrappers, params, serve, cache, cserve, request)
+
     # 5. train at full width
     def clone(prm):
         return fbt.TTEmbeddingParams(
@@ -2146,7 +2405,8 @@ def main():
     by_path = dict(zip(PATHS, (serve_launches, train_launches,
                                gserve_launches, gtrain_launches,
                                cserve_launches, ctrain_launches,
-                               dtrain_launches, module_launches)))
+                               dtrain_launches, module_launches,
+                               folded_launches, int8_launches)))
     kernels = []
     for name, rows in times.items():
         src, replaces = KERNELS[name]

@@ -16,21 +16,29 @@ cache (``ops.cache``: counting, populate, probing, the cached rows'
 updates; direct and hashed int32 keys). The modules
 ``TableBatchedTTEmbeddingBag`` and ``TTEmbeddingBag`` (``torch.nn.Module``:
 ``out = emb(indices, offsets)``, then ``emb.backward(d_out)``,
-``emb.cache_populate()``, ...) run on the same kernels. Also the
+``emb.cache_populate()``, ...) run on the same kernels. Frozen-weight
+serving folds the cores once (``make_folded_serving_fn``,
+``emb.freeze_for_serving``: the pair table on B1, optionally int8;
+``refold_cache``; ``make_bucketed_serving_fn`` for requests of any size).
+Also the
 dense-mode functions (``tt_forward``, ``tt_dense_backward``,
 ``tt_sgd_backward``, ...), ``tt_embedding_forward``, ``tt_matrix_to_full``
 and the TT-SVD import ``tt_decompose``.
 """
 
 from fbtt_embedding_tpu_torch.models.tt_embedding import (
+    FoldedServingParams,
     OptimType,
     TableBatchedTTEmbeddingBag,
     TTEmbeddingBag,
     TTEmbeddingParams,
+    make_bucketed_serving_fn,
+    make_folded_serving_fn,
     make_fused_train_step,
     make_serving_fn,
     params_from_jax,
     params_from_state_dict,
+    refold_cache,
     tt_embedding_forward,
 )
 from fbtt_embedding_tpu_torch.ops.cache import (
@@ -114,6 +122,7 @@ from fbtt_embedding_tpu_torch.utils.shapes import suggested_tt_shapes
 __all__ = [
     "CacheState",
     "FlatLookup",
+    "FoldedServingParams",
     "GenericLookup",
     "OptimType",
     "TTEmbeddingBag",
@@ -134,7 +143,9 @@ __all__ = [
     "generic_available",
     "hash_keys",
     "init_tt_cores",
+    "make_bucketed_serving_fn",
     "make_cache_state",
+    "make_folded_serving_fn",
     "make_fused_train_step",
     "make_serving_fn",
     "params_from_jax",
@@ -143,6 +154,7 @@ __all__ = [
     "pooled_tt_lookup",
     "populate_plan",
     "preprocess_indices",
+    "refold_cache",
     "reset_cache",
     "rowidx_from_offsets",
     "seg_accum",

@@ -13,9 +13,12 @@ served from the decompressed rows and reach the TT kernels only as dead
 lookups. The modules :class:`TableBatchedTTEmbeddingBag` and
 :class:`TTEmbeddingBag` (``torch.nn.Module``) run the same lookups and
 updates through the stateful forward / ``backward(d_output)`` flow, and
-:func:`tt_embedding_forward` is the plain differentiable forward. The
-native optimizers, the folded serve and the wide-key (int64) cache are not
-ported yet.
+:func:`tt_embedding_forward` is the plain differentiable forward.
+:func:`make_folded_serving_fn` folds frozen cores into the serve's tables
+once (the pair table on kernel B1; an int8 option), with
+:func:`refold_cache`, the bucketed front-end
+:func:`make_bucketed_serving_fn` and the modules' ``freeze_for_serving``.
+The native optimizers and the wide-key (int64) cache are not ported yet.
 """
 
 from __future__ import annotations
@@ -42,16 +45,20 @@ from fbtt_embedding_tpu_torch.ops.indexing import (
     rowidx_from_offsets,
     split_wide_keyrows,
 )
+from fbtt_embedding_tpu_torch.ops.kernels import tt_flat
 from fbtt_embedding_tpu_torch.ops.kernels.tt_flat import (
     _POOL_ONEHOT_MAX_TB,
     flat_available,
     flat_train_apply,
 )
 from fbtt_embedding_tpu_torch.ops.lookup import (
+    flat_pad_plan,
     flat_servable,
+    pad_cores_for_flat,
     pool_rows,
     pooled_tt_lookup,
     staging_dtype,
+    unpad_flat_output,
 )
 from fbtt_embedding_tpu_torch.utils.decompose import tt_decompose
 from fbtt_embedding_tpu_torch.utils.init import init_tt_cores
@@ -192,12 +199,17 @@ def _masked_weights(mask, weights):
 
 
 def _cached_pool(out, cache, locations, weights, rowidx, tbl, num_tables,
-                 bs):
-    """``out`` plus the cache-served lookups' rows, pooled."""
+                 bs, scale=None):
+    """``out`` plus the cache-served lookups' rows, pooled; ``scale``: the
+    per-row scales of int8 rows (an int8 fold's cache), which join each
+    lookup's weight in one float32 factor."""
     if locations is None:
         return out
+    loc = locations.clamp(min=0).long()
     cached_w = _masked_weights(locations >= 0, weights)
-    rows = cache.weight[locations.clamp(min=0).long()] * cached_w[:, None]
+    if scale is not None:
+        cached_w = scale[loc] * cached_w
+    rows = cache.weight[loc] * cached_w[:, None]
     return out + _pool_cached_rows(rows, rowidx, tbl, num_tables, bs)
 
 
@@ -266,6 +278,300 @@ def make_serving_fn(
                             num_tables, bs)
 
     return serve
+
+
+@dataclass
+class FoldedServingParams:
+    """Frozen-weight serving state (:func:`make_folded_serving_fn`).
+
+    Flat mode: ``setup`` holds the folded pass tables and the pair table
+    (:func:`~fbtt_embedding_tpu_torch.ops.kernels.tt_flat.make_serving_fold`;
+    no cores are carried) and ``cache`` a copy of the LFU cache's keys,
+    slots and rows (its ``freq`` and ``opt_state`` empty). Fallback
+    mode (``impl`` "pallas" or "xla", or a config the flat pipeline cannot
+    serve): ``params`` carries a copy of the parameters and serving runs
+    :func:`make_serving_fn`.
+
+    An int8 fold keeps the pair table in ``setup`` as a ``(q8, scale)``
+    pair and the cache's rows as int8 (``cache.weight``) with their
+    per-row scales in ``cache_scale``. ``torch.save`` / ``torch.load(...,
+    weights_only=False)`` round-trip it."""
+
+    setup: Optional[Tuple] = None
+    params: Optional[TTEmbeddingParams] = None
+    cache: Optional[CacheState] = None
+    cache_scale: Optional[torch.Tensor] = None
+
+
+def _frozen_cache(cache: Optional[CacheState], quantized: bool):
+    """``(cache, cache_scale)``: a copy of what a serve reads of ``cache``
+    (keys, slots and rows; the counts and the optimizer state are left
+    empty), so that training or populating it later leaves the fold as it
+    was; the rows as int8 with their scales where ``quantized``."""
+    if cache is None:
+        return None, None
+    scale = None
+    if quantized:
+        weight, scale = tt_flat.quantize_rows_int8(cache.weight)
+    else:
+        weight = cache.weight.clone()
+    empty = cache.freq.new_zeros((0,))
+    return CacheState(cache.keys.clone(), empty, cache.slots.clone(), weight,
+                      cache.opt_state.new_zeros((0,))), scale
+
+
+def _frozen_params(params: TTEmbeddingParams) -> TTEmbeddingParams:
+    """A copy of the cores and the cache (the serve reads nothing else)."""
+    return TTEmbeddingParams(tuple(c.detach().clone()
+                                   for c in params.tt_cores), (),
+                             _frozen_cache(params.cache, False)[0])
+
+
+def make_folded_serving_fn(
+    tt_p_shapes: Sequence[int],
+    tt_q_shapes: Sequence[int],
+    tt_ranks: Sequence[int],
+    num_tables: int,
+    batch_size: int,
+    probe_cache: bool = True,
+    precision: Optional[str] = None,
+    impl: str = "auto",
+    quantize: Optional[str] = None,
+    device="cuda",
+):
+    """Weight-folded serving: returns ``(fold, serve)``.
+
+    Frozen cores make every weight-derived array of the flat forward a
+    constant: the first core's rows, the block-diagonal pass tables and,
+    at tt_ndim >= 3, the G0xG1 pair table. ``fold(params) ->
+    FoldedServingParams`` builds them once. ``serve(fp, indices, offsets,
+    weights=None, *, bs=None) -> [T, B, D]`` (float32, on ``device``) then
+    builds the plan, gathers the pair table's rows (no first pass, no z0
+    gather, no s1 -> s2 permute), runs kernel B1 on the remaining pass(es)
+    and pools. The pair table serves at any batch size, since its build is
+    paid once: ``[T*p0*p1 + 1, q0*q1*r2]``, 45 MB in bfloat16 at the
+    headline shape. ``bs`` overrides the batch size per call; a batch
+    with ``T*bs`` not a multiple of 8 is padded inside and sliced after.
+    Inputs and ``indices`` forms as :func:`make_serving_fn`'s; staging
+    bfloat16 on the card, float32 on the CPU or with
+    ``precision="highest"``.
+
+    The fold is a snapshot, the cache included: after ``cache_populate``
+    fold again, or swap in the new cache with :func:`refold_cache` while
+    the cores are unchanged.
+
+    ``quantize="int8"`` stores the pair table and the cache's rows as
+    per-row int8 with float32 scales (half and a quarter of their bytes),
+    dequantized after each row gather; B1 and the staging dtype do not
+    change.
+
+    The JAX package's configuration fallback is kept: with ``impl`` other
+    than "auto" / "pallas_sorted", or a config the flat pipeline cannot
+    serve even padded, ``fold`` carries a copy of the params and ``serve``
+    is :func:`make_serving_fn` (a quantized fallback fold logs a warning
+    and is not quantized)."""
+    if quantize not in (None, "int8"):
+        raise ValueError(
+            f"quantize must be None or 'int8', got {quantize!r}")
+    p, q = tuple(tt_p_shapes), tuple(tt_q_shapes)
+    rfull = tuple(validate_tt_shapes(tt_p_shapes, tt_q_shapes, tt_ranks))
+    device = torch.device(device)
+    use_flat = impl in ("auto", "pallas_sorted") and flat_servable(
+        p, q, rfull, num_tables, batch_size)
+
+    if not use_flat:
+        if quantize is not None:
+            logger.warning(
+                "make_folded_serving_fn(quantize=%r): the flat pipeline does "
+                "not take this config or impl=%r; the fallback fold carries "
+                "the original (unquantized) parameters.", quantize, impl)
+        plain = make_serving_fn(p, q, rfull, num_tables, batch_size,
+                                probe_cache=probe_cache, precision=precision,
+                                impl=impl, device=device)
+
+        def fold_fallback(params: TTEmbeddingParams) -> FoldedServingParams:
+            return FoldedServingParams(params=_frozen_params(params))
+
+        def serve_fallback(fp: FoldedServingParams, indices, offsets,
+                           weights=None, *, bs: Optional[int] = None):
+            return plain(fp.params, indices, offsets, weights,
+                         bs=batch_size if bs is None else bs)
+
+        return fold_fallback, serve_fallback
+
+    cdt = staging_dtype(device, precision)
+    use_q, use_r = q, rfull
+    pad = None
+    if not flat_available(p, q, rfull, num_tables, batch_size):
+        pad = flat_pad_plan(p, q, rfull, batch_size)
+        use_q, use_r = q[:-1] + (pad[1],), tuple(pad[0])
+    itemsize = torch.empty((), dtype=cdt).element_size()
+    pair = tt_flat.pair_structural_ok(num_tables, p, use_q, use_r, itemsize)
+
+    def fold(params: TTEmbeddingParams) -> FoldedServingParams:
+        cores = params.tt_cores
+        if pad is not None:
+            cores = pad_cores_for_flat(cores, p, q, rfull, pad)
+        with torch.no_grad():
+            setup = tt_flat.make_serving_fold(
+                [c.detach() for c in cores], p, use_q, use_r,
+                compute_dtype=cdt, pair=pair, quantize=quantize)
+            cache, cache_scale = _frozen_cache(
+                params.cache if probe_cache else None, quantize == "int8")
+        return FoldedServingParams(setup=setup, cache=cache,
+                                   cache_scale=cache_scale)
+
+    def serve(fp: FoldedServingParams, indices, offsets, weights=None, *,
+              bs: Optional[int] = None):
+        if fp.setup is None:
+            raise ValueError(
+                "FoldedServingParams.setup is None (a fallback-mode fold: "
+                "the flat pipeline did not take the config when it was "
+                "folded) but this serve() was built for flat mode. Build "
+                "the (fold, serve) pair again with make_folded_serving_fn, "
+                "or serve with make_serving_fn.")
+        bcall = batch_size if bs is None else bs
+        # the pooled rows T*b must be a multiple of 8: pad the batch, slice
+        b_eff = bcall
+        if (num_tables * b_eff) % 8 != 0:
+            b_eff = -(-b_eff // 8) * 8
+        cache = fp.cache if probe_cache else None
+        indices, parts, nnz = _lookup_inputs(indices, len(p), device)
+        _no_wide_cache(cache, parts is not None)
+        offsets = torch.as_tensor(offsets, device=device)
+        if weights is not None:
+            weights = torch.as_tensor(weights, device=device,
+                                      dtype=torch.float32)
+        rowidx, tableidx = rowidx_from_offsets(offsets, nnz, num_tables,
+                                               bcall)
+        tbl = tableidx if num_tables > 1 else None
+        locations = (cache_ops.cache_lookup(cache, indices)
+                     if cache is not None else None)
+        dead = locations >= 0 if locations is not None else None
+        plan, nza = tt_flat._build_plan(
+            indices, rowidx, tbl, weights, None, list(p), num_tables, b_eff,
+            dead_mask=dead, idx_parts=parts, seg=tt_flat.SEG, pair=pair)
+        out, _ = tt_flat.flat_lookup_forward(
+            None, p, use_q, use_r, b_eff, plan, nza, compute_dtype=cdt,
+            seg=tt_flat.SEG, setup=fp.setup, num_tables=num_tables)
+        out = unpad_flat_output(out, bcall, use_q, q[-1])
+        return _cached_pool(out, cache, locations, weights, rowidx, tbl,
+                            num_tables, bcall, scale=fp.cache_scale)
+
+    return fold, serve
+
+
+def refold_cache(fp: FoldedServingParams,
+                 params: TTEmbeddingParams) -> FoldedServingParams:
+    """A folded serving state with ``params``' cache in place of the one it
+    was folded with, the pass and pair tables kept (``setup`` is the same
+    object): for a cache populated again while the cores stayed as they
+    were. A fallback-mode fold takes a copy of the whole ``params``. A
+    quantized fold (cache scales, or a ``(q8, scale)`` pair table, which
+    also marks a fold frozen before the cache existed) quantizes the new
+    cache's rows."""
+    if fp.setup is None:
+        return FoldedServingParams(params=_frozen_params(params))
+    quantized = fp.cache_scale is not None or isinstance(fp.setup[1], tuple)
+    with torch.no_grad():
+        cache, cache_scale = _frozen_cache(params.cache, quantized)
+    return FoldedServingParams(setup=fp.setup, cache=cache,
+                               cache_scale=cache_scale)
+
+
+def _host_array(a) -> np.ndarray:
+    """An array or tensor (any device) as numpy on the host."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)
+
+
+def make_bucketed_serving_fn(
+    tt_p_shapes: Sequence[int],
+    tt_q_shapes: Sequence[int],
+    tt_ranks: Sequence[int],
+    num_tables: int,
+    batch_buckets: Sequence[int],
+    nnz_buckets: Sequence[int],
+    probe_cache: bool = True,
+    precision: Optional[str] = None,
+    impl: str = "auto",
+    quantize: Optional[str] = None,
+    device="cuda",
+):
+    """Serving of requests of any size: returns ``(fold, serve)``, the fold
+    of :func:`make_folded_serving_fn` at the largest batch bucket.
+
+    ``serve(fp, indices, offsets, weights=None) -> [T, B, D]`` takes any
+    ``B <= max(batch_buckets)`` and ``nnz <= max(nnz_buckets)`` (``offsets``
+    with ``T*B + 1`` table-major entries), rounds both up to the smallest
+    bucket that holds them, and lays the request out again on the host:
+    each table's pad bags are empty, the pad lookups have weight 0 (the
+    last pad bag holds them) and wide key rows pad with ``(hi, lo) = -1``,
+    which no cache probe finds. The padded arrays go to ``device`` once;
+    the output is sliced back to ``B``. Reading ``offsets`` on the host is
+    the one synchronisation. A request past the largest bucket raises
+    ValueError. Bucketing bounds the set of shapes a server meets, as the
+    JAX package's does for its compiled programs."""
+    bb = sorted(set(int(v) for v in batch_buckets))
+    nb = sorted(set(int(v) for v in nnz_buckets))
+    if not bb or not nb:
+        raise ValueError("batch_buckets and nnz_buckets must be non-empty")
+    device = torch.device(device)
+    fold, serve = make_folded_serving_fn(
+        tt_p_shapes, tt_q_shapes, tt_ranks, num_tables, bb[-1],
+        probe_cache=probe_cache, precision=precision, impl=impl,
+        quantize=quantize, device=device)
+
+    def _bucket(v: int, buckets, what: str) -> int:
+        for cap in buckets:
+            if v <= cap:
+                return cap
+        raise ValueError(
+            f"{what}={v} exceeds the largest configured bucket "
+            f"{buckets[-1]}")
+
+    def serve_any(fp: FoldedServingParams, indices, offsets, weights=None):
+        idx = _host_array(indices)
+        off = _host_array(offsets)
+        t = num_tables
+        if (off.shape[0] - 1) % t != 0:
+            raise ValueError(
+                f"offsets has {off.shape[0]} entries; expected T*B+1 "
+                f"with T={t}")
+        b = (off.shape[0] - 1) // t
+        nnz = idx.shape[0]
+        bs = _bucket(b, bb, "batch")
+        nz = _bucket(nnz, nb, "nnz")
+
+        if idx.ndim == 2:
+            # wide key rows: pad keys (hi, lo) = -1 miss every cache probe;
+            # their part columns stay 0, and their weight is 0
+            idx_p = np.zeros((nz, idx.shape[1]), idx.dtype)
+            idx_p[:nnz] = idx
+            idx_p[nnz:, :2] = -1
+        else:
+            idx_p = np.zeros((nz,), idx.dtype)
+            idx_p[:nnz] = idx
+        w_p = np.zeros((nz,), np.float32)
+        w_p[:nnz] = 1.0 if weights is None else _host_array(weights)
+        # table-major CSR: table ti's real bags keep their spans, its pad
+        # bags are empty (they start and end at its real end); the last pad
+        # bag takes the padded tail of lookups, whose weights are 0
+        off_p = np.empty((t * bs + 1,), off.dtype)
+        off_p[0] = 0
+        for ti in range(t):
+            seg = off[ti * b:(ti + 1) * b + 1]
+            off_p[ti * bs + 1:ti * bs + b + 1] = seg[1:]
+            off_p[ti * bs + b + 1:(ti + 1) * bs + 1] = seg[-1]
+        off_p[t * bs] = nz
+
+        out = serve(fp, torch.as_tensor(idx_p, device=device),
+                    torch.as_tensor(off_p, device=device),
+                    torch.as_tensor(w_p, device=device), bs=bs)
+        return out[:, :b]
+
+    return fold, serve_any
 
 
 def _lookup_inputs(indices, ndim: int, device):
@@ -562,9 +868,7 @@ class _CacheBuffers(nn.Module):
 
 def _host_ids(indices) -> np.ndarray:
     """Row ids as int64 numpy on the host (tensors from any device)."""
-    if isinstance(indices, torch.Tensor):
-        indices = indices.detach().cpu().numpy()
-    return np.asarray(indices, dtype=np.int64).reshape(-1)
+    return np.asarray(_host_array(indices), dtype=np.int64).reshape(-1)
 
 
 class TableBatchedTTEmbeddingBag(nn.Module):
@@ -592,9 +896,9 @@ class TableBatchedTTEmbeddingBag(nn.Module):
     The output is detached; where the forward ran without grad mode, or
     the cores changed since, ``backward`` runs the lookup again.
 
-    Not ported, raising NotImplementedError: ``optim_semantics="native"``,
-    ``freeze_for_serving``, and ``use_cache`` on a table of 2^31 rows or
-    more (the wide-key cache)."""
+    Not ported, raising NotImplementedError: ``optim_semantics="native"``
+    and ``use_cache`` on a table of 2^31 rows or more (the wide-key
+    cache)."""
 
     def __init__(
         self,
@@ -775,9 +1079,23 @@ class TableBatchedTTEmbeddingBag(nn.Module):
 
     def freeze_for_serving(self, batch_size: int, probe_cache: bool = True,
                            quantize: Optional[str] = None):
-        """The folded serve of the JAX module: not ported yet."""
-        raise NotImplementedError(
-            "freeze_for_serving (the folded serve) is not ported yet")
+        """One-time weight fold for inference: ``(folded, serve)`` with
+        ``serve(folded, indices, offsets, weights=None, *, bs=None) -> [T,
+        B, D]`` (:func:`make_folded_serving_fn` with the module's shapes,
+        ``precision``, ``impl`` and device; the cache is probed where
+        ``probe_cache`` and the module has one). ``quantize="int8"`` keeps
+        the pair table and the cache's rows as per-row int8.
+
+        The fold is a copy of the current cores and cache: training on, or
+        ``cache_populate``, leaves it as it was. Freeze again, or swap a new
+        cache in with :func:`refold_cache`."""
+        fold, serve = make_folded_serving_fn(
+            self.tt_p_shapes, self.tt_q_shapes, self.tt_ranks,
+            self.num_tables, batch_size,
+            probe_cache=probe_cache and self.use_cache,
+            precision=self.precision, impl=self.impl, quantize=quantize,
+            device=self._device())
+        return fold(self.params), serve
 
     # ----------------------------------------------------------------- api
 

@@ -41,6 +41,16 @@ Dead lookups (cache-served: ``dead_mask`` or positions past
 ``live_count``) and padding get a sentinel key ``T*p_t``; they sort into the
 final span, which the kernel fills with zeros.
 
+Frozen-weight serving (``make_serving_fold``) builds every weight-derived
+array of the forward once: g0f, the pass tables and, at tt_ndim >= 3, the
+pair table, which it then uses at any batch size (no ``_pair_gate``).
+``flat_lookup_forward(..., setup=fold)`` takes them in place of the cores,
+so a serve runs the plan, the pair-table gather, kernel B1 on the last
+core (and the middle core before it at tt_ndim 4) and the pool.
+``quantize="int8"`` keeps the pair table as per-row int8 with float32
+scales (``quantize_rows_int8``), dequantized after the gather
+(``_dequant_gather``) and rounded to the staging dtype before B1.
+
 Numerics: float32 master cores; intermediates staged in ``compute_dtype``
 (bfloat16 by default on the card, float32 on the CPU or when asked);
 products accumulate in float32, and pooling, core gradients and dz0 are
@@ -86,7 +96,8 @@ SEG = 64  # lookups per segment: one CTA of the transform kernel each
 # empty spans appended to every span table (and zero slabs to every pass
 # table), kept from the JAX package so plans compare entry for entry
 SPAN_BLOCK = 4
-# cap on the G0xG1 pair-product table (rebuilt per call from the cores)
+# cap on the G0xG1 pair-product table (rebuilt per call from the cores,
+# or built once by a serving fold)
 _PAIR_TABLE_BYTES = 96 * 1024 * 1024
 # one-hot pooling up to this many pooled rows, index_add_ above
 _POOL_ONEHOT_MAX_TB = 4096
@@ -421,6 +432,52 @@ def _pair_table(gk, p, q, r, t, dt):
                                        device=g01.device)])
 
 
+def quantize_rows_int8(tbl: torch.Tensor):
+    """Per-row symmetric int8: ``(q8, scale)`` with ``tbl ~= q8.float() *
+    scale[:, None]``, ``scale = absmax / 127`` (float32). All-zero rows, such
+    as the pair table's sentinel row, get scale 0 and dequantize to exact
+    zeros. Rounding is half to even, as the JAX package's ``jnp.round``."""
+    x = tbl.float()
+    scale = x.abs().amax(dim=1) / 127.0
+    pos = scale > 0
+    inv = torch.where(pos, 1.0 / torch.where(pos, scale,
+                                             torch.ones_like(scale)),
+                      torch.zeros_like(scale))
+    q8 = torch.clamp(torch.round(x * inv[:, None]), -127, 127)
+    return q8.to(torch.int8), scale
+
+
+def _dequant_gather(qtbl, rows: torch.Tensor) -> torch.Tensor:
+    """Rows ``rows`` of a ``(q8, scale)`` pair, dequantized to float32 (the
+    int8 rows promote inside the product: one pass, no float32 copy)."""
+    q8, scale = qtbl
+    return q8[rows] * scale[rows][:, None]
+
+
+def make_serving_fold(cores, tt_p_shapes, tt_q_shapes, tt_ranks,
+                      compute_dtype=torch.float32, pair: bool = True,
+                      quantize: Optional[str] = None):
+    """Every weight-derived array of the flat forward, built once for
+    frozen-weight serving: ``(g0f, g01f, tables)``.
+
+    ``g01f`` is the G0xG1 pair table (:func:`_pair_table`) where ``pair``
+    and :func:`pair_structural_ok` allow, else None; a serve uses it at any
+    batch size (the build is paid here, not per call). ``quantize="int8"``
+    stores it as a per-row ``(q8, scale)`` pair (:func:`quantize_rows_int8`),
+    half the bytes of bfloat16; g0f and the pass tables stay in
+    ``compute_dtype``."""
+    p, q, r = tuple(tt_p_shapes), tuple(tt_q_shapes), tuple(tt_ranks)
+    t = cores[0].shape[0]
+    dt = compute_dtype
+    g0f, gk, tables, _ = _flat_setup(cores, p, q, r, dt)
+    itemsize = torch.empty((), dtype=dt).element_size()
+    g01f = (_pair_table(gk, p, q, r, t, dt)
+            if pair and pair_structural_ok(t, p, q, r, itemsize) else None)
+    if quantize == "int8" and g01f is not None:
+        g01f = quantize_rows_int8(g01f)
+    return g0f, g01f, tuple(tables)
+
+
 def _i0c(plan: FlatPlan, tp0: int) -> torch.Tensor:
     """First-core row of every lookup in s1 order; dead and pad lookups get
     the sentinel ``tp0``."""
@@ -458,15 +515,21 @@ def _dg0(plan: FlatPlan, dz0: torch.Tensor, tp0: int, q0: int, r1: int):
 
 
 def _pass_inputs(plan: FlatPlan, g0f, gk, tables, widths, p, q, r, t, dt,
-                 seg):
+                 seg, g01f=None):
     """The input of every core pass 1 .. ndim-1, each in its own sort
     space: z0 (or, in pair mode, None for the skipped pass 1 and
     ``G01[pair_s2]`` as pass 2's input), then kernel B1 and the s_t ->
-    s_t+1 permute for every pass before the last."""
+    s_t+1 permute for every pass before the last. In pair mode the pair
+    table is ``g01f`` where a fold gives it (a ``(q8, scale)`` pair when
+    quantized), else it is built here from ``gk``."""
     ndim = len(p)
     if plan.pair_s2 is not None:
         stages = [None]
-        state = _pair_table(gk, p, q, r, t, dt)[plan.pair_s2.long()]
+        if g01f is None:
+            g01f = _pair_table(gk, p, q, r, t, dt)
+        rows = plan.pair_s2.long()
+        state = (_dequant_gather(g01f, rows).to(dt)
+                 if isinstance(g01f, tuple) else g01f[rows])
     else:
         stages = []
         state = _z0(plan, g0f, t * p[0])
@@ -517,19 +580,29 @@ def _grad_passes(plan: FlatPlan, stages, dz, top, g0f, tables, widths, p, q,
 
 def flat_lookup_forward(cores, tt_p_shapes, tt_q_shapes, tt_ranks,
                         batch_size, plan: FlatPlan, nza,
-                        compute_dtype=torch.float32, seg=SEG):
+                        compute_dtype=torch.float32, seg=SEG, setup=None,
+                        num_tables: Optional[int] = None):
     """Pooled forward -> (``[T, B, D]`` float32, staged states). The staged
     states (each pass's input, in its sort space; None for a pass that
-    pair mode skipped) are what a backward would reuse."""
+    pair mode skipped) are what a backward would reuse.
+
+    ``setup``: a :func:`make_serving_fold` triple. Then ``cores`` may be
+    None (give ``num_tables``) and no weight-derived array is rebuilt: the
+    frozen-weight serve."""
     p, q, r = tuple(tt_p_shapes), tuple(tt_q_shapes), tuple(tt_ranks)
-    t = cores[0].shape[0]
+    t = cores[0].shape[0] if cores is not None else num_tables
     tb = t * batch_size
     d = int(np.prod(q))
     dt = compute_dtype
-    g0f, gk, tables, widths = _flat_setup(cores, p, q, r, dt)
+    if setup is None:
+        g0f, gk, tables, widths = _flat_setup(cores, p, q, r, dt)
+        g01f = None
+    else:
+        (g0f, g01f, tables), gk = setup, None
+        widths = _bd_widths(list(q), list(r))
 
     stages = _pass_inputs(plan, g0f, gk, tables, widths, p, q, r, t, dt,
-                          seg)
+                          seg, g01f=g01f)
     mm, bw_in, bw_out = widths[-1]
     state = seg_transform(
         plan.runs[-1], plan.first[-1], plan.cnt[-1], stages[-1], tables[-1],

@@ -218,6 +218,17 @@ def flat_servable(tt_p_shapes, tt_q_shapes, ranks, num_tables,
         pad[2])
 
 
+def unpad_flat_output(out: torch.Tensor, batch_size: int, padded_q,
+                      q_last: int) -> torch.Tensor:
+    """A flat lookup's ``[T, B', prod(padded_q)]`` output cut to the real
+    bags and the real last q-dim: ``[T, batch_size, D]`` (views where
+    nothing was padded)."""
+    t = out.shape[0]
+    return out[:, :batch_size].reshape(
+        (t, batch_size) + tuple(padded_q))[..., :q_last].reshape(
+            t, batch_size, -1)
+
+
 def staging_dtype(device: torch.device, precision: Optional[str]):
     """float32 staging on the CPU or when ``precision == "highest"``,
     bfloat16 otherwise (float32 master cores and accumulation either
@@ -317,7 +328,5 @@ def pooled_tt_lookup(
         live_is_mask=dead_mask is not None,
         parts_mode=idx_parts is not None)
     if pad is not None:
-        out = out[:, :batch_size].reshape(
-            (num_tables, batch_size) + use_q
-        )[..., :tt_q_shapes[-1]].reshape(num_tables, batch_size, -1)
+        out = unpad_flat_output(out, batch_size, use_q, tt_q_shapes[-1])
     return out

@@ -2,7 +2,8 @@
 """Where the time of one serve of fbtt_embedding_tpu_torch goes, on a GPU.
 
 Usage: ``python3 scripts/profile_torch_serve.py [--batch 512] [--iters 20]
-[--impl pallas] [--root DIR]`` from the root of a checkout, on a machine
+[--impl pallas | --folded [--quantize]] [--root DIR]`` from the root of a
+checkout, on a machine
 with one CUDA card. ``--root`` names the checkout whose
 ``fbtt_embedding_tpu_torch`` is imported and built (default: this one), so
 that an older tree unpacked into ``build/ab_old/`` is profiled by the same
@@ -15,8 +16,10 @@ device time per request summed over all kernels, the device busy share
 (device time over the host time without the profiler), the device
 operations (kernel launches and copies) per request, and the CUDA kernels
 and host operators ranked by time. ``--impl pallas`` profiles the generic
-per-lookup serve (kernel B4, float32) in place of the flat pipeline.
-``--trace PATH`` also writes the Chrome trace.
+per-lookup serve (kernel B4, float32) in place of the flat pipeline;
+``--folded`` the weight-folded serve (``make_folded_serving_fn``: the pair
+table gathered, B1 once; ``--quantize`` its int8 fold), the fold made once
+before the timing. ``--trace PATH`` also writes the Chrome trace.
 """
 
 import argparse
@@ -35,6 +38,10 @@ def main():
     ap.add_argument("--trace", help="write the Chrome trace here")
     ap.add_argument("--impl", choices=("auto", "pallas"), default="auto",
                     help="the serve's lookup path (make_serving_fn)")
+    ap.add_argument("--folded", action="store_true",
+                    help="the weight-folded serve (make_folded_serving_fn)")
+    ap.add_argument("--quantize", action="store_true",
+                    help="with --folded: the int8 fold")
     ap.add_argument("--root", default=str(ROOT),
                     help="checkout whose package is profiled")
     args = ap.parse_args()
@@ -52,20 +59,33 @@ def main():
     cores = fbt.init_tt_cores(np.random.default_rng(0), "uniform", 1, e, 64,
                               p, q, r)
     params = fbt.params_from_jax(cores, device="cuda")
-    serve = fbt.make_serving_fn(p, q, r, 1, b, impl=args.impl,
-                                device="cuda")
     rng = np.random.default_rng(1)
     idx = torch.as_tensor(rng.integers(0, e, size=b * pool), device="cuda")
     offs = torch.arange(0, b * pool + 1, pool, device="cuda")
+    if args.folded:
+        fold, fserve = fbt.make_folded_serving_fn(
+            p, q, r, 1, b, impl=args.impl,
+            quantize="int8" if args.quantize else None, device="cuda")
+        fp = fold(params)
+
+        def serve():
+            return fserve(fp, idx, offs)
+    else:
+        unfolded = fbt.make_serving_fn(p, q, r, 1, b, impl=args.impl,
+                                       device="cuda")
+
+        def serve():
+            return unfolded(params, idx, offs)
+
     for _ in range(5):
-        serve(params, idx, offs)
+        serve()
     torch.cuda.synchronize()
     # the host clock without the profiler, which adds its own cost to every
     # operation it records
     bare = []
     for _ in range(args.iters):
         t0 = time.perf_counter()
-        serve(params, idx, offs)
+        serve()
         torch.cuda.synchronize()
         bare.append((time.perf_counter() - t0) * 1e3)
 
@@ -75,7 +95,7 @@ def main():
     with torch.profiler.profile(activities=acts) as prof:
         for _ in range(args.iters):
             t0 = time.perf_counter()
-            serve(params, idx, offs)
+            serve()
             torch.cuda.synchronize()
             host.append((time.perf_counter() - t0) * 1e3)
     card = torch.cuda.get_device_name(0)
@@ -86,6 +106,8 @@ def main():
     launches = sum(ev.count for ev in dev) / args.iters
     host_ms, bare_ms = statistics.median(host), statistics.median(bare)
     what = f" impl={args.impl}" if args.impl != "auto" else ""
+    if args.folded:
+        what += " folded" + (" int8" if args.quantize else "")
     print(f"[profile] {card} serve B={b} pooling {pool}{what}: host "
           f"{bare_ms:.3f} ms/request (median, without the profiler), "
           f"{host_ms:.3f} ms/request (under it), device {dev_ms:.3f} ms/"

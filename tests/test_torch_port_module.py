@@ -21,7 +21,7 @@ numpy-seeded inputs, on the cases of ``tests/test_table_batched.py``,
 - ``state_dict`` from JAX (numpy) into ``load_state_dict``, and the
   truncated-state KeyError;
 - the backward-before-forward assertion, determinism, the parts not ported
-  (NotImplementedError), and that ``backward`` takes the gradient from the
+  (NotImplementedError; ``freeze_for_serving`` now folds), and that ``backward`` takes the gradient from the
   forward's kernel graph (``FlatLookup``, ``GenericLookup``);
 - ``tests/test_property.py``'s hypothesis ranges (forward, an SGD step,
   several tables), the port's module against JAX's.
@@ -641,8 +641,8 @@ def test_parts_not_ported_raise():
     with pytest.raises(NotImplementedError):
         pair(3, optim_semantics="native")
     _, tm = pair(3)
-    with pytest.raises(NotImplementedError):
-        tm.freeze_for_serving(8)
+    folded, _ = tm.freeze_for_serving(8)  # ported: it folds now
+    assert folded.setup is not None
     with pytest.raises(NotImplementedError):  # a cached table past int32
         T.TTEmbeddingBag(num_embeddings=2048 * 2048 * 513, embedding_dim=64,
                          tt_p_shapes=[2048, 2048, 513], tt_q_shapes=[4, 4, 4],

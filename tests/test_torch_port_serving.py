@@ -3,8 +3,9 @@
 The port's ``make_serving_fn(device="cpu")`` (flat pipeline, the kernel's
 plain version) against JAX ``make_serving_fn(probe_cache=False)`` on the
 same cores and requests, within 2e-4 as ``tests/test_serving.py`` holds
-the JAX serving paths; and a fresh process that imports the port and
-serves without importing JAX or the JAX package.
+the JAX serving paths; and a fresh process that imports the port (its
+examples too), serves and serves a fold without importing JAX or the JAX
+package.
 """
 
 import os
@@ -136,6 +137,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "serve = m.make_serving_fn(p, q, r, 1, 8, device='cpu')\n"
         "out = serve(params, np.arange(16) * 577, np.arange(0, 17, 2))\n"
         "assert out.shape == (1, 8, 64)\n"
+        "fold, fserve = m.make_folded_serving_fn(p, q, r, 1, 8,"
+        " quantize='int8', device='cpu')\n"
+        "fp = m.refold_cache(fold(params), params)\n"
+        "assert fp.setup[1] is not None\n"
+        "assert fserve(fp, np.arange(16) * 577, np.arange(0, 17, 2)).shape"
+        " == (1, 8, 64)\n"
+        "import fbtt_embedding_tpu_torch.examples.serve_embedding\n"
         "bad = sorted(k for k in sys.modules if k == 'jax'"
         " or k.startswith('jax.') or k.startswith('fbtt_embedding_tpu.')"
         " or k == 'fbtt_embedding_tpu')\n"

@@ -111,6 +111,41 @@ CUDA card and ``nvcc``). Phases, each printing its own lines:
    ``import_full_weight`` round trip on a 110k-row model, and host-clock
    medians of the module's forward and forward + backward at B=512 with
    counting, beside the fused counting step, in turns;
+5c. native+wide: (a) the native optimizers (``optim_semantics=
+   "native"``: EXACT_ROWWISE_ADAGRAD, ADAM, PARTIAL_ROWWISE_ADAM, LAMB,
+   PARTIAL_ROWWISE_LAMB, LARS_SGD) on the headline model, three counting
+   steps each (B=512, pooling 20, uniform and Zipf 1.05; direct-mode LFU
+   counting), B1, B2, B3 once a step: with float32 staging held against
+   the plain float32 step (output 1e-4 x max|out|, each core's update
+   within 1e-3 of the plain one's largest element plus the float32
+   spacing at the core's largest element, the store's rounding, which
+   LARS's ~1e-5-relative updates reach; the optimizer state's change
+   within 1e-3 of the plain one's largest element, the step counter
+   exactly), in bf16 by the cosine of each core's update
+   against the plain one's (>= 0.99; the max relative error printed);
+   native SGD and EXACT_ADAGRAD bitwise equal to the reference semantics;
+   one native ADAM step with ``impl="pallas"`` (B4, B5) and one under
+   ``FBTT_DG0=fused`` (B6 for B3); one native LAMB step probing the
+   populated headline cache (its rows by row-wise Adagrad, held at 1e-6);
+   (b) the wide-key cache on p=[1300, 1300, 1300] (E = 2.197e9, past
+   2^31) at the headline widths, ``hashtbl_size`` 2^24, ``cache_size``
+   2^20: Zipf(1.05) ranks spread over the ids, three in four at 2^31 or
+   above, with pads of both forms; 20 counting steps of the fused SGD step
+   (B1, B2, B3 once each), each distinct valid id found within MAX_PROBES
+   of its hash with its key row and the host's count (``np.unique``), the
+   parts equal to ``decompose_indices64`` and the pads counted nowhere;
+   one batch counted into two copies of the state, bitwise equal; populate
+   (the top counts, ties lowest slot first; rows within 1e-6 of the plain
+   float32 ``tt_rows`` of their parts); SGD and EXACT_ROWWISE_ADAGRAD
+   steps probing it, held as phase 5 holds its cached steps;
+   ``make_serving_fn`` (B1 twice) and the bf16 fold (its mode printed: the
+   pair table would be 1.7 GB) against the plain float32 serve; a
+   ``TTEmbeddingBag`` at this table with ``use_cache``: four calls,
+   ``cache_populate()``, one probed call (``cache_hit_rate()`` printed),
+   each held against a plain module loaded with its state; then device
+   ms, host ms and device operations per step, in turns, of the native
+   ADAM and LAMB counting steps beside the reference SGD counting step,
+   and of the wide counting step beside the direct-mode one;
 6. times: each kernel pass's time per call on two yardsticks, beside its
    bound and its plain version's on both: between CUDA events over
    back-to-back calls (the kernels' line's ``ms`` and ``plain_ms``; the
@@ -196,7 +231,8 @@ DG0_RULE_SHAPES = (
 )
 PATHS = ("serve", "train", "serve_generic", "train_generic", "serve_cached",
          "train_cached", "train_dg0", "module", "serve_folded",
-         "serve_folded_int8")
+         "serve_folded_int8", "train_native", "train_wide_cache",
+         "serve_wide_cache", "module_wide_cache")
 LR, EPS = 0.005, 1.0        # training steps of the check (EPS: Adagrad)
 # bf16 staging against the float32 plain step: outputs within 5e-3 of
 # max|out| (the serve's limit); each core's update within 3e-2 of its
@@ -206,6 +242,21 @@ OUT_TOL, UPDATE_TOL = 5e-3, 3e-2
 # only the summation order differs
 F32_OUT_TOL, F32_UPDATE_TOL = 1e-4, 1e-3
 V100_US_PER_LOOKUP = 0.416  # BASELINE.md: the reference's published figure
+# phase 5c: the native optimizers it trains, those with a step counter
+NATIVE_OPTIMS = ("EXACT_ROWWISE_ADAGRAD", "ADAM", "PARTIAL_ROWWISE_ADAM",
+                 "LAMB", "PARTIAL_ROWWISE_LAMB", "LARS_SGD")
+NATIVE_MOMENTS = ("ADAM", "PARTIAL_ROWWISE_ADAM", "LAMB",
+                  "PARTIAL_ROWWISE_LAMB")
+# bf16 staging against the float32 plain step, for the optimizers that
+# normalise by |g| (Adam, LAMB): the cosine of the core updates
+COS_MIN = 0.99
+# the wide-key cache's table (tests/test_cache_int64.py's p, E past 2^31)
+# at the headline widths; its hash table and cache sizes; an odd multiplier
+# (coprime with E - 2^31) spreading Zipf ranks over the ids
+P_WIDE = [1300, 1300, 1300]
+E_WIDE = 1300 ** 3
+H_WIDE, C_WIDE = 2 ** 24, 2 ** 20
+WIDE_MULT = 5000011
 
 
 def fail(msg):
@@ -660,9 +711,13 @@ def generic_bound(gk, idx, rowv, weights, tb, backward, tf32x3=False):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def hold_step(line, out, ref_out, new, ref, old, out_tol, update_tol, what):
+def hold_step(line, out, ref_out, new, ref, old, out_tol, update_tol, what,
+              store_ulp=False):
     """Hold a training step's output and core updates against the plain
-    step's; returns ``line`` with the errors appended."""
+    step's; returns ``line`` with the errors appended. ``store_ulp``: the
+    limit adds the float32 spacing at the core's largest element, the
+    rounding of storing ``c - lr * u`` (an update below ~1e-4 of the
+    cores, LARS's, is not held to 1e-3 of itself by float32 cores)."""
     import torch
 
     scale = ref_out.abs().max().item()
@@ -674,9 +729,16 @@ def hold_step(line, out, ref_out, new, ref, old, out_tol, update_tol, what):
             new.tt_cores, ref.tt_cores, old.tt_cores)):
         upd = (c_ref - c_old).abs().max().item()
         cerr = (c_new - c_ref).abs().max().item()
+        limit = update_tol * upd
         line += (f"; core {t} max|dcore - dcore_plain| {cerr:.3e} "
-                 f"(limit {update_tol} x max|dcore_plain| {upd:.3e})")
-        if not (torch.isfinite(c_new).all() and cerr <= update_tol * upd):
+                 f"(limit {update_tol} x max|dcore_plain| {upd:.3e}")
+        if store_ulp:
+            spacing = (torch.finfo(torch.float32).eps
+                       * c_old.abs().max().item())
+            limit += spacing
+            line += f" + float32 spacing at max|core| {spacing:.3e}"
+        line += ")"
+        if not (torch.isfinite(c_new).all() and cerr <= limit):
             fail(f"{what}: core {t} update disagrees with the plain step")
     return line
 
@@ -993,13 +1055,99 @@ def folded_phase(fbt, card, wrappers, params, serve, cache, cserve,
     return launches[None], launches["int8"]
 
 
+def launch_text(c):
+    """Nonzero launch counts as ``B1 n B2 n ...``."""
+    names = ("B1", "B2", "B3", "B4", "B5", "B6")
+    return " ".join(f"{n} {c[k]}" for n, k in zip(names, (
+        "seg_transform", "seg_fused_i2", "seg_accum", "tt_fwd", "tt_bwd",
+        "seg_accum_dg0")) if c[k])
+
+
+def module_call(fbt, wrappers, launches, m, r, bt, fwd_want, bwd_want,
+                label, tols=(OUT_TOL, UPDATE_TOL), tag="module"):
+    """One forward + backward of module ``m`` and of the plain module
+    ``r`` loaded with the same state; launches (forward, backward, added
+    to ``launches``) and no plain kernel version checked, then the output,
+    the update (or the dense gradients) and the cache against the plain
+    module's; the line printed starts with ``[tag]``."""
+    import torch
+
+    from fbtt_embedding_tpu_torch.ops.cache import CacheState
+
+    def counts():
+        return {name: fn.launches for name, fn in wrappers.items()}
+
+    idx, offs, d_out = bt
+    old = {k: v.clone() for k, v in m.state_dict().items()}
+    r.load_state_dict(old)
+    r.warmup = m.warmup
+    for fn in wrappers.values():
+        fn.launches = 0
+    with plain_watch() as plains:
+        out = m(idx, offs)
+        torch.cuda.synchronize()
+        fwd = counts()
+        res = m.backward(d_out)
+        torch.cuda.synchronize()
+    bwd = {k: v - fwd[k] for k, v in counts().items()}
+    for k in wrappers:
+        launches[k] += fwd[k] + bwd[k]
+    if plains:
+        fail(f"module {label}: plain versions ran on the card: {plains}")
+    if fwd != fwd_want or bwd != bwd_want:
+        fail(f"module {label}: launches forward {fwd}, backward {bwd}; "
+             f"expected {fwd_want}, {bwd_want}")
+    hit = m.cache_hit_rate()
+    ref_out = r(idx, offs)
+    ref_res = r.backward(d_out)
+    b_ = offs.shape[0] - 1
+    if out.shape[-2:] != (b_ // m.num_tables, D) \
+            or not torch.isfinite(out).all():
+        fail(f"module {label}: bad output {tuple(out.shape)}")
+    line = (f"[{tag}] {label}: hit rate {hit:.4f}; launches forward "
+            f"{launch_text(fwd)}, backward {launch_text(bwd)}, plain "
+            "versions 0")
+    old_p = fbt.TTEmbeddingParams(tuple(
+        old[f"tt_cores.{i}"] for i in range(m.tt_ndim)))
+    if res is None:  # sparse: the cores (and cache rows) updated
+        line = hold_step(line, out, ref_out, m.params, r.params, old_p,
+                         *tols, f"module {label}")
+    else:  # dense: the gradients against the plain module's
+        scale = ref_out.abs().max().item()
+        err = (out - ref_out).abs().max().item()
+        line += (f"; output max_abs_err {err:.3e} (limit {tols[0]} x "
+                 f"{scale:.3e})")
+        if not err <= tols[0] * scale:
+            fail(f"module {label}: output disagrees with the plain one")
+        for t, (g, g_ref) in enumerate(zip(res[0], ref_res[0])):
+            big = g_ref.abs().max().item()
+            gerr = (g - g_ref).abs().max().item()
+            line += (f"; d_core {t} max_abs_err {gerr:.3e} (limit "
+                     f"{tols[1]} x {big:.3e})")
+            if not (torch.isfinite(g).all() and gerr <= tols[1] * big):
+                fail(f"module {label}: d_core {t} disagrees")
+        dc, dc_ref = res[1], ref_res[1]
+        big = dc_ref.abs().max().item()
+        cerr = (dc - dc_ref).abs().max().item()
+        line += (f"; d_cache_weight max_abs_err {cerr:.3e} (limit 1e-6 "
+                 f"x {big:.3e})")
+        if not (big > 0 and cerr <= 1e-6 * big):
+            fail(f"module {label}: d_cache_weight disagrees")
+    if m.cache is not None and not m.warmup and res is None:
+        old_c = CacheState(*(old[f"cache.{f}"] for f in (
+            "keys", "freq", "slots", "weight", "opt_state")))
+        line = hold_cache(line, m.params.cache, r.params.cache, old_c,
+                          f"module {label}")
+    print(line)
+    return out
+
+
 def module_phase(fbt, card, wrappers, request, fused_step):
     """Phase 5b of the docstring, the modules at full width; returns the
     launches of the module calls."""
     import numpy as np
     import torch
 
-    from fbtt_embedding_tpu_torch.ops.cache import CacheState
     from fbtt_embedding_tpu_torch.ops.kernels import tt_flat
 
     def zero_counts():
@@ -1010,17 +1158,9 @@ def module_phase(fbt, card, wrappers, request, fused_step):
         return {name: fn.launches for name, fn in wrappers.items()}
 
     def want(**kw):
-        short = {"B1": "seg_transform", "B2": "seg_fused_i2",
-                 "B3": "seg_accum", "B4": "tt_fwd", "B5": "tt_bwd",
-                 "B6": "seg_accum_dg0"}
-        return {**dict.fromkeys(wrappers, 0),
-                **{short[k]: v for k, v in kw.items()}}
+        return want_launches(wrappers, **kw)
 
-    def text(c):
-        names = ("B1", "B2", "B3", "B4", "B5", "B6")
-        return " ".join(f"{n} {c[k]}" for n, k in zip(names, (
-            "seg_transform", "seg_fused_i2", "seg_accum", "tt_fwd", "tt_bwd",
-            "seg_accum_dg0")) if c[k])
+    text = launch_text
 
     t_phase = time.perf_counter()
     rng = np.random.default_rng(3)
@@ -1037,73 +1177,8 @@ def module_phase(fbt, card, wrappers, request, fused_step):
                                 dtype=torch.float32, device="cuda")
         return idx, offs, d_out
 
-    def checked(m, r, bt, fwd_want, bwd_want, label, tols=(OUT_TOL,
-                                                          UPDATE_TOL)):
-        """One forward + backward of module ``m`` and of the plain module
-        ``r`` loaded with the same state; launches (forward, backward) and
-        no plain kernel version checked, then the output, the update (or
-        the dense gradients) and the cache against the plain module's."""
-        idx, offs, d_out = bt
-        old = {k: v.clone() for k, v in m.state_dict().items()}
-        r.load_state_dict(old)
-        r.warmup = m.warmup
-        zero_counts()
-        with plain_watch() as plains:
-            out = m(idx, offs)
-            torch.cuda.synchronize()
-            fwd = counts()
-            res = m.backward(d_out)
-            torch.cuda.synchronize()
-        bwd = {k: v - fwd[k] for k, v in counts().items()}
-        for k in wrappers:
-            launches[k] += fwd[k] + bwd[k]
-        if plains:
-            fail(f"module {label}: plain versions ran on the card: {plains}")
-        if fwd != fwd_want or bwd != bwd_want:
-            fail(f"module {label}: launches forward {fwd}, backward {bwd}; "
-                 f"expected {fwd_want}, {bwd_want}")
-        hit = m.cache_hit_rate()
-        ref_out = r(idx, offs)
-        ref_res = r.backward(d_out)
-        b_ = offs.shape[0] - 1
-        if out.shape[-2:] != (b_ // m.num_tables, D) \
-                or not torch.isfinite(out).all():
-            fail(f"module {label}: bad output {tuple(out.shape)}")
-        line = (f"[module] {label}: hit rate {hit:.4f}; launches forward "
-                f"{text(fwd)}, backward {text(bwd)}, plain versions 0")
-        old_p = fbt.TTEmbeddingParams(tuple(
-            old[f"tt_cores.{i}"] for i in range(m.tt_ndim)))
-        if res is None:  # sparse: the cores (and cache rows) updated
-            line = hold_step(line, out, ref_out, m.params, r.params, old_p,
-                             *tols, f"module {label}")
-        else:  # dense: the gradients against the plain module's
-            scale = ref_out.abs().max().item()
-            err = (out - ref_out).abs().max().item()
-            line += (f"; output max_abs_err {err:.3e} (limit {tols[0]} x "
-                     f"{scale:.3e})")
-            if not err <= tols[0] * scale:
-                fail(f"module {label}: output disagrees with the plain one")
-            for t, (g, g_ref) in enumerate(zip(res[0], ref_res[0])):
-                big = g_ref.abs().max().item()
-                gerr = (g - g_ref).abs().max().item()
-                line += (f"; d_core {t} max_abs_err {gerr:.3e} (limit "
-                         f"{tols[1]} x {big:.3e})")
-                if not (torch.isfinite(g).all() and gerr <= tols[1] * big):
-                    fail(f"module {label}: d_core {t} disagrees")
-            dc, dc_ref = res[1], ref_res[1]
-            big = dc_ref.abs().max().item()
-            cerr = (dc - dc_ref).abs().max().item()
-            line += (f"; d_cache_weight max_abs_err {cerr:.3e} (limit 1e-6 "
-                     f"x {big:.3e})")
-            if not (big > 0 and cerr <= 1e-6 * big):
-                fail(f"module {label}: d_cache_weight disagrees")
-        if m.cache is not None and not m.warmup and res is None:
-            old_c = CacheState(*(old[f"cache.{f}"] for f in (
-                "keys", "freq", "slots", "weight", "opt_state")))
-            line = hold_cache(line, m.params.cache, r.params.cache, old_c,
-                              f"module {label}")
-        print(line)
-        return out
+    def checked(*args, **kw):
+        return module_call(fbt, wrappers, launches, *args, **kw)
 
     # warm-up: forward + sparse SGD backward, counting every id
     two = want(B1=2)
@@ -1322,6 +1397,509 @@ def module_phase(fbt, card, wrappers, request, fused_step):
     print(f"[module] phase took {time.perf_counter() - t_phase:.1f} s; "
           f"launches {launches}")
     return launches
+
+
+def want_launches(wrappers, **kw):
+    """Launch counts by wrapper: ``B1=1, B3=2, ...`` given, 0 elsewhere."""
+    short = {"B1": "seg_transform", "B2": "seg_fused_i2", "B3": "seg_accum",
+             "B4": "tt_fwd", "B5": "tt_bwd", "B6": "seg_accum_dg0"}
+    return {**dict.fromkeys(wrappers, 0),
+            **{short[k]: v for k, v in kw.items()}}
+
+
+def clone_params(fbt, prm):
+    """A copy of the cores, the optimizer state and the cache."""
+    return fbt.TTEmbeddingParams(
+        tuple(c.clone() for c in prm.tt_cores),
+        tuple(s.clone() for s in prm.optimizer_state),
+        clone_cache(prm.cache) if prm.cache is not None else None)
+
+
+def hold_state(line, new, ref, old, tol, what):
+    """Hold the optimizer state after a step against the plain step's: an
+    integer entry (the step counter) exactly, a float one's change within
+    ``tol`` of the plain change's largest element; returns ``line``."""
+    import torch
+
+    worst = 0.0
+    for i, (s_new, s_ref, s_old) in enumerate(zip(new, ref, old)):
+        if not s_new.is_floating_point():
+            if not torch.equal(s_new, s_ref):
+                fail(f"{what}: state {i} {s_new.tolist()} differs from the "
+                     f"plain step's {s_ref.tolist()}")
+            continue
+        if not s_new.numel():
+            continue
+        upd = (s_ref - s_old).abs().max().item()
+        err = (s_new - s_ref).abs().max().item()
+        if not (torch.isfinite(s_new).all() and upd > 0
+                and err <= tol * upd):
+            fail(f"{what}: optimizer state {i} disagrees with the plain "
+                 f"step's ({err:.3e} against {upd:.3e})")
+        worst = max(worst, err / upd)
+    return line + (f"; optimizer state ({len(new)} entries) max|d - d_plain|"
+                   f" / max|d_plain| {worst:.3e} (limit {tol})")
+
+
+def hold_cosine(line, new, ref, old, what):
+    """bf16 staging: each core's update against the plain step's by their
+    cosine (>= 0.99, every value finite), the max relative error printed
+    beside it; returns ``line``."""
+    import torch
+
+    for t, (c_new, c_ref, c_old) in enumerate(zip(new.tt_cores, ref.tt_cores,
+                                                  old.tt_cores)):
+        d, d_ref = (c_new - c_old).flatten(), (c_ref - c_old).flatten()
+        cos = torch.nn.functional.cosine_similarity(d, d_ref, dim=0).item()
+        rel = ((d - d_ref).abs().max() / d_ref.abs().max()).item()
+        line += (f"; core {t} cos(dcore, dcore_plain) {cos:.5f} (limit "
+                 f"{COS_MIN}), max|dcore - dcore_plain| / max|dcore_plain| "
+                 f"{rel:.4f}")
+        if not (torch.isfinite(c_new).all() and cos >= COS_MIN):
+            fail(f"{what}: core {t} update disagrees with the plain step")
+    return line
+
+
+def native_wide_phase(fbt, card, wrappers, request, cores, cache,
+                      count_step):
+    """Phase 5c of the docstring: the native optimizers at the headline and
+    the wide-key cache on a table past 2^31 rows; returns the launches of
+    the paths ``train_native``, ``train_wide_cache``, ``serve_wide_cache``
+    and ``module_wide_cache``."""
+    import numpy as np
+    import torch
+
+    def zero_counts():
+        for fn in wrappers.values():
+            fn.launches = 0
+
+    def counts():
+        return {name: fn.launches for name, fn in wrappers.items()}
+
+    def want(**kw):
+        return want_launches(wrappers, **kw)
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(6)
+    paths = {k: dict.fromkeys(wrappers, 0) for k in (
+        "train_native", "train_wide_cache", "serve_wide_cache",
+        "module_wide_cache")}
+    plain = dict(impl="xla", precision="highest")
+    flat3 = want(B1=1, B2=1, B3=1)
+
+    def d_out(b=B):
+        return torch.as_tensor(rng.standard_normal((1, b, D)),
+                               dtype=torch.float32, device="cuda")
+
+    def stepped(path, kstep, pstep, prm, batch, expect, label):
+        """One kernel step on ``prm`` (launches checked, no plain version)
+        and the plain step on a copy of the same params: ``(out, new,
+        ref_out, ref, old)``."""
+        old = clone_params(fbt, prm)
+        zero_counts()
+        with plain_watch() as plains:
+            out, new = kstep(prm, *batch, (LR, EPS))
+            torch.cuda.synchronize()
+        got = counts()
+        for k in wrappers:
+            paths[path][k] += got[k]
+        if plains or got != expect:
+            fail(f"{label}: launches {got} (expected {expect}), plain "
+                 f"versions {plains}")
+        ref_out, ref = pstep(clone_params(fbt, old), *batch, (LR, EPS))
+        b_ = batch[1].shape[0] - 1
+        if out.shape != (1, b_, D) or not torch.isfinite(out).all():
+            fail(f"{label}: bad output {tuple(out.shape)}")
+        return out, new, ref_out, ref, old
+
+    # (a) the native optimizers at the headline, counting on (direct mode),
+    # three steps each: float32 staging at the float32 limits, bf16 staging
+    # by the cosine of the core updates
+    nbatches = [request(B, z) + (d_out(),) for z in (False, True, False)]
+    tparams = fbt.params_from_jax(cores, device="cuda")
+
+    def native_params(optim, cached=True):
+        """The headline cores, zero native state and (``cached``) an empty
+        direct-mode cache at the reference benchmark's sizes."""
+        return fbt.TTEmbeddingParams(
+            tuple(c.clone() for c in tparams.tt_cores),
+            fbt.native_optim_init(optim, tparams.tt_cores),
+            fbt.make_cache_state(E, E // 10, D, num_embeddings=E,
+                                 device="cuda") if cached else None)
+
+    def native_step(optim, **kw):
+        return fbt.make_fused_train_step(P, Q, R, 1, B, optimizer=optim,
+                                         optim_semantics="native",
+                                         device="cuda", **kw)
+
+    for name in NATIVE_OPTIMS:
+        optim = getattr(fbt.OptimType, name)
+        pstep = native_step(optim, use_cache=True, **plain)
+        for staging, extra in (("float32", dict(precision="highest")),
+                               ("bf16", {})):
+            kstep = native_step(optim, use_cache=True, **extra)
+            prm = native_params(optim)
+            for i, batch in enumerate(nbatches):
+                label = (f"native {name} {staging} B={B} pooling {POOL} "
+                         f"{'zipf1.05' if i % 2 else 'uniform'} counting "
+                         f"step {i}")
+                out, new, ref_out, ref, old = stepped(
+                    "train_native", kstep, pstep, prm, batch, flat3, label)
+                line = f"[native+wide] {label}: launches B1 1 B2 1 B3 1"
+                if staging == "float32":
+                    line = hold_step(line, out, ref_out, new, ref, old,
+                                     F32_OUT_TOL, F32_UPDATE_TOL, label,
+                                     store_ulp=True)
+                    line = hold_state(line, new.optimizer_state,
+                                      ref.optimizer_state,
+                                      old.optimizer_state, F32_UPDATE_TOL,
+                                      label)
+                else:
+                    scale = ref_out.abs().max().item()
+                    err = (out - ref_out).abs().max().item()
+                    line += (f"; output max_abs_err {err:.3e} (limit "
+                             f"{OUT_TOL} x {scale:.3e})")
+                    if not err <= OUT_TOL * scale:
+                        fail(f"{label}: output disagrees with the plain "
+                             "step")
+                    line = hold_cosine(line, new, ref, old, label)
+                if not torch.equal(new.cache.freq, ref.cache.freq):
+                    fail(f"{label}: LFU counts differ from the plain step's")
+                print(line + "; LFU counts equal the plain step's")
+                prm = new
+            if name in NATIVE_MOMENTS:
+                steps = int(prm.optimizer_state[-1])
+                if steps != len(nbatches) \
+                        or prm.optimizer_state[-1].dtype != torch.int32:
+                    fail(f"native {name}: step counter {steps}, expected "
+                         f"{len(nbatches)} (int32)")
+            del prm, new, ref, old
+
+    # native SGD and EXACT_ADAGRAD equal the reference semantics bitwise
+    for name in ("SGD", "EXACT_ADAGRAD"):
+        optim = getattr(fbt.OptimType, name)
+        runs = []
+        for semantics in ("reference", "native"):
+            prm = native_params(optim)
+            step = fbt.make_fused_train_step(
+                P, Q, R, 1, B, optimizer=optim, use_cache=True,
+                optim_semantics=semantics, device="cuda")
+            for batch in nbatches[:2]:
+                zero_counts()
+                out, prm = step(prm, *batch, (LR, EPS))
+                if semantics == "native":
+                    for k in wrappers:
+                        paths["train_native"][k] += counts()[k]
+            runs.append([out, *prm.tt_cores, *prm.optimizer_state,
+                         prm.cache.freq])
+        if not all(torch.equal(a, b_) for a, b_ in zip(*runs)):
+            fail(f"native {name}: differs from the reference semantics")
+        print(f"[native+wide] native {name}: two counting steps bitwise equal "
+              "to the reference semantics' (output, cores, state, counts)")
+        del runs, prm
+
+    # one native ADAM step on the generic kernels (B4, B5; float32) and one
+    # under FBTT_DG0=fused (B6 takes B3's i1 pass)
+    adam = fbt.OptimType.ADAM
+    batch = nbatches[1]
+    prm = native_params(adam, cached=False)
+    label = f"native ADAM impl='pallas' B={B} zipf1.05"
+    out, new, ref_out, ref, old = stepped(
+        "train_native", native_step(adam, impl="pallas"), native_step(
+            adam, **plain), prm, batch, want(B4=1, B5=1), label)
+    line = hold_step(f"[native+wide] {label}: launches B4 1 B5 1", out,
+                     ref_out, new, ref, old, F32_OUT_TOL, F32_UPDATE_TOL,
+                     label, store_ulp=True)
+    print(hold_state(line, new.optimizer_state, ref.optimizer_state,
+                     old.optimizer_state, F32_UPDATE_TOL, label))
+    with dg0_knob("fused"):
+        prm = native_params(adam, cached=False)
+        label = f"native ADAM FBTT_DG0=fused B={B} zipf1.05 bf16"
+        out, new, ref_out, ref, old = stepped(
+            "train_native", native_step(adam), native_step(adam, **plain),
+            prm, batch, want(B1=1, B2=1, B6=1), label)
+        print(hold_cosine(f"[native+wide] {label}: launches B1 1 B2 1 B6 1",
+                          new, ref, old, label))
+
+    # one native LAMB step probing the populated headline cache: the cores
+    # by LAMB, the cache rows by row-wise Adagrad ([C] state)
+    lamb = fbt.OptimType.LAMB
+    c = clone_cache(cache)
+    c.opt_state = torch.zeros(c.cache_size, device="cuda")
+    prm = fbt.TTEmbeddingParams(tuple(c_.clone() for c_ in tparams.tt_cores),
+                                fbt.native_optim_init(lamb,
+                                                      tparams.tt_cores), c)
+    zb = request(B, True) + (d_out(),)
+    hit = (fbt.cache_lookup(cache, zb[0]) >= 0).float().mean().item()
+    label = f"native LAMB B={B} zipf1.05 cached (hit rate {hit:.4f}) bf16"
+    kw = dict(use_cache=True, probe_cache=True)
+    out, new, ref_out, ref, old = stepped(
+        "train_native", native_step(lamb, **kw),
+        native_step(lamb, **kw, **plain), prm, zb, flat3, label)
+    line = hold_cosine(f"[native+wide] {label}: launches B1 1 B2 1 B3 1",
+                       new, ref, old, label)
+    print(hold_cache(line, new.cache, ref.cache, old.cache, label))
+    del prm, new, ref, old, c
+    torch.cuda.empty_cache()
+
+    # (b) the wide-key cache: p = [1300, 1300, 1300] (E past 2^31) at the
+    # headline widths, hashtbl_size 2^24, cache_size 2^20
+    wcores = fbt.init_tt_cores(np.random.default_rng(4), "uniform", 1, E_WIDE,
+                               D, P_WIDE, Q, R)
+    wparams = fbt.params_from_jax(wcores, device="cuda")
+    wparams.cache = fbt.make_cache_state(H_WIDE, C_WIDE, D, wide_keys=3,
+                                         device="cuda")
+    mb = sum(getattr(wparams.cache, f).numel() * 4 for f in (
+        "keys", "freq", "slots", "weight")) / 1e6
+    wrng = np.random.default_rng(5)
+
+    def wide_ids(n):
+        """Zipf(1.05) ranks spread over [0, E): three in four onto ids at
+        2^31 or above, the others below; id -1 at 1%."""
+        r = (wrng.zipf(1.05, size=n) - 1) % (1 << 40)
+        mixed = r * WIDE_MULT
+        ids = np.where(r % 4 != 3, 2 ** 31 + mixed % (E_WIDE - 2 ** 31),
+                       mixed % 2 ** 31)
+        ids[wrng.random(n) < 0.01] = -1
+        return ids.astype(np.int64)
+
+    def wide_batch(b=B):
+        """Wide key rows of ``wide_ids``, 1% of them pads (hi, lo) = -1
+        with parts 0 (the bucketed front-end's pad), with offsets and
+        d_output; the host rows too."""
+        n = b * POOL
+        rows = fbt.wide_keyrows(wide_ids(n), P_WIDE)
+        rows[wrng.random(n) < 0.01] = (-1, -1, 0, 0, 0)
+        return (torch.as_tensor(rows, device="cuda"),
+                torch.arange(0, n + 1, POOL, device="cuda"), d_out(b)), rows
+
+    wcount = fbt.make_fused_train_step(P_WIDE, Q, R, 1, B, use_cache=True,
+                                       device="cuda")
+    host_rows = []
+    t0 = time.perf_counter()
+    for i in range(20):
+        batch, rows = wide_batch()
+        host_rows.append(rows)
+        zero_counts()
+        with plain_watch() as plains:
+            out, wparams = wcount(wparams, *batch, (1e-4, EPS))
+            torch.cuda.synchronize()
+        got = counts()
+        for k in wrappers:
+            paths["train_wide_cache"][k] += got[k]
+        if plains or got != flat3 or not torch.isfinite(out).all():
+            fail(f"wide counting step {i}: launches {got}, plain versions "
+                 f"{plains}, finite {bool(torch.isfinite(out).all())}")
+    count_s = time.perf_counter() - t0
+    # each distinct valid id within MAX_PROBES of its hash, its key row
+    # (hi, lo, parts) and count exact; pads counted nowhere
+    allrows = np.concatenate(host_rows)
+    valid = allrows[allrows[:, 0] >= 0]
+    ids64 = (valid[:, 0].astype(np.int64) << 31) | valid[:, 1]
+    uniq, first, cnt = np.unique(ids64, return_index=True,
+                                 return_counts=True)
+    urows = valid[first]
+    if not all(np.array_equal(urows[:, 2 + t], part) for t, part in
+               enumerate(fbt.decompose_indices64(uniq, P_WIDE))):
+        fail("wide key rows: part columns differ from decompose_indices64")
+    wc = wparams.cache
+    hi = torch.as_tensor(urows[:, 0], device="cuda")
+    lo = torch.as_tensor(urows[:, 1], device="cuda")
+    h = fbt.hash_keys_wide(hi, lo, H_WIDE).long()
+    slot = torch.full_like(h, -1)
+    for j in range(3):  # MAX_PROBES
+        s_ = (h + j) % H_WIDE
+        k_ = wc.keys[s_]
+        slot = torch.where((slot < 0) & (k_[:, 0] == hi) & (k_[:, 1] == lo),
+                           s_, slot)
+    if not bool((slot >= 0).all()):
+        fail(f"wide counting: {int((slot < 0).sum())} of {len(uniq)} ids "
+             "not within MAX_PROBES of their hash")
+    if not (torch.equal(wc.keys[slot].cpu(), torch.as_tensor(urows))
+            and torch.equal(wc.freq[slot].cpu(),
+                            torch.as_tensor(cnt, dtype=torch.int32))):
+        fail("wide counting: a key row or count differs from the host's")
+    occupied = int((wc.keys[:, 0] != -1).sum())
+    total = int(wc.freq.long().sum())
+    if occupied != len(uniq) or total != len(valid):
+        fail(f"wide counting: {occupied} occupied slots for {len(uniq)} "
+             f"ids, {total} counted for {len(valid)} valid lookups")
+    print(f"[native+wide] wide cache p={P_WIDE} (E={E_WIDE}), hashtbl_size "
+          f"{H_WIDE}, cache_size {C_WIDE} ({mb:.0f} MB of keys, counts, "
+          f"slots and rows): 20 counting steps B={B} pooling {POOL} "
+          f"(launches B1 1 B2 1 B3 1 each) in {count_s:.2f} s; {len(uniq)} "
+          f"distinct ids of {len(valid)} valid lookups "
+          f"({int((ids64 >= 2 ** 31).sum())} at 2^31 or above; "
+          f"{len(allrows) - len(valid)} pads) each within MAX_PROBES of its "
+          "hash, key rows and counts equal the host's np.unique, parts "
+          "equal decompose_indices64, pads counted nowhere")
+    # determinism: one batch counted into two copies of the state
+    batch, _ = wide_batch()
+    twins = [clone_cache(wc) for _ in range(2)]
+    for tw in twins:
+        fbt.update_cache_state(tw, batch[0])
+    if not (torch.equal(twins[0].keys, twins[1].keys)
+            and torch.equal(twins[0].freq, twins[1].freq)):
+        fail("wide counting: two counts of one batch differ")
+    print("[native+wide] wide counting of one batch into two copies of the "
+          "state: keys and counts bitwise equal")
+    del twins
+    # populate: the top counts, ties lowest slot first; rows against the
+    # plain float32 tt_rows of their parts
+    masked = torch.where(wc.keys[:, 0] != -1, wc.freq,
+                         torch.full_like(wc.freq, -1)).cpu().numpy()
+    t0 = time.perf_counter()
+    pop = fbt.cache_populate(wc, wparams.tt_cores, P_WIDE, Q, R)
+    torch.cuda.synchronize()
+    pop_s = time.perf_counter() - t0
+    order = np.argsort(-masked, kind="stable")[:C_WIDE]
+    won = order[masked[order] > 0]
+    want_slots = np.full(H_WIDE, -1, np.int32)
+    want_slots[won] = np.arange(len(won), dtype=np.int32)
+    if not np.array_equal(pop.slots.cpu().numpy(), want_slots):
+        fail("wide populate: slots are not the top counts, ties lowest slot "
+             "first")
+    wslot = torch.as_tensor(won, device="cuda").long()
+    parts = [pop.keys[wslot, 2 + t] for t in range(3)]
+    with torch.no_grad():
+        want_rows = fbt.tt_rows(wparams.tt_cores, P_WIDE, Q, R, None,
+                                idx_parts=parts)
+    got_rows = pop.weight[:len(won)]
+    scale = want_rows.abs().max().item()
+    err = (got_rows - want_rows).abs().max().item()
+    if not (err <= 1e-6 * scale and not pop.weight[len(won):].any()):
+        fail(f"wide populate: rows disagree with tt_rows ({err:.3e})")
+    print(f"[native+wide] wide cache_populate: {len(won)} rows cached in "
+          f"{pop_s:.2f} s, slots the top counts (ties lowest slot first); "
+          f"rows max_abs_err {err:.3e} against the plain float32 tt_rows of "
+          f"their parts (limit 1e-6 x {scale:.3e})")
+    wparams.cache = pop
+    del wc
+
+    # cached steps, SGD and EXACT_ROWWISE_ADAGRAD, against the plain step
+    zb, _ = wide_batch()
+    hit = (fbt.cache_lookup(pop, zb[0]) >= 0).float().mean().item()
+    kw = dict(use_cache=True, probe_cache=True)
+    for name in ("SGD", "EXACT_ROWWISE_ADAGRAD"):
+        optim = getattr(fbt.OptimType, name)
+        c = clone_cache(pop)
+        if name != "SGD":
+            c.opt_state = torch.zeros(C_WIDE, device="cuda")
+        state = (tuple(torch.zeros_like(c_) for c_ in wparams.tt_cores)
+                 if name != "SGD" else ())
+        prm = fbt.TTEmbeddingParams(
+            tuple(c_.clone() for c_ in wparams.tt_cores), state, c)
+        label = (f"wide {name} B={B} pooling {POOL} cached step (hit rate "
+                 f"{hit:.4f})")
+        out, new, ref_out, ref, old = stepped(
+            "train_wide_cache",
+            fbt.make_fused_train_step(P_WIDE, Q, R, 1, B, optimizer=optim,
+                                      device="cuda", **kw),
+            fbt.make_fused_train_step(P_WIDE, Q, R, 1, B, optimizer=optim,
+                                      device="cuda", **kw, **plain),
+            prm, zb, flat3, label)
+        line = hold_step(f"[native+wide] {label}: launches B1 1 B2 1 B3 1",
+                         out, ref_out, new, ref, old, OUT_TOL, UPDATE_TOL,
+                         label)
+        print(hold_cache(line, new.cache, ref.cache, old.cache, label))
+        del prm, new, ref, old, c
+    torch.cuda.empty_cache()
+
+    # serves probing the wide cache: make_serving_fn and the bf16 fold
+    sprm = fbt.TTEmbeddingParams(wparams.tt_cores, (), pop)
+    (sidx, soffs, _), _ = wide_batch()
+    ref = fbt.make_serving_fn(P_WIDE, Q, R, 1, B, impl="xla",
+                              device="cuda")(sprm, sidx, soffs)
+    scale = ref.abs().max().item()
+    hit = (fbt.cache_lookup(pop, sidx) >= 0).float().mean().item()
+    fold, fserve = fbt.make_folded_serving_fn(P_WIDE, Q, R, 1, B,
+                                              device="cuda")
+    fp = fold(sprm)
+    pair = fp.setup is not None and fp.setup[1] is not None
+    pair_mb = (P_WIDE[0] * P_WIDE[1] + 1) * Q[0] * Q[1] * R[2] * 2 / 1e6
+    mode = ("flat mode with the pair table" if pair else
+            f"flat mode without the pair table ({pair_mb:.0f} MB in bf16, "
+            "past the 96 MiB limit)")
+    serves = [("make_serving_fn", fbt.make_serving_fn(
+        P_WIDE, Q, R, 1, B, device="cuda"), sprm, want(B1=2)),
+        (f"folded bf16, {mode}", fserve, fp, want(B1=1 if pair else 2))]
+    for label, fn, arg, expect in serves:
+        zero_counts()
+        with plain_watch() as plains:
+            out = fn(arg, sidx, soffs)
+            torch.cuda.synchronize()
+        got = counts()
+        for k in wrappers:
+            paths["serve_wide_cache"][k] += got[k]
+        err = (out - ref).abs().max().item()
+        print(f"[native+wide] wide serve {label} B={B} pooling {POOL} (hit "
+              f"rate {hit:.4f}): launches {launch_text(got)}; max_abs_err "
+              f"{err:.3e} vs the plain float32 serve, limit "
+              f"{OUT_TOL * scale:.3e} ({OUT_TOL} x max|out| {scale:.3e})")
+        if plains or got != expect or not err <= OUT_TOL * scale:
+            fail(f"wide serve {label}: launches {got} (expected {expect}), "
+                 f"plain versions {plains}, or disagrees with the plain "
+                 "serve")
+    del fp, fold, fserve
+
+    # the module at this table with use_cache: four calls, populate, one
+    # probed call, each held against a plain module loaded with its state
+    mkw = dict(tt_p_shapes=P_WIDE, tt_q_shapes=Q, seed=0, learning_rate=LR,
+               eps=EPS, use_cache=True, cache_size=C_WIDE,
+               hashtbl_size=H_WIDE, device="cuda")
+    mod = fbt.TTEmbeddingBag(E_WIDE, D, R[1:-1], **mkw)
+    mref = fbt.TTEmbeddingBag(E_WIDE, D, R[1:-1], **mkw, **plain)
+
+    def mbatch():
+        n = B * POOL
+        return (wide_ids(n), np.arange(0, n + 1, POOL), d_out()[0])
+
+    for i in range(5):
+        if i == 4:
+            mod.cache_populate()
+        module_call(fbt, wrappers, paths["module_wide_cache"], mod, mref,
+                    mbatch(), want(B1=2), want(B3=2),
+                    f"wide TTEmbeddingBag SGD B={B} pooling {POOL} "
+                    + ("probed call" if i == 4 else f"warm-up call {i}"),
+                    tag="native+wide")
+    hit = mod.cache_hit_rate()
+    print(f"[native+wide] wide module: cache_hit_rate() {hit:.4f} on the "
+          f"probed call, {int((mod.cache.slots >= 0).sum())} rows cached")
+    del mod, mref
+    torch.cuda.empty_cache()
+
+    # times, in turns: the reference SGD counting step, native ADAM and
+    # LAMB counting steps; the direct-mode and the wide counting steps
+    scratch = {
+        "reference SGD": (count_step, fbt.TTEmbeddingParams(
+            tuple(c.clone() for c in tparams.tt_cores), (),
+            fbt.make_cache_state(E, E // 10, D, num_embeddings=E,
+                                 device="cuda")), nbatches[0])}
+    for name in ("ADAM", "LAMB"):
+        optim = getattr(fbt.OptimType, name)
+        scratch[f"native {name}"] = (native_step(optim, use_cache=True),
+                                     native_params(optim), nbatches[0])
+    wbatch, _ = wide_batch()
+    scratch["wide counting SGD"] = (wcount, wparams, wbatch)
+    for group in (("reference SGD", "native ADAM", "native LAMB"),
+                  ("reference SGD", "wide counting SGD")):
+        got = {k: [] for k in group}
+        for name in group + group[::-1]:
+            step, prm, batch = scratch[name]
+
+            def call():
+                step(prm, *batch, (1e-4, EPS))
+
+            dev, _, mhz = device_ms(call)
+            got[name].append((dev, device_ms.ops, host_ms(call), mhz))
+        for name, rs in got.items():
+            print(f"[time] {name} counting step B={B} pooling {POOL}: "
+                  + " / ".join(f"device {d:.4f} ms, host {h:.3f} ms, "
+                               f"{o:.1f} device ops" for d, o, h, _ in rs)
+                  + f" per step ({mhz_text(rs[-1][3])}) [{card}]")
+    print(f"[native+wide] phase took {time.perf_counter() - t_phase:.1f} s; "
+          + "; ".join(f"{k} {launch_text(v)}" for k, v in paths.items()))
+    return paths
 
 
 def check_close(name, got, want, tol):
@@ -2090,6 +2668,10 @@ def main():
     # 5b. the modules at full width
     module_launches = module_phase(fbt, card, wrappers, request, count_step)
 
+    # 5c. the native optimizers and the wide-key cache
+    nw_launches = native_wide_phase(fbt, card, wrappers, request, cores,
+                                    cache, count_step)
+
     # 6. times. B1 on the inputs the B=512 uniform and Zipf(1.05) serves
     # hand it, beside one torch._grouped_mm call on the same inputs; the
     # uniform one's times go into the kernels' line
@@ -2406,7 +2988,8 @@ def main():
                                gserve_launches, gtrain_launches,
                                cserve_launches, ctrain_launches,
                                dtrain_launches, module_launches,
-                               folded_launches, int8_launches)))
+                               folded_launches, int8_launches,
+                               *nw_launches.values())))
     kernels = []
     for name, rows in times.items():
         src, replaces = KERNELS[name]

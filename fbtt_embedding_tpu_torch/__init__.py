@@ -5,15 +5,18 @@ PyTorch with hand-written CUDA kernels for Hopper. It imports neither JAX
 nor the JAX package. Entry points run on ``cuda`` unless the caller passes
 ``device="cpu"``; on the CPU each kernel's plain PyTorch version runs.
 
-Ported so far: the serving path (``make_serving_fn``) and the fused
-training step (``make_fused_train_step``, SGD / Adagrad) through the flat
+Ported: the serving path (``make_serving_fn``) and the fused training
+step (``make_fused_train_step``: the reference's SGD / Adagrad, or with
+``optim_semantics="native"`` every optimizer's own update,
+``native_optim_init`` / ``native_optim_step``) through the flat
 sorted-run pipeline and its kernels: the segment transform (B1), the fused
 last-core training pass (B2), the gradient pass (B3) and, with
 ``FBTT_DG0=fused``, the gradient pass with the first core's gradient folded
 in (B6); with ``impl="pallas"`` the same entry points run the generic
 per-lookup kernels (B4 forward, B5 backward). Both entries take the LFU
 cache (``ops.cache``: counting, populate, probing, the cached rows'
-updates; direct and hashed int32 keys). The modules
+updates; direct and hashed int32 keys, and the wide int64-key layout for
+tables of 2^31 rows or more, keyed by ``wide_keyrows``). The modules
 ``TableBatchedTTEmbeddingBag`` and ``TTEmbeddingBag`` (``torch.nn.Module``:
 ``out = emb(indices, offsets)``, then ``emb.backward(d_out)``,
 ``emb.cache_populate()``, ...) run on the same kernels. Frozen-weight
@@ -43,6 +46,8 @@ from fbtt_embedding_tpu_torch.models.tt_embedding import (
 )
 from fbtt_embedding_tpu_torch.ops.cache import (
     CacheState,
+    hash_keys_wide,
+    wide_cache_keys,
     cache_backward_adagrad,
     cache_backward_dense,
     cache_backward_rowwise_adagrad_approx,
@@ -70,7 +75,10 @@ from fbtt_embedding_tpu_torch.ops.indexing import (
     wide_keyrows,
 )
 from fbtt_embedding_tpu_torch.ops.fused_optim import (
+    NATIVE_HPARAM_DEFAULTS,
     adagrad_step,
+    native_optim_init,
+    native_optim_step,
     sgd_step,
     tt_adagrad_backward,
     tt_sgd_backward,
@@ -121,6 +129,7 @@ from fbtt_embedding_tpu_torch.utils.shapes import suggested_tt_shapes
 
 __all__ = [
     "CacheState",
+    "NATIVE_HPARAM_DEFAULTS",
     "FlatLookup",
     "FoldedServingParams",
     "GenericLookup",
@@ -142,12 +151,15 @@ __all__ = [
     "flat_train_apply",
     "generic_available",
     "hash_keys",
+    "hash_keys_wide",
     "init_tt_cores",
     "make_bucketed_serving_fn",
     "make_cache_state",
     "make_folded_serving_fn",
     "make_fused_train_step",
     "make_serving_fn",
+    "native_optim_init",
+    "native_optim_step",
     "params_from_jax",
     "params_from_state_dict",
     "pool_rows",
@@ -187,5 +199,6 @@ __all__ = [
     "tt_strides",
     "update_cache_state",
     "validate_tt_shapes",
+    "wide_cache_keys",
     "wide_keyrows",
 ]

@@ -3,7 +3,9 @@
 Counterpart of the functional entries of ``fbtt_embedding_tpu.models.
 tt_embedding``: ``make_serving_fn`` builds a forward-only pooled lookup and
 ``make_fused_train_step`` the one-call training step (forward, backward
-and the fused SGD / Adagrad update) over parameters held in
+and the fused update: the reference's SGD / Adagrad, or with
+``optim_semantics="native"`` each optimizer's own math) over parameters
+held in
 :class:`TTEmbeddingParams`. Both take the flat sorted-run pipeline by
 default and the generic per-lookup kernels (B4 forward, B5 backward) with
 ``impl="pallas"``. With a :class:`~fbtt_embedding_tpu_torch.ops.cache.
@@ -18,7 +20,8 @@ updates through the stateful forward / ``backward(d_output)`` flow, and
 once (the pair table on kernel B1; an int8 option), with
 :func:`refold_cache`, the bucketed front-end
 :func:`make_bucketed_serving_fn` and the modules' ``freeze_for_serving``.
-The native optimizers and the wide-key (int64) cache are not ported yet.
+Tables of 2^31 rows or more take wide key rows, and their cache the
+wide-key (int64 row id) layout.
 """
 
 from __future__ import annotations
@@ -39,11 +42,17 @@ from fbtt_embedding_tpu_torch.ops.contraction import (
     tt_rows,
     validate_tt_shapes,
 )
-from fbtt_embedding_tpu_torch.ops.fused_optim import adagrad_step, sgd_step
+from fbtt_embedding_tpu_torch.ops.fused_optim import (
+    adagrad_step,
+    native_optim_init,
+    native_optim_step,
+    sgd_step,
+)
 from fbtt_embedding_tpu_torch.ops.indexing import (
     decompose_indices64,
     rowidx_from_offsets,
     split_wide_keyrows,
+    wide_keyrows,
 )
 from fbtt_embedding_tpu_torch.ops.kernels import tt_flat
 from fbtt_embedding_tpu_torch.ops.kernels.tt_flat import (
@@ -71,9 +80,13 @@ logger = logging.getLogger(__name__)
 class OptimType(Enum):
     """Optimizer names (reference ``tt_embeddings_ops.py:18-33``).
 
-    As in the reference, only two behaviours exist: SGD/EXACT_SGD run the
-    fused SGD update, everything else the fused full-element Adagrad. All
-    updates are deterministic, so SGD == EXACT_SGD."""
+    Under the default ``optim_semantics="reference"`` only two behaviours
+    exist, as in the reference: SGD/EXACT_SGD run the fused SGD update,
+    everything else the fused full-element Adagrad. Under ``"native"`` each
+    name runs its own update (``ops.fused_optim.native_optim_step``:
+    row-wise Adagrad, Adam, LAMB, their partial row-wise forms, LARS), and
+    SGD and EXACT_ADAGRAD the same updates as the reference's. All updates
+    are deterministic, so SGD == EXACT_SGD."""
 
     SGD = "sgd"
     EXACT_SGD = "exact_sgd"
@@ -115,8 +128,9 @@ def params_from_jax(tt_cores_np: Sequence, optimizer_state_np: Sequence = (),
     too), -> this package's :class:`TTEmbeddingParams` on ``device``, every
     tensor a copy. ``cache``: the JAX ``CacheState``, or any object or
     mapping with its five fields (``keys``, ``freq``, ``slots``,
-    ``weight``, ``opt_state``) as arrays; the wide-key layout raises
-    NotImplementedError."""
+    ``weight``, ``opt_state``) as arrays, in any layout (direct, hashed or
+    wide). Each tensor keeps its dtype: the native optimizers' 0-d int32
+    step counter stays one."""
     def put(a):  # a copy: the params never alias the caller's arrays
         if isinstance(a, torch.Tensor):
             return a.detach().to(device, copy=True)
@@ -128,9 +142,6 @@ def params_from_jax(tt_cores_np: Sequence, optimizer_state_np: Sequence = (),
         get = cache.__getitem__ if isinstance(cache, dict) else \
             lambda f: getattr(cache, f)
         cstate = CacheState(*(put(get(f)) for f in _CACHE_FIELDS))
-        if cstate.wide:
-            raise NotImplementedError(
-                "the wide-key (int64 row id) cache is not ported yet")
     return TTEmbeddingParams(cores, tuple(put(s) for s in optimizer_state_np),
                              cstate)
 
@@ -161,21 +172,12 @@ def params_from_state_dict(state: dict, tt_ndim: int, with_cache: bool,
     return params_from_jax(cores, opt_state, device=device, cache=cache)
 
 
-def _reference_semantics(optim_semantics: str) -> None:
-    """Only the reference's optimizer semantics are ported: "native"
-    raises NotImplementedError, any other name ValueError."""
+def _native_semantics(optim_semantics: str) -> bool:
+    """Whether ``optim_semantics`` is "native"; a name other than
+    "reference" or "native" raises ValueError."""
     if optim_semantics not in ("reference", "native"):
         raise ValueError(f"unknown optim_semantics {optim_semantics!r}")
-    if optim_semantics == "native":
-        raise NotImplementedError(
-            "optim_semantics='native' is not ported yet")
-
-
-def _no_wide_cache(cache, wide: bool):
-    if cache is not None and wide:
-        raise NotImplementedError(
-            "the wide-key (int64 row id) cache is not ported yet: a cache "
-            "takes flat row ids")
+    return optim_semantics == "native"
 
 
 def _pool_cached_rows(cached_rows, rowidx, tableidx, num_tables, bs):
@@ -238,8 +240,11 @@ def make_serving_fn(
 
     ``probe_cache`` with a cache in the params: lookups the cache holds are
     served from its rows; on the flat pipeline they are dead lookups the
-    kernels skip, on the other paths they get weight 0. A cache with wide
-    (int64) key rows is not ported and raises NotImplementedError."""
+    kernels skip, on the other paths they get weight 0. Wide key rows
+    probe a wide-key cache (``make_cache_state(..., wide_keys=ndim)``) by
+    their ``(hi, lo)`` columns and feed their part columns to the lookup;
+    flat ids against a wide cache, or wide rows against another, raise
+    ValueError."""
     shapes = (tuple(tt_p_shapes), tuple(tt_q_shapes), tuple(tt_ranks))
     ndim = len(tt_p_shapes)
     device = torch.device(device)
@@ -248,20 +253,19 @@ def make_serving_fn(
               bs: int = batch_size):
         cache = params.cache if probe_cache else None
         indices = torch.as_tensor(indices, device=device)
-        _no_wide_cache(cache, indices.dim() == 2)
         offsets = torch.as_tensor(offsets, device=device)
         if weights is not None:
             weights = torch.as_tensor(weights, device=device,
                                       dtype=torch.float32)
-        parts = None
+        parts, keys = None, indices
         if indices.dim() == 2:
-            parts, _, nnz = split_wide_keyrows(indices, ndim)
+            parts, keys, nnz = split_wide_keyrows(indices, ndim)
             indices = None
         else:
             nnz = indices.shape[0]
         rowidx, tableidx = rowidx_from_offsets(offsets, nnz, num_tables, bs)
         tbl = tableidx if num_tables > 1 else None
-        locations = (cache_ops.cache_lookup(cache, indices)
+        locations = (cache_ops.cache_lookup(cache, keys)
                      if cache is not None else None)
         dead, w_p = None, weights
         if locations is not None:
@@ -436,8 +440,7 @@ def make_folded_serving_fn(
         if (num_tables * b_eff) % 8 != 0:
             b_eff = -(-b_eff // 8) * 8
         cache = fp.cache if probe_cache else None
-        indices, parts, nnz = _lookup_inputs(indices, len(p), device)
-        _no_wide_cache(cache, parts is not None)
+        indices, parts, nnz, keys = _lookup_inputs(indices, len(p), device)
         offsets = torch.as_tensor(offsets, device=device)
         if weights is not None:
             weights = torch.as_tensor(weights, device=device,
@@ -445,7 +448,7 @@ def make_folded_serving_fn(
         rowidx, tableidx = rowidx_from_offsets(offsets, nnz, num_tables,
                                                bcall)
         tbl = tableidx if num_tables > 1 else None
-        locations = (cache_ops.cache_lookup(cache, indices)
+        locations = (cache_ops.cache_lookup(cache, keys)
                      if cache is not None else None)
         dead = locations >= 0 if locations is not None else None
         plan, nza = tt_flat._build_plan(
@@ -575,17 +578,19 @@ def make_bucketed_serving_fn(
 
 
 def _lookup_inputs(indices, ndim: int, device):
-    """``(indices or None, idx_parts or None, nnz)`` from flat row ids, a
-    tuple of per-core parts, or wide key rows ``int32 [nnz, 2 + ndim]``."""
+    """``(indices or None, idx_parts or None, nnz, cache keys or None)`` from
+    flat row ids (their own cache keys), a tuple of per-core parts (no
+    cache keys), or wide key rows ``int32 [nnz, 2 + ndim]`` (the rows are
+    the cache keys, their part columns the lookup's)."""
     if isinstance(indices, (tuple, list)):
         parts = tuple(torch.as_tensor(p_, device=device).to(torch.int32)
                       for p_ in indices)
-        return None, parts, parts[0].shape[0]
+        return None, parts, parts[0].shape[0], None
     indices = torch.as_tensor(indices, device=device)
     if indices.dim() == 2:
-        parts, _, nnz = split_wide_keyrows(indices, ndim)
-        return None, parts, nnz
-    return indices, None, indices.shape[0]
+        parts, keys, nnz = split_wide_keyrows(indices, ndim)
+        return None, parts, nnz, keys
+    return indices, None, indices.shape[0], indices
 
 
 def make_fused_train_step(
@@ -607,8 +612,13 @@ def make_fused_train_step(
     """Build the training step ``step(params, indices, offsets, d_output,
     lr_eps, weights=None, *, bs=batch_size, count=True) -> (output,
     new_params)``: the pooled forward ``[T, bs, D]`` (float32), its
-    backward for the given ``d_output`` and the fused SGD (``OptimType.SGD``,
-    ``EXACT_SGD``) or full-element Adagrad (every other name) update.
+    backward for the given ``d_output`` and the fused update of the cores:
+    under ``optim_semantics="reference"`` (the default) SGD
+    (``OptimType.SGD``, ``EXACT_SGD``) or full-element Adagrad (every other
+    name), under ``"native"`` each optimizer's own update
+    (``ops.fused_optim.native_optim_step``; ``params.optimizer_state`` from
+    ``native_optim_init``; ``optim_hparams`` overrides
+    ``NATIVE_HPARAM_DEFAULTS``).
 
     ``indices`` is ``[nnz]`` row ids, a tuple of per-core index parts, or
     wide key rows ``int32 [nnz, 2 + ndim]``; ``offsets`` has ``T*bs + 1``
@@ -627,29 +637,28 @@ def make_fused_train_step(
     ``precision="highest"`` stages the flat path in float32 on the card
     (bfloat16 by default).
 
-    The LFU cache (``params.cache``, single table, flat row ids): with
+    The LFU cache (``params.cache``, single table; flat row ids, or wide
+    key rows with a wide-key cache, whose ``(hi, lo)`` columns key it): with
     ``use_cache`` each step with ``count`` (the default) adds
     ``count_interval`` to every looked-up row's count (call with ``count=
     (step % count_interval == 0)`` for sampled counting); with
     ``probe_cache`` the lookups the cache holds are served from its rows
-    and updated there, by the optimizer's family (SGD; ``EXACT_ADAGRAD``
-    with full ``[C, D]`` state; every other name row-wise Adagrad with
-    ``[C]`` state), while the TT path skips them: dead lookups on the flat
-    pipeline, packed after ``live_count`` with ``impl="pallas"``, weight 0
-    with ``impl="xla"``. A tuple of index parts with ``use_cache`` or
-    ``probe_cache`` raises ValueError; the wide-key (int64) cache is not
-    ported and raises NotImplementedError.
+    and updated there, by the optimizer's family under either semantics
+    (SGD; ``EXACT_ADAGRAD`` with full ``[C, D]`` state; every other name
+    row-wise Adagrad with ``[C]`` state), while the TT path skips them:
+    dead lookups on the flat pipeline, packed after ``live_count`` with
+    ``impl="pallas"`` (flat row ids), weight 0 otherwise. A tuple of index
+    parts with ``use_cache`` or ``probe_cache`` raises ValueError, as does
+    a key layout the cache does not take (flat ids and a wide cache, wide
+    rows and another).
 
     The update is made **in place**: ``params.tt_cores``,
-    ``params.optimizer_state`` (Adagrad: one zero-initialised tensor per
-    core) and the cache's tensors are overwritten and returned in
-    ``new_params``, as the JAX step donates them. Copy the params first to
-    keep them.
-
-    Not ported yet, and raising NotImplementedError:
-    ``optim_semantics="native"``."""
-    _reference_semantics(optim_semantics)
-    del optim_hparams
+    ``params.optimizer_state`` (reference Adagrad: one zero-initialised
+    tensor per core; native: the step counter too) and the cache's tensors
+    are overwritten and returned in ``new_params``, as the JAX step donates
+    them. Copy the params first to keep them."""
+    native = _native_semantics(optim_semantics)
+    hparams = dict(optim_hparams) if optim_hparams else None
     ranks = validate_tt_shapes(tt_p_shapes, tt_q_shapes, tt_ranks)
     shapes = (tuple(tt_p_shapes), tuple(tt_q_shapes), tuple(ranks))
     ndim = len(tt_p_shapes)
@@ -664,9 +673,7 @@ def make_fused_train_step(
         cache = params.cache
         lr, eps = (v if isinstance(v, torch.Tensor) else float(v)
                    for v in lr_eps)
-        indices, parts, nnz = _lookup_inputs(indices, ndim, device)
-        if use_cache or probe_cache:
-            _no_wide_cache(cache, parts is not None)
+        indices, parts, nnz, keys = _lookup_inputs(indices, ndim, device)
         offsets = torch.as_tensor(offsets, device=device)
         d_output = torch.as_tensor(d_output, device=device,
                                    dtype=torch.float32)
@@ -675,7 +682,7 @@ def make_fused_train_step(
                                       dtype=torch.float32)
         rowidx, tableidx = rowidx_from_offsets(offsets, nnz, num_tables, bs)
         tbl = tableidx if num_tables > 1 else None
-        locations = _count_and_probe(cache, indices, use_cache and count,
+        locations = _count_and_probe(cache, keys, use_cache and count,
                                      probe_cache, count_interval)
         indices_p, rowidx_p, tbl_p, w_p, dead, live = _tt_path_inputs(
             locations, impl, shapes, num_tables, bs, indices, parts, rowidx,
@@ -703,7 +710,7 @@ def make_fused_train_step(
                               num_tables, bs)
         new_cores, new_opt = _update_cores(optimizer, cores,
                                            params.optimizer_state, grads, lr,
-                                           eps)
+                                           eps, native, hparams)
         if locations is not None:
             _update_cache_rows(optimizer, cache, d_output, locations, rowidx,
                                lr, eps, weights)
@@ -735,15 +742,16 @@ def _live_first(locations, indices, rowidx, tbl, weights):
             packed(_masked_weights(alive, weights)), live_count.reshape(1))
 
 
-def _count_and_probe(cache: Optional[CacheState], indices, count: bool,
+def _count_and_probe(cache: Optional[CacheState], keys, count: bool,
                      probe: bool, scale: int):
-    """LFU counting where ``count`` (in place; each id adds ``scale``), then
-    each lookup's cache row (-1 = not cached) where ``probe``, else None."""
+    """LFU counting of ``keys`` (flat row ids, or wide key rows for a wide
+    cache) where ``count`` (in place; each id adds ``scale``), then each
+    lookup's cache row (-1 = not cached) where ``probe``, else None."""
     if cache is None:
         return None
     if count:
-        cache_ops.update_cache_state(cache, indices, scale=scale)
-    return cache_ops.cache_lookup(cache, indices) if probe else None
+        cache_ops.update_cache_state(cache, keys, scale=scale)
+    return cache_ops.cache_lookup(cache, keys) if probe else None
 
 
 def _tt_path_inputs(locations, impl: str, shapes, num_tables: int, bs: int,
@@ -768,9 +776,13 @@ def _tt_path_inputs(locations, impl: str, shapes, num_tables: int, bs: int,
 
 
 def _update_cores(optimizer: OptimType, cores, optimizer_state, grads, lr,
-                  eps):
-    """The fused update of the cores, in place: SGD for the SGD family,
-    full-element Adagrad for every other name; ``(cores, state)``."""
+                  eps, native: bool = False, hparams: Optional[dict] = None):
+    """The fused update of the cores, in place; ``(cores, state)``. The
+    reference semantics: SGD for the SGD family, full-element Adagrad for
+    every other name; ``native``: ``native_optim_step``."""
+    if native:
+        return native_optim_step(optimizer, cores, optimizer_state, grads,
+                                 lr, eps, hparams=hparams)
     if optimizer in _SGD_OPTIMS:
         return sgd_step(cores, grads, lr), tuple(optimizer_state)
     return adagrad_step(cores, optimizer_state, grads, lr, eps)
@@ -779,8 +791,9 @@ def _update_cores(optimizer: OptimType, cores, optimizer_state, grads, lr,
 def _update_cache_rows(optimizer: OptimType, cache: CacheState, d_output,
                        locations, rowidx, lr, eps, weights):
     """The cache-served lookups' rows, in place, by the reference's update
-    families: SGD for the SGD family, full-element Adagrad (``[C, D]``
-    state) for ``EXACT_ADAGRAD``, row-wise Adagrad (``[C]``) otherwise."""
+    families under either semantics: SGD for the SGD family, full-element
+    Adagrad (``[C, D]`` state) for ``EXACT_ADAGRAD``, row-wise Adagrad
+    (``[C]``) otherwise."""
     if optimizer in _SGD_OPTIMS:
         cache_ops.cache_backward_sgd(cache, d_output, locations, rowidx, lr,
                                      weights=weights)
@@ -882,9 +895,14 @@ class TableBatchedTTEmbeddingBag(nn.Module):
     ``tt_cores``, an ``nn.ParameterList`` of ``[T, p_t, r_t q_t r_{t+1}]``
     float32 tensors drawn from ``np.random.default_rng(seed)`` (the JAX
     module's cores, bit for bit); ``state_dict()`` holds ``tt_cores.{i}``,
-    ``optimizer_state.{i}`` (empty for the SGD family, else one
-    zero-initialised tensor per core) and, with ``use_cache``, ``cache.
-    keys|freq|slots|weight|opt_state``: the JAX module's names.
+    ``optimizer_state.{i}`` (reference semantics: empty for the SGD family,
+    else one zero-initialised tensor per core; ``optim_semantics=
+    "native"``: ``native_optim_init``'s layout, ``2n + 1`` entries for the
+    Adam family with the 0-d int32 step counter last) and, with
+    ``use_cache``, ``cache.keys|freq|slots|weight|opt_state``: the JAX
+    module's names. Native mode updates the cores by each optimizer's own
+    math (``optim_hparams`` overrides ``NATIVE_HPARAM_DEFAULTS``); the
+    cache rows keep the reference's update family.
 
     Use: ``out = m(indices, offsets)`` then ``m.backward(d_out)``. Sparse
     mode applies the fused update in place; dense mode (``sparse=False``)
@@ -896,9 +914,11 @@ class TableBatchedTTEmbeddingBag(nn.Module):
     The output is detached; where the forward ran without grad mode, or
     the cores changed since, ``backward`` runs the lookup again.
 
-    Not ported, raising NotImplementedError: ``optim_semantics="native"``
-    and ``use_cache`` on a table of 2^31 rows or more (the wide-key
-    cache)."""
+    A table of 2^31 rows or more (``prod(tt_p_shapes)`` past int32) takes
+    int64 row ids, decomposed on the host; with ``use_cache`` its cache is
+    the wide-key layout, ``cache_size`` and ``hashtbl_size`` must be given,
+    and one host pass (``wide_keyrows``) makes both the cache's key rows and
+    the lookup's parts."""
 
     def __init__(
         self,
@@ -931,8 +951,7 @@ class TableBatchedTTEmbeddingBag(nn.Module):
         assert embedding_dim > 0
         assert num_tables == 1 or not use_cache, (
             "cannot use cache when num_tables != 1")
-        _reference_semantics(optim_semantics)
-        del optim_hparams
+        native = _native_semantics(optim_semantics)
         self.tt_p_shapes: List[int] = (
             suggested_tt_shapes(num_embeddings, len(tt_ranks) + 1)
             if tt_p_shapes is None else list(tt_p_shapes))
@@ -954,10 +973,15 @@ class TableBatchedTTEmbeddingBag(nn.Module):
         self._big_e = (int(np.prod(self.tt_p_shapes))
                        > np.iinfo(np.int32).max)
         if use_cache and self._big_e:
-            raise NotImplementedError(
-                "use_cache on a table of 2**31 rows or more needs the "
-                "wide-key (int64 row id) cache, which is not ported yet")
+            # the E-row table and 0.1 E cache of the default sizing do not
+            # fit at E >= 2^31: both sizes must be explicit
+            assert cache_size > 0 and hashtbl_size > 0, (
+                "use_cache with num_embeddings >= 2**31 requires explicit "
+                "cache_size and hashtbl_size (the 0.1*E / E defaults do "
+                "not fit)")
         self.optimizer = optimizer
+        self.optim_semantics = optim_semantics
+        self.optim_hparams = dict(optim_hparams) if optim_hparams else None
         self.learning_rate = float(learning_rate)
         self.eps = float(eps)
         self.sparse = sparse
@@ -978,7 +1002,9 @@ class TableBatchedTTEmbeddingBag(nn.Module):
         self.tt_cores = nn.ParameterList(
             nn.Parameter(torch.tensor(np.asarray(c, np.float32),
                                       device=device)) for c in cores_np)
-        if optimizer in _SGD_OPTIMS:
+        if native:
+            state = list(native_optim_init(optimizer, self.tt_cores))
+        elif optimizer in _SGD_OPTIMS:
             state = [torch.zeros((0,), dtype=torch.float32, device=device)
                      for _ in range(self.tt_ndim)]
         else:
@@ -1001,7 +1027,9 @@ class TableBatchedTTEmbeddingBag(nn.Module):
                 kind = "none"
             self.cache = _CacheBuffers(cache_ops.make_cache_state(
                 hashtbl_size, cache_size, embedding_dim, kind,
-                num_embeddings=num_embeddings, device=device))
+                num_embeddings=None if self._big_e else num_embeddings,
+                wide_keys=self.tt_ndim if self._big_e else 0,
+                device=device))
         self.warmup = True
         # rows decompressed at a time by cache_populate (None: the
         # library's default)
@@ -1030,7 +1058,8 @@ class TableBatchedTTEmbeddingBag(nn.Module):
 
     def load_params(self, params: TTEmbeddingParams) -> None:
         """Copy ``params`` into the module: the cores into its parameters,
-        the optimizer state and the cache as copies on its device."""
+        the optimizer state and the cache as copies on its device, each
+        keeping its dtype (the native step counter stays int32)."""
         dev = self._device()
         with torch.no_grad():
             for c, new in zip(self.tt_cores, params.tt_cores):
@@ -1063,8 +1092,8 @@ class TableBatchedTTEmbeddingBag(nn.Module):
         """Load a trained dense ``[E, D]`` table (numpy or a tensor) into
         table ``table``'s cores by TT-SVD (:func:`~fbtt_embedding_tpu_torch.
         utils.decompose.tt_decompose`, on the host). Resets that table's
-        optimizer-state slice; a cache past warm-up is populated again from
-        the new cores."""
+        optimizer-state slice (a native step counter, 0-d, is left as it
+        is); a cache past warm-up is populated again from the new cores."""
         cores = tt_decompose(weight, self.tt_p_shapes, self.tt_q_shapes,
                              self.tt_ranks)
         assert 0 <= table < self.num_tables, (table, self.num_tables)
@@ -1072,7 +1101,8 @@ class TableBatchedTTEmbeddingBag(nn.Module):
             for c, new in zip(self.tt_cores, cores):
                 c[table].copy_(torch.as_tensor(new))
             for s in self.optimizer_state:
-                if s.dim() and s.numel():  # the SGD family's are empty
+                # the SGD family's are empty, a native step counter 0-d
+                if s.dim() and s.numel():
                     s[table].zero_()
         if self.cache is not None and not self.warmup:
             self.cache_populate()
@@ -1129,11 +1159,17 @@ class TableBatchedTTEmbeddingBag(nn.Module):
             cache_ops.reset_cache(self.cache.state())
 
     def update_cache(self, indices) -> None:
-        """Count ``indices`` into the LFU table (in place)."""
+        """Count ``indices`` into the LFU table (in place); on a table of
+        2^31 rows or more, as wide key rows made on the host."""
         if self.use_cache and self.cache is not None:
-            cache_ops.update_cache_state(
-                self.cache.state(),
-                torch.as_tensor(indices, device=self._device()).reshape(-1))
+            if self._big_e:
+                keys = torch.as_tensor(wide_keyrows(_host_ids(indices),
+                                                    self.tt_p_shapes),
+                                       device=self._device())
+            else:
+                keys = torch.as_tensor(indices,
+                                       device=self._device()).reshape(-1)
+            cache_ops.update_cache_state(self.cache.state(), keys)
 
     def cache_populate(self) -> None:
         """Keep the most counted rows, decompressed from the cores
@@ -1164,20 +1200,28 @@ class TableBatchedTTEmbeddingBag(nn.Module):
         the ids (every ``cache_count_interval``-th call, each adding the
         interval) and, past the warm-up, serves the cached ids from the
         cache's rows. ``warmup`` overrides ``self.warmup`` (whether the
-        cache is probed) for this call; None defers to it."""
+        cache is probed) for this call; None defers to it. On a table of
+        2^31 rows or more the ids are int64 and decompose on the host: with
+        ``use_cache`` one pass (``wide_keyrows``) gives both the cache's key
+        rows and the lookup's parts."""
         dev = self._device()
         shapes = (self.tt_p_shapes, self.tt_q_shapes, self.tt_ranks)
         t = self.num_tables
         parts = None
-        if self._big_e:
+        if self._big_e and self.use_cache:
+            keys = torch.as_tensor(wide_keyrows(_host_ids(indices),
+                                                self.tt_p_shapes), device=dev)
+            parts, keys, nnz = split_wide_keyrows(keys, self.tt_ndim)
+            indices = None
+        elif self._big_e:
             parts = tuple(torch.as_tensor(x, device=dev) for x in
                           decompose_indices64(_host_ids(indices),
                                               self.tt_p_shapes))
-            indices, nnz = None, parts[0].shape[0]
+            indices, keys, nnz = None, None, parts[0].shape[0]
         else:
             indices = torch.as_tensor(indices, device=dev).reshape(-1).to(
                 torch.int32)
-            nnz = indices.shape[0]
+            keys, nnz = indices, indices.shape[0]
         offsets = torch.as_tensor(offsets, device=dev).reshape(-1)
         assert (offsets.shape[0] - 1) % t == 0
         bs = (offsets.shape[0] - 1) // t
@@ -1193,7 +1237,7 @@ class TableBatchedTTEmbeddingBag(nn.Module):
         tbl = tableidx if t > 1 else None
         cache = self._cache_state()
         locations = _count_and_probe(
-            cache, indices, count, self.use_cache and not warm and t == 1,
+            cache, keys, count, self.use_cache and not warm and t == 1,
             self.cache_count_interval)
         ctx = dict(lookup=_tt_path_inputs(locations, self.impl, shapes, t,
                                           bs, indices, parts, rowidx, tbl,
@@ -1240,7 +1284,9 @@ class TableBatchedTTEmbeddingBag(nn.Module):
         if self.sparse:
             _update_cores(self.optimizer, tuple(self.tt_cores),
                           tuple(self.optimizer_state), grads,
-                          self.learning_rate, self.eps)
+                          self.learning_rate, self.eps,
+                          self.optim_semantics == "native",
+                          self.optim_hparams)
             if locations is not None and cache is not None:
                 _update_cache_rows(self.optimizer, cache, d_output, locations,
                                    rowidx, self.learning_rate, self.eps,

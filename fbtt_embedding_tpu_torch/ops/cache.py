@@ -11,10 +11,16 @@ optimizer updates. Two layouts, as in the JAX package:
   empty;
 * **hashed**: an open-addressing table of int32 keys (MurmurHash3
   finalizer, linear probing over ``MAX_PROBES`` slots) whose claims are
-  settled by the JAX package's deterministic two-round tournament.
+  settled by the JAX package's deterministic two-round tournament;
+* **wide** (``wide_keys=tt_ndim``, for tables of 2^31 rows or more): the
+  hashed table keyed by int64 row ids split into int32 ``(hi, lo)``
+  columns, each key row ``(hi, lo, part_0..part_{ndim-1})`` (the layout of
+  :func:`~fbtt_embedding_tpu_torch.ops.indexing.wide_keyrows`), so that
+  populate decompresses winners from their stored parts and no 64-bit id
+  reaches the device.
 
-Not ported: the wide int64-key layout (``wide_keys``; it raises
-NotImplementedError).
+A wide cache takes wide key rows and the other layouts flat row ids; the
+other pairing raises ValueError.
 
 The functions that update a state (counting, the cached rows' optimizers,
 ``reset_cache``) update its tensors **in place** and return the state, as
@@ -36,7 +42,10 @@ import torch
 
 from fbtt_embedding_tpu_torch.ops.contraction import tt_rows
 from fbtt_embedding_tpu_torch.ops.hot_scatter import hot_scatter_add
-from fbtt_embedding_tpu_torch.ops.indexing import rowidx_from_offsets
+from fbtt_embedding_tpu_torch.ops.indexing import (
+    rowidx_from_offsets,
+    wide_keyrows,
+)
 
 MAX_PROBES = 3  # the reference's (tt_embeddings_cuda.cu:29)
 EMPTY_KEY = -1
@@ -48,7 +57,8 @@ _M32 = 0xFFFFFFFF
 class CacheState:
     """The cache's tensors (the JAX package's ``CacheState`` fields)."""
 
-    keys: torch.Tensor       # int32 [H] (hashed) / [0] (direct)
+    keys: torch.Tensor       # int32 [H] (hashed) / [0] (direct) /
+                             # [H, 2 + ndim] (wide)
     freq: torch.Tensor       # int32 [H] / [E]: LFU counts
     slots: torch.Tensor      # int32 [H] / [E]: slot or row -> cache row, -1
     weight: torch.Tensor     # float32 [C, D]: decompressed hot rows
@@ -61,8 +71,7 @@ class CacheState:
 
     @property
     def wide(self) -> bool:
-        """True for the wide-key (int64 row id) layout, which is not
-        ported."""
+        """True for the wide-key (int64 row id) hashed layout."""
         return self.keys.dim() == 2
 
     @property
@@ -80,11 +89,10 @@ def make_cache_state(hashtbl_size: int, cache_size: int, embedding_dim: int,
                      wide_keys: int = 0, device="cuda") -> CacheState:
     """Allocate the cache tables on ``device``: direct mode when
     ``num_embeddings`` is given and ``hashtbl_size >= num_embeddings``,
-    hashed otherwise. ``opt_state_kind``: "none", "rowwise" (``[C]``) or
+    hashed otherwise; ``wide_keys=tt_ndim`` gives the wide-key hashed
+    layout (keys ``int32 [H, 2 + tt_ndim]`` of ``EMPTY_KEY``; exclusive of
+    direct mode). ``opt_state_kind``: "none", "rowwise" (``[C]``) or
     "full" (``[C, D]``)."""
-    if wide_keys:
-        raise NotImplementedError(
-            "the wide-key (int64 row id) cache is not ported yet")
     if opt_state_kind not in ("none", "rowwise", "full"):
         raise ValueError(f"unknown opt_state_kind {opt_state_kind!r}")
     f32, i32 = torch.float32, torch.int32
@@ -92,11 +100,13 @@ def make_cache_state(hashtbl_size: int, cache_size: int, embedding_dim: int,
                                                     embedding_dim)}
     opt = torch.zeros(opt_shape.get(opt_state_kind, (0,)), dtype=f32,
                       device=device)
-    direct = num_embeddings is not None and hashtbl_size >= num_embeddings
+    direct = (not wide_keys and num_embeddings is not None
+              and hashtbl_size >= num_embeddings)
     n = num_embeddings if direct else hashtbl_size
+    key_shape = ((hashtbl_size, 2 + int(wide_keys)) if wide_keys else
+                 (0 if direct else hashtbl_size,))
     return CacheState(
-        keys=torch.full((0 if direct else hashtbl_size,), EMPTY_KEY,
-                        dtype=i32, device=device),
+        keys=torch.full(key_shape, EMPTY_KEY, dtype=i32, device=device),
         freq=torch.zeros((n,), dtype=i32, device=device),
         slots=torch.full((n,), -1, dtype=i32, device=device),
         weight=torch.zeros((cache_size, embedding_dim), dtype=f32,
@@ -122,12 +132,111 @@ def _murmur_fmix32(x: torch.Tensor) -> torch.Tensor:
     return x ^ (x >> 16)
 
 
+def _u32(x: torch.Tensor) -> torch.Tensor:
+    """int32 values taken as uint32, held in int64 (-1 is 0xFFFFFFFF)."""
+    return x.to(torch.int32).to(torch.int64) & _M32
+
+
 def hash_keys(keys: torch.Tensor, table_size: int) -> torch.Tensor:
     """MurmurHash3 finalizer of the int32 row ids (taken as uint32, so -1
     is 0xFFFFFFFF), reduced mod ``table_size``: int32, bit for bit the JAX
     package's ``hash_keys``."""
-    x = keys.to(torch.int32).to(torch.int64) & _M32
+    return (_murmur_fmix32(_u32(keys)) % table_size).to(torch.int32)
+
+
+def hash_keys_wide(hi: torch.Tensor, lo: torch.Tensor,
+                   table_size: int) -> torch.Tensor:
+    """Hash of split int64 keys: the high word folded into the low one by a
+    golden-ratio multiply mod 2^32, then :func:`hash_keys`' finalizer; bit
+    for bit the JAX package's ``hash_keys_wide``."""
+    x = _u32(lo) ^ _mul32(_u32(hi), 0x9E3779B1)
     return (_murmur_fmix32(x) % table_size).to(torch.int32)
+
+
+# the JAX package's name for the host-side key rows of the wide layout
+wide_cache_keys = wide_keyrows
+
+
+def _check_layout(state: CacheState, keys: torch.Tensor) -> None:
+    """Wide key rows go with a wide cache, flat row ids with the others."""
+    rows = keys.dim() == 2
+    if state.wide and not rows:
+        raise ValueError(
+            "a wide-key cache takes wide key rows int32 [nnz, 2 + ndim] "
+            "(ops.indexing.wide_keyrows), got flat row ids of shape "
+            f"{tuple(keys.shape)}")
+    if rows and not state.wide:
+        raise ValueError(
+            f"wide key rows of shape {tuple(keys.shape)} against a "
+            f"{'direct' if state.direct else 'hashed'} cache, which takes "
+            "flat int32 row ids; a table of 2^31 rows or more needs "
+            "make_cache_state(..., wide_keys=tt_ndim)")
+
+
+def _claim_rounds(state: CacheState, h: torch.Tensor, first: torch.Tensor,
+                  matches, new_keys: torch.Tensor) -> torch.Tensor:
+    """Insert-or-find of each distinct key, in place of ``state.keys``: the
+    JAX package's two-round tournament. ``h``: each sorted key's hash;
+    ``first``: the keys to place (their run's first position, valid);
+    ``matches(keys_at)``: whether a probed key entry is this key;
+    ``new_keys``: what a winner writes into its slot. Each round probes
+    ``MAX_PROBES`` slots at once, takes a match, else claims empty slots
+    (lowest (probe, position) wins a slot, each key its earliest winning
+    probe); the round's winners are written before the next. Returns each
+    key's slot, ``H`` where it has none (dropped)."""
+    h_size = state.hashtbl_size
+    nnz = h.shape[0]
+    dev = h.device
+    slots = [((h + j) % h_size).long() for j in range(MAX_PROBES)]
+    sent = torch.full((nnz,), h_size, dtype=torch.long, device=dev)
+
+    def empty(k):
+        return (k[:, 0] if k.dim() == 2 else k) == EMPTY_KEY
+
+    def tournament(keys_table, unplaced):
+        keys_at = [keys_table[s] for s in slots]
+        match_j = [unplaced & matches(k) for k in keys_at]
+        matched = torch.stack(match_j).any(0)
+        match_slot = sent
+        for j in range(MAX_PROBES - 1, -1, -1):
+            match_slot = torch.where(match_j[j], slots[j], match_slot)
+        cand = torch.cat([
+            torch.where(unplaced & ~matched & empty(keys_at[j]), slots[j],
+                        sent) for j in range(MAX_PROBES)])
+        cand_sorted, order = torch.sort(cand, stable=True)
+        win = torch.ones_like(cand_sorted, dtype=torch.bool)
+        win[1:] = cand_sorted[1:] != cand_sorted[:-1]
+        win_flat = torch.zeros(MAX_PROBES * nnz, dtype=torch.bool,
+                               device=dev)
+        win_flat[order] = win & (cand_sorted < h_size)
+        win_j = win_flat.reshape(MAX_PROBES, nnz)
+        won_slot = sent
+        taken = torch.zeros(nnz, dtype=torch.bool, device=dev)
+        for j in range(MAX_PROBES):
+            take = win_j[j] & ~taken
+            won_slot = torch.where(take, slots[j], won_slot)
+            taken = taken | take
+        return torch.where(matched, match_slot, won_slot), won_slot
+
+    keys = state.keys
+    unplaced = first
+    placed_slot = sent
+    for _ in range(2):
+        placed, won_slot = tournament(keys, unplaced)
+        # each slot has one winner and each key wins one slot: no clashes
+        won = (won_slot < h_size).nonzero().squeeze(1)
+        keys[won_slot[won]] = new_keys[won]
+        placed_slot = torch.where(placed < h_size, placed, placed_slot)
+        unplaced = unplaced & (placed == h_size)
+    return placed_slot
+
+
+def _run_counts(is_first: torch.Tensor) -> torch.Tensor:
+    """Each sorted position's count of its run of equal keys."""
+    nnz = is_first.shape[0]
+    run_id = (torch.cumsum(is_first.to(torch.int32), 0) - 1).long()
+    ones = torch.ones(nnz, dtype=torch.int32, device=is_first.device)
+    return torch.zeros_like(ones).index_add_(0, run_id, ones)[run_id]
 
 
 def update_cache_state(state: CacheState, indices: torch.Tensor,
@@ -141,10 +250,15 @@ def update_cache_state(state: CacheState, indices: torch.Tensor,
     each distinct id matches its entry within ``MAX_PROBES`` linear-probe
     slots or claims the first empty one, claims settled by the JAX
     package's two-round tournament (lowest (probe, key) wins); ids that
-    lose every probe and negative ids are dropped."""
+    lose every probe and negative ids are dropped.
+
+    Wide mode: ``indices`` are wide key rows ``int32 [nnz, 2 + ndim]``,
+    keyed on their ``(hi, lo)`` columns (sorted as the JAX package sorts
+    them, signed and lexicographic, stable); a winner writes its whole key
+    row, and rows with ``hi < 0`` (negative ids, pads) are dropped."""
+    _check_layout(state, indices)
     if state.wide:
-        raise NotImplementedError(
-            "the wide-key (int64 row id) cache is not ported yet")
+        return _update_cache_state_wide(state, indices, scale)
     idx = indices.to(torch.int32)
     if state.direct:
         n = state.freq.shape[0]
@@ -152,67 +266,65 @@ def update_cache_state(state: CacheState, indices: torch.Tensor,
         state.freq.index_add_(0, idx.clamp(0, n - 1).long(),
                               valid.to(torch.int32) * int(scale))
         return state
-    h_size = state.hashtbl_size
-    nnz = idx.shape[0]
-    dev = idx.device
     idx, _ = torch.sort(idx)
-    is_first = torch.ones(nnz, dtype=torch.bool, device=dev)
+    is_first = torch.ones(idx.shape[0], dtype=torch.bool, device=idx.device)
     is_first[1:] = idx[1:] != idx[:-1]
-    run_id = torch.cumsum(is_first.to(torch.int32), 0) - 1
-    run_counts = torch.zeros(nnz, dtype=torch.int32, device=dev).index_add_(
-        0, run_id.long(), torch.ones(nnz, dtype=torch.int32, device=dev))
-    cnt = run_counts[run_id.long()]
-    h = hash_keys(idx, h_size)
-    slots = [((h + j) % h_size).long() for j in range(MAX_PROBES)]
-    sent = torch.full((nnz,), h_size, dtype=torch.long, device=dev)
+    placed = _claim_rounds(state, hash_keys(idx, state.hashtbl_size),
+                           is_first & (idx >= 0), lambda k: k == idx, idx)
+    return _add_counts(state, placed, _run_counts(is_first), scale)
 
-    def tournament(keys_table, unplaced):
-        keys_at = [keys_table[s] for s in slots]
-        match_j = [unplaced & (k == idx) for k in keys_at]
-        matched = torch.stack(match_j).any(0)
-        match_slot = sent
-        for j in range(MAX_PROBES - 1, -1, -1):
-            match_slot = torch.where(match_j[j], slots[j], match_slot)
-        cand = torch.cat([
-            torch.where(unplaced & ~matched & (keys_at[j] == EMPTY_KEY),
-                        slots[j], sent) for j in range(MAX_PROBES)])
-        cand_sorted, order = torch.sort(cand, stable=True)
-        first = torch.ones_like(cand_sorted, dtype=torch.bool)
-        first[1:] = cand_sorted[1:] != cand_sorted[:-1]
-        win_flat = torch.zeros(MAX_PROBES * nnz, dtype=torch.bool,
-                               device=dev)
-        win_flat[order] = first & (cand_sorted < h_size)
-        win_j = win_flat.reshape(MAX_PROBES, nnz)
-        won_slot = sent
-        taken = torch.zeros(nnz, dtype=torch.bool, device=dev)
-        for j in range(MAX_PROBES):
-            take = win_j[j] & ~taken
-            won_slot = torch.where(take, slots[j], won_slot)
-            taken = taken | take
-        return torch.where(matched, match_slot, won_slot), won_slot
 
-    keys = state.keys
-    unplaced = is_first & (idx >= 0)
-    placed_slot = sent
-    for _ in range(2):
-        placed, won_slot = tournament(keys, unplaced)
-        # each slot has one winner and each key wins one slot: no clashes
-        won = (won_slot < h_size).nonzero().squeeze(1)
-        keys[won_slot[won]] = idx[won]
-        placed_slot = torch.where(placed < h_size, placed, placed_slot)
-        unplaced = unplaced & (placed == h_size)
+def _add_counts(state: CacheState, placed_slot, cnt, scale: int):
+    """``freq[slot] += cnt * scale`` for every placed key, in place."""
+    h_size = state.hashtbl_size
     inc = torch.where(placed_slot < h_size, cnt * int(scale),
                       torch.zeros_like(cnt))
     state.freq.index_add_(0, placed_slot.clamp(max=h_size - 1), inc)
     return state
 
 
+def _update_cache_state_wide(state: CacheState, keyrows: torch.Tensor,
+                             scale: int = 1) -> CacheState:
+    """The wide layout's counting (:func:`update_cache_state`): the key rows
+    sorted by ``(hi, lo)`` as signed int32 pairs, lexicographic and stable
+    (JAX's ``lax.sort(num_keys=2, is_stable=True)``), through one int64 key
+    that keeps that order; the same two-round tournament as the hashed
+    mode, keyed on ``(hi, lo)``."""
+    rows = keyrows.to(torch.int32)
+    key64 = (rows[:, 0].to(torch.int64) << 32) + (
+        rows[:, 1].to(torch.int64) + 2 ** 31)
+    key64, order = torch.sort(key64, stable=True)
+    rows = rows[order]
+    hi, lo = rows[:, 0], rows[:, 1]
+    is_first = torch.ones(rows.shape[0], dtype=torch.bool,
+                          device=rows.device)
+    is_first[1:] = key64[1:] != key64[:-1]
+    placed = _claim_rounds(
+        state, hash_keys_wide(hi, lo, state.hashtbl_size),
+        is_first & (hi >= 0), lambda k: (k[:, 0] == hi) & (k[:, 1] == lo),
+        rows)
+    return _add_counts(state, placed, _run_counts(is_first), scale)
+
+
 def cache_lookup(state: CacheState, indices: torch.Tensor) -> torch.Tensor:
     """Per-lookup cache row (int32), -1 where the row is not cached; a
-    negative id is always a miss."""
+    negative id is always a miss. A wide cache takes wide key rows and
+    probes their ``(hi, lo)`` columns; a row with ``hi < 0`` (a negative
+    id, or a pad ``(hi, lo) = -1``) is a miss."""
+    _check_layout(state, indices)
     if state.wide:
-        raise NotImplementedError(
-            "the wide-key (int64 row id) cache is not ported yet")
+        hi, lo = indices[:, 0].to(torch.int32), indices[:, 1].to(torch.int32)
+        h_size = state.hashtbl_size
+        h = hash_keys_wide(hi, lo, h_size)
+        loc = torch.full_like(hi, -1)
+        found = hi < 0
+        for probe in range(MAX_PROBES):
+            slot = ((h + probe) % h_size).long()
+            ks = state.keys[slot]
+            hit = ~found & (ks[:, 0] == hi) & (ks[:, 1] == lo)
+            loc = torch.where(hit, state.slots[slot], loc)
+            found = found | hit
+        return loc
     idx = indices.to(torch.int32)
     miss = torch.full_like(idx, -1)
     if state.direct:
@@ -235,7 +347,8 @@ def _decompress_rows(tt_cores, tt_p_shapes, tt_q_shapes, tt_ranks, rows_idx,
                      chunk: Optional[int] = None) -> torch.Tensor:
     """``tt_rows`` of ``rows_idx`` -> ``[n, D]`` float32, ``chunk`` rows at
     a time, so the gather intermediates peak at one chunk (1.1M rows at the
-    benchmark's cache size would not fit at once)."""
+    benchmark's cache size would not fit at once). ``rows_idx`` is ``[n]``
+    row ids, or ``[n, ndim]`` per-core parts (the wide layout)."""
     chunk = chunk or DEFAULT_POPULATE_CHUNK
     n = rows_idx.shape[0]
     d = 1
@@ -244,23 +357,28 @@ def _decompress_rows(tt_cores, tt_p_shapes, tt_q_shapes, tt_ranks, rows_idx,
     out = torch.empty((n, d), dtype=torch.float32, device=rows_idx.device)
     with torch.no_grad():
         for s in range(0, n, chunk):
-            out[s:s + chunk] = tt_rows(tt_cores, tt_p_shapes, tt_q_shapes,
-                                       tt_ranks, rows_idx[s:s + chunk])
+            ri = rows_idx[s:s + chunk]
+            if ri.dim() == 2:
+                out[s:s + chunk] = tt_rows(
+                    tt_cores, tt_p_shapes, tt_q_shapes, tt_ranks, None,
+                    idx_parts=[ri[:, t] for t in range(ri.shape[1])])
+            else:
+                out[s:s + chunk] = tt_rows(tt_cores, tt_p_shapes,
+                                           tt_q_shapes, tt_ranks, ri)
     return out
 
 
 def populate_plan(state: CacheState) -> Tuple[torch.Tensor, ...]:
     """The winner selection of :func:`cache_populate`: ``(new_keys,
     new_freq, new_slots, winner_rows, valid)``. ``winner_rows[s]`` is the
-    row id to decompress into cache slot ``s``; ``valid[s]`` marks slots
+    row id to decompress into cache slot ``s`` (wide layout: its ``[ndim]``
+    per-core parts, from the stored key row); ``valid[s]`` marks slots
     that won (count > 0). The top ``cache_size`` counts, ties lowest index
     first; the losers are evicted (key and count reset)."""
-    if state.wide:
-        raise NotImplementedError(
-            "the wide-key (int64 row id) cache is not ported yet")
     c_size = state.cache_size
+    occupied = (state.keys[:, 0] if state.wide else state.keys) != EMPTY_KEY
     counts = state.freq if state.direct else torch.where(
-        state.keys != EMPTY_KEY, state.freq, torch.full_like(state.freq, -1))
+        occupied, state.freq, torch.full_like(state.freq, -1))
     n = counts.shape[0]
     if c_size > n:
         raise ValueError(f"cache_size {c_size} exceeds the {n} counted rows")
@@ -279,6 +397,12 @@ def populate_plan(state: CacheState) -> Tuple[torch.Tensor, ...]:
         new_keys = state.keys
         winner_rows = torch.where(valid, top.to(torch.int32),
                                   torch.zeros_like(ranks))
+    elif state.wide:
+        new_keys = torch.where(winner[:, None], state.keys,
+                               torch.full_like(state.keys, EMPTY_KEY))
+        winner_rows = torch.where(valid[:, None], state.keys[top][:, 2:],
+                                  torch.zeros((), dtype=torch.int32,
+                                              device=dev))
     else:
         new_keys = torch.where(winner, state.keys,
                                torch.full_like(state.keys, EMPTY_KEY))

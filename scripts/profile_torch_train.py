@@ -3,7 +3,8 @@
 a GPU.
 
 Usage: ``python3 scripts/profile_torch_train.py [--batch 512] [--iters 20]
-[--count] [--impl pallas] [--root DIR]`` from the root of a checkout, on a
+[--count] [--impl pallas] [--native OPTIM] [--wide] [--root DIR]`` from
+the root of a checkout, on a
 machine with one CUDA card. ``--root`` names the checkout whose ``fbtt_embedding_tpu_torch``
 is imported and built (default: this one), so that an older tree unpacked
 into ``build/ab_old/`` is profiled by the same script.
@@ -20,7 +21,12 @@ ranked by time. ``--count`` turns LFU counting on, as the reference
 benchmark's step does (``use_cache``; a direct-mode cache with
 ``hashtbl_size`` = E and ``cache_size`` = E / 10). ``--impl pallas``
 profiles the generic per-lookup step (kernels B4 and B5, float32) in place
-of the flat pipeline. ``--trace PATH`` also
+of the flat pipeline. ``--native ADAM`` (any ``OptimType`` name) runs
+that optimizer's own update (``optim_semantics="native"``, state from
+``native_optim_init``) in place of SGD. ``--wide`` profiles the table of
+p=[1300, 1300, 1300] (E = 2.197e9, past 2^31) at the same widths: uniform
+int64 ids as wide key rows, and with ``--count`` the wide-key cache
+(``hashtbl_size`` 2^24, ``cache_size`` 2^20). ``--trace PATH`` also
 writes the Chrome trace. ``FBTT_DG0=fused`` in the environment profiles
 the step with kernel B6.
 """
@@ -43,6 +49,10 @@ def main():
     ap.add_argument("--trace", help="write the Chrome trace here")
     ap.add_argument("--impl", choices=("auto", "pallas"), default="auto",
                     help="the step's lookup path (pallas: kernels B4, B5)")
+    ap.add_argument("--native", metavar="OPTIM",
+                    help="an OptimType name, run with its own update")
+    ap.add_argument("--wide", action="store_true",
+                    help="the 2.197e9-row table, wide key rows and cache")
     ap.add_argument("--root", default=str(ROOT),
                     help="checkout whose package is profiled")
     args = ap.parse_args()
@@ -55,18 +65,32 @@ def main():
     sys.path.insert(0, str(Path(args.root).resolve()))
     import fbtt_embedding_tpu_torch as fbt
 
-    p, q, r = [200, 220, 250], [4, 4, 4], [1, 32, 32, 1]
-    e, pool, b = 200 * 220 * 250, 20, args.batch
+    p = [1300, 1300, 1300] if args.wide else [200, 220, 250]
+    q, r = [4, 4, 4], [1, 32, 32, 1]
+    e, pool, b = int(np.prod(p)), 20, args.batch
     cores = fbt.init_tt_cores(np.random.default_rng(0), "uniform", 1, e, 64,
                               p, q, r)
     params = fbt.params_from_jax(cores, device="cuda")
-    if args.count:
+    if args.count and args.wide:
+        params.cache = fbt.make_cache_state(2 ** 24, 2 ** 20, 64,
+                                            wide_keys=3, device="cuda")
+    elif args.count:
         params.cache = fbt.make_cache_state(e, e // 10, 64,
                                             num_embeddings=e, device="cuda")
-    step = fbt.make_fused_train_step(p, q, r, 1, b, use_cache=args.count,
-                                     impl=args.impl, device="cuda")
+    optim = fbt.OptimType.SGD
+    kw = {}
+    if args.native:
+        optim = getattr(fbt.OptimType, args.native)
+        params.optimizer_state = fbt.native_optim_init(optim,
+                                                       params.tt_cores)
+        kw["optim_semantics"] = "native"
+    step = fbt.make_fused_train_step(p, q, r, 1, b, optimizer=optim,
+                                     use_cache=args.count, impl=args.impl,
+                                     device="cuda", **kw)
     rng = np.random.default_rng(1)
-    idx = torch.as_tensor(rng.integers(0, e, size=b * pool), device="cuda")
+    ids = rng.integers(0, e, size=b * pool, dtype=np.int64)
+    idx = torch.as_tensor(fbt.wide_keyrows(ids, p) if args.wide else ids,
+                          device="cuda")
     offs = torch.arange(0, b * pool + 1, pool, device="cuda")
     d_out = torch.as_tensor(rng.standard_normal((1, b, 64)),
                             dtype=torch.float32, device="cuda")
@@ -100,8 +124,10 @@ def main():
     launches = sum(ev.count for ev in dev) / args.iters
     host_ms, bare_ms = statistics.median(host), statistics.median(bare)
     what = (" with LFU counting" if args.count else "") + (
-        f" impl={args.impl}" if args.impl != "auto" else "")
-    print(f"[profile] {card} train step SGD B={b} pooling {pool}{what}: host "
+        f" impl={args.impl}" if args.impl != "auto" else "") + (
+        f" (wide key rows, p={p})" if args.wide else "")
+    opt = f"native {args.native}" if args.native else "SGD"
+    print(f"[profile] {card} train step {opt} B={b} pooling {pool}{what}: host "
           f"{bare_ms:.3f} ms/step (median, without the profiler), "
           f"{host_ms:.3f} ms/step (under it), device {dev_ms:.3f} ms/step "
           f"(kernel sum), device busy share {dev_ms / bare_ms:.3f} (over "

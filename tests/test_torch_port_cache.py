@@ -15,8 +15,9 @@
   ``EXACT_ADAGRAD`` and a row-wise optimizer; ``count=False`` and
   ``count_interval``; a hashed cache;
 - cache-probing serving against JAX's;
-- ``params_from_jax`` with a cache, and a fresh process that trains with a
-  cache without importing JAX.
+- ``params_from_jax`` with a cache (a wide-key one too), and a fresh
+  process that trains with a cache, and counts into a wide-key one, without
+  importing JAX.
 """
 
 import os
@@ -367,8 +368,9 @@ def test_params_from_jax_with_a_cache():
     assert not np.array_equal(params.cache.freq.numpy(),
                               np.asarray(jstate.freq))
     wide = jc.make_cache_state(64, 4, D, wide_keys=3)
-    with pytest.raises(NotImplementedError):
-        params_from_jax(cores, device="cpu", cache=wide)
+    got = params_from_jax(cores, device="cpu", cache=wide)
+    _assert_state(got.cache, wide, exact=FIELDS)
+    assert got.cache.wide and not got.cache.direct
 
 
 def test_port_cache_trains_without_jax():
@@ -397,6 +399,12 @@ def test_port_cache_trains_without_jax():
         "        params.cache = m.cache_populate(params.cache,"
         " params.tt_cores, p, q, r)\n"
         "assert out.shape == (1, 8, 64) and int(params.cache.freq.sum()) > 0\n"
+        "pw = [1300, 1300, 1300]\n"
+        "wide = m.make_cache_state(256, 8, 64, wide_keys=3, device='cpu')\n"
+        "ids = np.array([5, 2**31 + 7, 5, 2**31 + 7, -1], np.int64)\n"
+        "m.update_cache_state(wide, torch.as_tensor(m.wide_keyrows(ids,"
+        " pw)))\n"
+        "assert int(wide.freq.sum()) == 4 and int(wide.freq.max()) == 2\n"
         "bad = sorted(k for k in sys.modules if k == 'jax'"
         " or k.startswith('jax.') or k.startswith('fbtt_embedding_tpu.')"
         " or k == 'fbtt_embedding_tpu')\n"

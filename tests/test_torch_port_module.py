@@ -20,8 +20,9 @@ numpy-seeded inputs, on the cases of ``tests/test_table_batched.py``,
 - ``tt_embedding_forward`` with ``cache_locations`` and its gradients;
 - ``state_dict`` from JAX (numpy) into ``load_state_dict``, and the
   truncated-state KeyError;
-- the backward-before-forward assertion, determinism, the parts not ported
-  (NotImplementedError; ``freeze_for_serving`` now folds), and that ``backward`` takes the gradient from the
+- the backward-before-forward assertion, determinism, the options once
+  not ported (native semantics, a cached table past int32,
+  ``freeze_for_serving``: each now builds), and that ``backward`` takes the gradient from the
   forward's kernel graph (``FlatLookup``, ``GenericLookup``);
 - ``tests/test_property.py``'s hypothesis ranges (forward, an SGD step,
   several tables), the port's module against JAX's.
@@ -638,16 +639,28 @@ def test_params_and_load_params_round_trip_with_the_fused_step():
 
 
 def test_parts_not_ported_raise():
-    with pytest.raises(NotImplementedError):
-        pair(3, optim_semantics="native")
+    """The options the port once refused now build: native semantics (the
+    JAX module's state layout), ``freeze_for_serving``, and a cached table
+    past int32 rows (the wide-key cache); an unknown semantics raises."""
+    jm, tm = pair(3, optimizer="adam", optim_semantics="native")
+    assert len(tm.optimizer_state) == 2 * 3 + 1
+    for a, b in zip(tm.optimizer_state, jm.optimizer_state):
+        assert _np(a).shape == np.asarray(b).shape
+        assert _np(a).dtype == np.asarray(b).dtype
+    with pytest.raises(ValueError):  # JAX's module asserts instead
+        T.TTEmbeddingBag(num_embeddings=1000, embedding_dim=16,
+                         tt_ranks=[8, 8], optim_semantics="other",
+                         device="cpu")
     _, tm = pair(3)
     folded, _ = tm.freeze_for_serving(8)  # ported: it folds now
     assert folded.setup is not None
-    with pytest.raises(NotImplementedError):  # a cached table past int32
-        T.TTEmbeddingBag(num_embeddings=2048 * 2048 * 513, embedding_dim=64,
-                         tt_p_shapes=[2048, 2048, 513], tt_q_shapes=[4, 4, 4],
-                         tt_ranks=[8, 8], use_cache=True, cache_size=64,
-                         hashtbl_size=1024, device="cpu")
+    big = T.TTEmbeddingBag(num_embeddings=2048 * 2048 * 513, embedding_dim=64,
+                           tt_p_shapes=[2048, 2048, 513],
+                           tt_q_shapes=[4, 4, 4], tt_ranks=[8, 8],
+                           use_cache=True, cache_size=64, hashtbl_size=1024,
+                           device="cpu")
+    assert big.cache.state().wide
+    assert tuple(big.cache.keys.shape) == (1024, 2 + 3)
 
 
 # ------------------------------------------- tests/test_property.py ranges

@@ -111,12 +111,12 @@ def test_serve_bs_override_and_cache_guard():
     np.testing.assert_allclose(got.numpy(), full.numpy(), rtol=1e-6,
                                atol=1e-7)
     # an empty cache serves nothing: the probing serve equals the plain one;
-    # wide key rows with a cache wait for the wide-key cache
+    # wide key rows cannot probe a direct cache (a wide-key one takes them)
     cache = make_cache_state(int(np.prod(p)), 4, 64, num_embeddings=int(
         np.prod(p)), device="cpu")
     cached = TTEmbeddingParams(params.tt_cores, (), cache=cache)
     probing = make_serving_fn(p, q, rfull, 1, b, device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="wide"):
         probing(cached, wide_keyrows(idx, p), offs)
     quiet = make_serving_fn(p, q, rfull, 1, b, probe_cache=False,
                             device="cpu")

@@ -675,12 +675,12 @@ def test_fused_train_step_key_layouts_and_paths():
 
 
 def test_fused_train_step_unported_options_raise():
-    """The native optimizers and the wide-key (int64) cache are not ported;
-    index parts cannot key a cache."""
+    """The native optimizers and the wide-key (int64) cache, once refused,
+    now build; index parts cannot key a cache, and wide key rows cannot key
+    a direct one (ValueError)."""
     p, q, r = [20, 22, 25], [4, 4, 4], [1, 8, 8, 1]
-    with pytest.raises(NotImplementedError):
-        make_fused_train_step(p, q, r, 1, 8, device="cpu",
-                              optim_semantics="native")
+    assert callable(make_fused_train_step(p, q, r, 1, 8, device="cpu",
+                                          optim_semantics="native"))
     with pytest.raises(ValueError):
         make_fused_train_step(p, q, r, 1, 8, optim_semantics="other",
                               device="cpu")
@@ -696,13 +696,13 @@ def test_fused_train_step_unported_options_raise():
     idx = np.arange(16)
     for kw in (dict(use_cache=True), dict(probe_cache=True)):
         step = make_fused_train_step(p, q, r, 1, 8, device="cpu", **kw)
-        with pytest.raises(NotImplementedError):  # wide key rows
+        with pytest.raises(ValueError, match="wide"):  # wide rows, direct
             step(params, wide_keyrows(idx, p), *args)
         with pytest.raises(ValueError):  # a tuple of index parts
             step(params, tuple(torch.as_tensor(k) for k in
                                wide_keyrows(idx, p)[:, 2:].T), *args)
-    with pytest.raises(NotImplementedError):
-        make_cache_state(64, 4, 64, wide_keys=3, device="cpu")
+    wide = make_cache_state(64, 4, 64, wide_keys=3, device="cpu")
+    assert wide.wide and tuple(wide.keys.shape) == (64, 5)
 
 
 def test_port_trains_without_jax():
@@ -717,6 +717,15 @@ def test_port_trains_without_jax():
         "cores = m.init_tt_cores(np.random.default_rng(0), 'uniform', 1,"
         " 11000, 64, p, q, r)\n"
         "rng = np.random.default_rng(1)\n"
+        "nat = m.params_from_jax(cores, device='cpu')\n"
+        "nat.optimizer_state = m.native_optim_init(m.OptimType.ADAM,"
+        " nat.tt_cores)\n"
+        "adam = m.make_fused_train_step(p, q, r, 1, 8,"
+        " optimizer=m.OptimType.ADAM, optim_semantics='native',"
+        " device='cpu')\n"
+        "out, nat = adam(nat, rng.integers(0, 11000, 16),"
+        " np.arange(0, 17, 2), rng.normal(size=(1, 8, 64)), (0.01, 1e-3))\n"
+        "assert int(nat.optimizer_state[-1]) == 1\n"
         "for opt in (m.OptimType.SGD, m.OptimType.EXACT_ADAGRAD):\n"
         "    state = [np.zeros_like(c) for c in cores] "
         "if opt != m.OptimType.SGD else []\n"

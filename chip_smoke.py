@@ -146,6 +146,32 @@ CUDA card and ``nvcc``). Phases, each printing its own lines:
    ms, host ms and device operations per step, in turns, of the native
    ADAM and LAMB counting steps beside the reference SGD counting step,
    and of the wide counting step beside the direct-mode one;
+5d. dlrm+tools: the DLRM trainer (``models/dlrm.py``) at the walkthrough's
+   full width (8 tables of E=1M, p=[100, 100, 100], q=[4, 4, 4], ranks
+   [32, 32]; dense 13, bottom MLP [512, 256, 64], top MLP [512, 256, 1];
+   pooling 8, B=512, approx-normal from seed 0): five SGD steps with bf16
+   staging (pair mode: B1 once forward, B3 twice backward), one with
+   float32 staging (B1 twice, B3 twice) and one under ``FBTT_DG0=fused``
+   (B1, B3 and B6 once), each held against the plain float32 step
+   (``impl="xla", precision="highest"``) from the same params and batch:
+   the loss and the pooled embeddings within 5e-3, the logits within
+   DLRM_LOGIT_TOL of their largest, and each leaf's update by its cosine
+   (>= 0.99; float32 staging: 1e-4 and 1e-3 of the largest element), with
+   the launches checked and no plain kernel version or plain lookup run;
+   one step under ``torch.cuda.set_sync_debug_mode("warn")`` (its
+   synchronising calls counted); ``checkpoint.save`` / ``restore`` and
+   ``save_npz`` / ``restore_npz`` into params from seed 99, the forward
+   bitwise equal; ``guard_step(every=2)`` over four steps, and a NaN in core
+   1 named by ``assert_finite``; ``examples.train_dlrm.main(["--steps",
+   "40"])`` (loss must fall; B1 43, B3 80); ``python -m
+   fbtt_embedding_tpu_torch.benchmark`` in process at its defaults (the
+   reference headline, LFU counting on) with ``--run-baseline`` (B1, B2, B3
+   113 times each: 3 + 10 + 100 steps) and with ``--impl pallas`` (B4, B5
+   113 each), its us/nnz beside ``speed_of_light``; then the DLRM step's
+   device ms, device operations and host ms, the device ms split into the
+   lookup's forward + backward (with and without pair mode, in turns; its
+   pair-table build, one-hot pool and one-hot dG0 product) and the MLPs
+   with the interaction;
 6. times: each kernel pass's time per call on two yardsticks, beside its
    bound and its plain version's on both: between CUDA events over
    back-to-back calls (the kernels' line's ``ms`` and ``plain_ms``; the
@@ -232,7 +258,9 @@ DG0_RULE_SHAPES = (
 PATHS = ("serve", "train", "serve_generic", "train_generic", "serve_cached",
          "train_cached", "train_dg0", "module", "serve_folded",
          "serve_folded_int8", "train_native", "train_wide_cache",
-         "serve_wide_cache", "module_wide_cache")
+         "serve_wide_cache", "module_wide_cache", "train_dlrm",
+         "train_dlrm_f32", "train_dlrm_dg0", "dlrm_walkthrough", "cli",
+         "cli_generic")
 LR, EPS = 0.005, 1.0        # training steps of the check (EPS: Adagrad)
 # bf16 staging against the float32 plain step: outputs within 5e-3 of
 # max|out| (the serve's limit); each core's update within 3e-2 of its
@@ -257,6 +285,21 @@ P_WIDE = [1300, 1300, 1300]
 E_WIDE = 1300 ** 3
 H_WIDE, C_WIDE = 2 ** 24, 2 ** 20
 WIDE_MULT = 5000011
+# phase 5d: the DLRM walkthrough's full configuration (8 tables of E=1M),
+# its batch and learning rate
+DLRM_KW = dict(num_tables=8, num_embeddings=1_000_000, embedding_dim=64,
+               tt_p_shapes=[100, 100, 100], tt_q_shapes=[4, 4, 4],
+               tt_ranks=[32, 32], dense_dim=13,
+               bottom_mlp_dims=[512, 256, 64], top_mlp_dims=[512, 256, 1],
+               pooling_factor=8)
+DLRM_B, DLRM_LR = 512, 0.05
+# bf16 staging against the float32 plain step: the pooled embeddings and
+# the loss at OUT_TOL, the logits within 2e-2 of max|logit|. The interaction
+# multiplies two staged embeddings and the top MLP sums the products with
+# cancellation: on the CPU, with the kernels' plain versions staged in bf16,
+# at this configuration and B=64, embeddings within 3.8e-3 of their largest
+# gave logits within 7.2e-3 of theirs
+DLRM_LOGIT_TOL = 2e-2
 
 
 def fail(msg):
@@ -337,19 +380,20 @@ def device_ms(fn, n=20):
 
     The tracer can miss the work at the start or the end of a session (on
     the H100, after other processes profiled the card: a session of 20
-    calls kept 5 of their kernels). So the ``n`` calls run in a marked
-    window with PROFILER_PAD_S seconds of untimed calls on each side, and
-    only the device work inside the window counts: inside the window's span
-    on the device (the tracer's span of the kernels launched in it), where
-    the tracer gives one, else inside its span on the host, whose clock
-    can stand a few calls off the device's. Each call launches the same
-    work, so a window is kept only where it holds every kernel name a
-    whole number of times per call; one that does not is announced by a
-    ``[warn]`` line with its counts and run again, up to PROFILER_TRIES
-    sessions."""
+    calls kept 5 of their kernels). So the ``n`` calls run between
+    PROFILER_PAD_S seconds of untimed calls on each side, and only the
+    device work between two marker kernels (``torch.cuda._sleep``) queued
+    on the stream just before the first call and just after the last
+    counts. (A ``record_function`` window's span on the device, used
+    before, left out the last call's backward kernels of the DLRM step,
+    launched by the autograd engine's thread.) Each call launches the same
+    work, so a session is kept only where the tracer kept both markers and
+    the window holds every kernel name a whole number of times per call;
+    one that does not is announced by a ``[warn]`` line with its counts
+    and run again, up to PROFILER_TRIES sessions."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import ProfilerActivity, profile
 
     def pad():
         t0 = time.perf_counter()
@@ -364,30 +408,25 @@ def device_ms(fn, n=20):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             pad()
-            with record_function("device_ms window"):
-                for _ in range(n):
-                    fn()
-                mhz = sm_clock_mhz()
-                torch.cuda.synchronize()
+            torch.cuda._sleep(1)  # a marker kernel before the calls
+            for _ in range(n):
+                fn()
+            torch.cuda._sleep(1)  # and one after them
+            mhz = sm_clock_mhz()
+            torch.cuda.synchronize()
             pad()
-        events = prof.events()
-        marks = {ev.device_type: ev.time_range for ev in events
-                 if ev.name == "device_ms window"}
-        win = marks.get(DeviceType.CUDA, marks[DeviceType.CPU])
+        cuda = [ev for ev in prof.events()
+                if ev.device_type == DeviceType.CUDA]
+        spins = sorted((ev.time_range for ev in cuda
+                        if "spin_kernel" in ev.name), key=lambda r: r.start)
         per, count = {}, {}
-        for ev in events:
-            if (ev.device_type == DeviceType.CUDA
-                    and ev.name != "device_ms window"
-                    and win.start - 1 <= ev.time_range.start
-                    and ev.time_range.end <= win.end + 1):
-                per[ev.name] = (per.get(ev.name, 0.0)
-                                + ev.time_range.elapsed_us())
-                count[ev.name] = count.get(ev.name, 0) + 1
-        side = "device" if DeviceType.CUDA in marks else "host"
-        if side != device_ms.side:
-            device_ms.side = side
-            print(f"[time] device_ms: windows on the {side}'s clock from here",
-                  flush=True)
+        if len(spins) == 2:
+            lo, hi = spins[0].end, spins[1].start
+            for ev in cuda:
+                if lo <= ev.time_range.start and ev.time_range.end <= hi:
+                    per[ev.name] = (per.get(ev.name, 0.0)
+                                    + ev.time_range.elapsed_us())
+                    count[ev.name] = count.get(ev.name, 0) + 1
         if per and not any(c % n for c in count.values()):
             per = {k: v / n / 1e3 for k, v in per.items()}
             device_ms.ops = sum(count.values()) / n
@@ -396,13 +435,12 @@ def device_ms(fn, n=20):
         for name, c in count.items():
             short[kernel_name(name)] = short.get(kernel_name(name), 0) + c
         print(f"[warn] device_ms: profiler session {k + 1} of "
-              f"{PROFILER_TRIES} "
-              f"recorded device events {short or 'none'} in its window of "
-              f"{n} calls (the window's span on the {side})", flush=True)
+              f"{PROFILER_TRIES} kept {len(spins)} of the 2 marker kernels "
+              f"and recorded device events {short or 'none'} between them "
+              f"for {n} calls", flush=True)
     fail(f"torch.profiler lost device events in {PROFILER_TRIES} sessions")
 
 
-device_ms.side = None
 device_ms.ops = None  # device operations per call, of the last reading
 
 
@@ -1902,6 +1940,359 @@ def native_wide_phase(fbt, card, wrappers, request, cores, cache,
     return paths
 
 
+def dlrm_tools_phase(fbt, card, wrappers):
+    """Phase 5d of the docstring: the DLRM trainer at full width, the
+    checkpoint, the guard, the walkthrough and the benchmark CLI; returns
+    the launches of the paths ``train_dlrm``, ``train_dlrm_f32``,
+    ``train_dlrm_dg0``, ``dlrm_walkthrough``, ``cli`` and ``cli_generic``."""
+    import shutil
+    import tempfile
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from fbtt_embedding_tpu_torch import benchmark
+    from fbtt_embedding_tpu_torch.examples import train_dlrm
+    from fbtt_embedding_tpu_torch.models import dlrm
+    from fbtt_embedding_tpu_torch.ops.kernels import tt_flat
+    from fbtt_embedding_tpu_torch.ops.kernels.tt_kernel import (
+        kernel_core_layouts,
+    )
+    from fbtt_embedding_tpu_torch.utils import checkpoint, guard, profiling
+    from fbtt_embedding_tpu_torch.utils._tree import (
+        leaves_with_paths,
+        map_leaves,
+    )
+
+    def zero_counts():
+        for fn in wrappers.values():
+            fn.launches = 0
+
+    def counts():
+        return {name: fn.launches for name, fn in wrappers.items()}
+
+    def want(**kw):
+        return want_launches(wrappers, **kw)
+
+    t_phase = time.perf_counter()
+    paths = {k: dict.fromkeys(wrappers, 0) for k in (
+        "train_dlrm", "train_dlrm_f32", "train_dlrm_dg0", "dlrm_walkthrough",
+        "cli", "cli_generic")}
+    cfg = dlrm.DLRMConfig(**DLRM_KW)
+    tp, qs, rs = cfg.tt_p_shapes, cfg.tt_q_shapes, cfg.tt_ranks
+    nt, d = cfg.num_tables, cfg.embedding_dim
+    rng = np.random.default_rng(8)
+    batches = [train_dlrm.make_batch(rng, cfg, DLRM_B, "cuda")
+               for _ in range(7)]
+
+    def lookup(impl="auto", precision=None):
+        return lambda c, i: dlrm.fixed_pool_lookup(c, i, tp, qs, rs,
+                                                   precision=precision,
+                                                   impl=impl)
+
+    def make_step(lr=DLRM_LR, **kw):
+        return dlrm.make_dlrm_train_step(cfg, learning_rate=lr,
+                                         device="cuda", **kw)
+
+    def clone(prm):
+        return map_leaves(torch.clone, prm)
+
+    plain_kw = dict(impl="xla", precision="highest")
+    pstep = make_step(**plain_kw)
+    params = dlrm.init_dlrm_params(cfg, seed=0, device="cuda")
+
+    def checked(path, kstep, kw, batch, expect, tols, label):
+        """One step of ``kstep`` on ``params`` (launches checked, no plain
+        version) held against the plain float32 step on a copy: the loss,
+        the pooled embeddings and the logits before the step, and every
+        leaf's update (``tols``: loss and embeddings, logits, update; an
+        update limit of None holds the update by its cosine)."""
+        nonlocal params
+        out_tol, logit_tol, update_tol = tols
+        old, ref = clone(params), clone(params)
+        with torch.no_grad():
+            emb = lookup(**kw)(params.tt_cores, batch[1])
+            ref_emb = lookup(**plain_kw)(ref.tt_cores, batch[1])
+            logits = dlrm.dlrm_forward(params, cfg, *batch[:2], lookup(**kw))
+            ref_logits = dlrm.dlrm_forward(ref, cfg, *batch[:2],
+                                           lookup(**plain_kw))
+        zero_counts()
+        with plain_watch() as plains:
+            loss, params = kstep(params, *batch)
+            torch.cuda.synchronize()
+        got = counts()
+        for k in wrappers:
+            paths[path][k] += got[k]
+        if plains or got != expect:
+            fail(f"{label}: launches {got} (expected {expect}), plain "
+                 f"versions {plains}")
+        ref_loss, ref = pstep(ref, *batch)
+        lerr = abs(loss.item() - ref_loss.item()) / abs(ref_loss.item())
+        escale = ref_emb.abs().max().item()
+        eerr = (emb - ref_emb).abs().max().item()
+        scale = ref_logits.abs().max().item()
+        gerr = (logits - ref_logits).abs().max().item()
+        line = (f"[dlrm+tools] {label}: launches {launch_text(got)}, plain "
+                f"versions 0; loss {loss.item():.6f} against "
+                f"{ref_loss.item():.6f} (relative error {lerr:.3e}, limit "
+                f"{out_tol}); pooled embeddings max_abs_err {eerr:.3e} "
+                f"(limit {out_tol} x {escale:.3e}); logits max_abs_err "
+                f"{gerr:.3e} (limit {logit_tol} x {scale:.3e})")
+        if not (lerr <= out_tol and eerr <= out_tol * escale
+                and gerr <= logit_tol * scale):
+            fail(f"{label}: loss, embeddings or logits disagree with the "
+                 f"plain step: {line}")
+        # each leaf's update against the plain step's: within update_tol of
+        # its largest element (float32 staging), or by their cosine (bf16)
+        rel = {"cores": [0.0, 1.0], "mlp": [0.0, 1.0]}
+        for (name, new), (_, r_new), (_, r_old) in zip(
+                leaves_with_paths(params), leaves_with_paths(ref),
+                leaves_with_paths(old)):
+            dp, dp_ref = (new - r_old).flatten(), (r_new - r_old).flatten()
+            upd = dp_ref.abs().max().item()
+            err = (dp - dp_ref).abs().max().item()
+            cos = torch.nn.functional.cosine_similarity(dp, dp_ref,
+                                                        dim=0).item()
+            ok = (cos >= COS_MIN if update_tol is None
+                  else err <= update_tol * upd)
+            if not (torch.isfinite(new).all() and upd > 0 and ok):
+                fail(f"{label}: {name}'s update disagrees with the plain "
+                     f"step's (max error {err:.3e} against {upd:.3e}, "
+                     f"cosine {cos:.6f})")
+            part = rel["cores" if name.startswith(".tt_cores") else "mlp"]
+            part[0], part[1] = max(part[0], err / upd), min(part[1], cos)
+        limit = (f"cosine limit {COS_MIN}" if update_tol is None
+                 else f"limit {update_tol}")
+        print(line + "; " + ", ".join(
+            f"over the {what} max|dp - dp_plain| / max|dp_plain| "
+            f"{rel[k][0]:.3e}, least cos(dp, dp_plain) {rel[k][1]:.6f}"
+            for k, what in (("cores", f"{len(params.tt_cores)} cores"),
+                            ("mlp", "MLP weights and biases")))
+            + f" ({limit})")
+
+    # 1. five bf16 steps (pair mode: B1 once forward, B3 twice backward),
+    # one with float32 staging (B1 twice, no pair table), one under
+    # FBTT_DG0=fused (B6 for B3's i1 pass)
+    kstep = make_step()
+    for i in range(5):
+        checked("train_dlrm", kstep, {}, batches[i], want(B1=1, B3=2),
+                (OUT_TOL, DLRM_LOGIT_TOL, None),
+                f"dlrm SGD step {i} bf16 B={DLRM_B}")
+    checked("train_dlrm_f32", make_step(precision="highest"),
+            dict(precision="highest"), batches[5], want(B1=2, B3=2),
+            (F32_OUT_TOL, F32_OUT_TOL, F32_UPDATE_TOL),
+            f"dlrm SGD step float32 staging B={DLRM_B}")
+    with dg0_knob("fused"):
+        checked("train_dlrm_dg0", kstep, {}, batches[6],
+                want(B1=1, B3=1, B6=1), (OUT_TOL, DLRM_LOGIT_TOL, None),
+                f"dlrm SGD step FBTT_DG0=fused bf16 B={DLRM_B}")
+    # the step asks nothing of the host: no synchronising call in a step
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            kstep(clone(params), *batches[0])
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+    syncs = [str(w.message).splitlines()[0] for w in caught
+             if "called a synchronizing" in str(w.message)]
+    print(f"[dlrm+tools] dlrm step under torch.cuda.set_sync_debug_mode"
+          f"('warn'): {len(syncs)} synchronising call(s)"
+          + (f": {syncs[:3]}" if syncs else ""))
+
+    # 2. checkpoint: save, restore into fresh params (seed 99), the forward
+    # bitwise equal; the same through npz
+    probe = train_dlrm.make_batch(np.random.default_rng(7), cfg, DLRM_B,
+                                 "cuda")
+    with torch.no_grad():
+        before = dlrm.dlrm_forward(params, cfg, *probe[:2])
+    fresh = dlrm.init_dlrm_params(cfg, seed=99, device="cuda")  # a restart
+    tmp = tempfile.mkdtemp(prefix="dlrm_ckpt_")
+    try:
+        for fmt, save, restore, name in (
+                ("torch.save", checkpoint.save, checkpoint.restore, "ck"),
+                ("npz", checkpoint.save_npz, checkpoint.restore_npz,
+                 "ck.npz")):
+            path = os.path.join(tmp, name)
+            t0 = time.perf_counter()
+            save(path, params)
+            got = restore(path, like=fresh)
+            with torch.no_grad():
+                after = dlrm.dlrm_forward(got, cfg, *probe[:2])
+            if not torch.equal(before, after):
+                fail(f"checkpoint ({fmt}): the restored forward differs")
+            print(f"[dlrm+tools] checkpoint {fmt}: {os.path.getsize(path)} "
+                  f"bytes, save + restore {time.perf_counter() - t0:.2f} s; "
+                  "the restored params' forward bitwise equal")
+    finally:
+        shutil.rmtree(tmp)
+
+    # 3. guard: four guarded steps (sampled every 2) pass; a NaN placed in
+    # one core is named
+    gstep = guard.guard_step(kstep, every=2)
+    gparams = clone(params)
+    zero_counts()
+    for i in range(4):
+        _, gparams = gstep(gparams, *batches[i])
+    torch.cuda.synchronize()
+    got = counts()
+    for k in wrappers:
+        paths["train_dlrm"][k] += got[k]
+    if got != want(B1=4, B3=8):
+        fail(f"guarded steps: launches {got}")
+    gparams.tt_cores[1][3, 17, 5] = float("nan")
+    if bool(guard.finite_flag(gparams)):
+        fail("guard: finite_flag missed a NaN")
+    try:
+        guard.assert_finite(gparams)
+        fail("guard: assert_finite missed a NaN")
+    except guard.NonFiniteError as e:
+        if e.leaf_path != "params.tt_cores[1]":
+            fail(f"guard named {e.leaf_path!r}, not 'params.tt_cores[1]'")
+        named = str(e)
+    print(f"[dlrm+tools] guard_step(every=2): four steps passed; a NaN in "
+          f"core 1: {named}")
+    del gparams
+
+    # 4. the walkthrough at full size: 40 steps, the checkpoint's bitwise
+    # probe, held-out AUC (B1 43 = 40 steps + 2 probes + the eval forward)
+    zero_counts()
+    t0 = time.perf_counter()
+    with plain_watch() as plains:
+        res = train_dlrm.main(["--steps", "40"])
+    torch.cuda.synchronize()
+    got = counts()
+    paths["dlrm_walkthrough"] = got
+    if plains or got != want(B1=43, B3=80):
+        fail(f"walkthrough: launches {got}, plain versions {plains}")
+    if not res["last_loss"] < res["first_loss"]:
+        fail(f"walkthrough: loss did not fall ({res['first_loss']} -> "
+             f"{res['last_loss']})")
+    print(f"[dlrm+tools] train_dlrm.main(['--steps', '40']): loss "
+          f"{res['first_loss']:.4f} -> {res['last_loss']:.4f}, held-out AUC "
+          f"{res['auc']:.4f}; launches {launch_text(got)}; "
+          f"{time.perf_counter() - t0:.1f} s [{card}]")
+
+    # 5. the benchmark CLI at the reference headline (its defaults), with the
+    # nn.EmbeddingBag baseline, then on the generic kernels
+    sol = profiling.speed_of_light(P, Q, R[1:-1], nnz=B * POOL, batch_size=B)
+    steps = 3 + 10 + 100  # the slope's warm-up, k1 and k2
+    for path, argv, expect in (
+            ("cli", ["--iters", "100", "--run-baseline"],
+             want(B1=steps, B2=steps, B3=steps)),
+            ("cli_generic", ["--iters", "100", "--impl", "pallas"],
+             want(B4=steps, B5=steps))):
+        zero_counts()
+        with plain_watch() as plains:
+            res = benchmark.main(argv)
+        torch.cuda.synchronize()
+        got = counts()
+        paths[path] = got
+        if plains or got != expect:
+            fail(f"benchmark {argv}: launches {got}, plain versions {plains}")
+        base = (f", nn.EmbeddingBag(sparse) + SGD "
+                f"{res['baseline_us_per_nnz']:.4f} us/nnz"
+                if "baseline_us_per_nnz" in res else "")
+        print(f"[time] python -m fbtt_embedding_tpu_torch.benchmark "
+              f"{' '.join(argv)}: TTEmbeddingBag FWD-BWD "
+              f"{res['tt_us_per_nnz']:.4f} us/nnz{base}; launches "
+              f"{launch_text(got)}; speed_of_light t_sol_s "
+              f"{sol['t_sol_s']:.3e} s ({sol['t_sol_s'] / (B * POOL) * 1e6:.5f}"
+              f" us/nnz, {sol['bound']}-bound, {sol['device']}) [{card}]")
+        torch.cuda.empty_cache()
+
+    # 6. times: the step's device ms, device operations and host ms, with
+    # the lookup's forward + backward (with and without pair mode, in
+    # turns), the pair-table build and the dense tower split out
+    tparams = clone(params)
+    tstep = make_step(lr=1e-5)
+    batch = batches[0]
+
+    def call():
+        tstep(tparams, *batch)
+
+    dev, per, mhz = device_ms(call, n=25)
+    ops = device_ms.ops
+    host = host_ms(call)
+    cores = [c.detach().requires_grad_() for c in tparams.tt_cores]
+    g_emb = torch.randn(nt, DLRM_B, d, device="cuda")
+
+    def lookup_call():
+        emb = dlrm.fixed_pool_lookup(cores, batch[1], tp, qs, rs)
+        torch.autograd.grad(emb, cores, g_emb)
+
+    gate = tt_flat._pair_gate
+    looks = {"pair": [], "no pair": []}
+    for mode in ("pair", "no pair", "no pair", "pair"):
+        tt_flat._pair_gate = gate if mode == "pair" else \
+            (lambda *a, **k: False)
+        try:
+            looks[mode].append((device_ms(lookup_call, n=25)[0],
+                                device_ms.ops))
+        finally:
+            tt_flat._pair_gate = gate
+    gk = kernel_core_layouts([c.detach() for c in cores], tp, qs, rs)
+    pair_ms = device_ms(lambda: tt_flat._pair_table(
+        gk, tp, qs, rs, nt, torch.bfloat16))[0]
+    # the two one-hot products of the lookup: the pool (T*B bags by nnz)
+    # and dG0 (nnz by T*p0), on this batch's plan
+    nnz = batch[1].numel()
+    pos = torch.arange(nnz, dtype=torch.int32, device="cuda")
+    plan, nza = tt_flat._lookup_plan(
+        batch[1].reshape(nnz), (pos // cfg.pooling_factor) % DLRM_B,
+        pos // (DLRM_B * cfg.pooling_factor), None, None, tp, qs, rs, nt,
+        DLRM_B, torch.bfloat16, False, False)
+    rows = torch.randn(nza, d, device="cuda").to(torch.bfloat16)
+    dz0 = torch.randn(nza, qs[0] * rs[1], device="cuda")
+    pool_ms = device_ms(lambda: tt_flat._pool_flat(
+        rows, plan, nt * DLRM_B, torch.bfloat16))[0]
+    dg0_ms = device_ms(lambda: tt_flat._dg0(plan, dz0, nt * tp[0], qs[0],
+                                            rs[1]))[0]
+    mlp = map_leaves(lambda t: t.detach().requires_grad_(),
+                     (tparams.bottom_mlp, tparams.top_mlp))
+    mlp_leaves = [t for _, t in leaves_with_paths(mlp)]
+    emb = torch.randn(nt, DLRM_B, d, device="cuda", requires_grad=True)
+
+    def dense_call():
+        z = dlrm._interact(dlrm._mlp_apply(mlp[0], batch[0]), emb)
+        loss = dlrm.bce_loss(dlrm._mlp_apply(mlp[1], z)[:, 0], batch[2])
+        torch.autograd.grad(loss, mlp_leaves + [emb])
+
+    dense_ms = device_ms(dense_call, n=25)[0]
+    look = looks["pair"][0][0]
+    print(f"[time] dlrm step SGD B={DLRM_B} pooling {cfg.pooling_factor} "
+          f"T={nt} (bf16 staging, pair mode): device {dev:.4f} ms, {ops:.1f} "
+          f"device ops, host {host:.3f} ms per step (busy share "
+          f"{dev / host:.3f}); of the device time: the lookup forward + "
+          f"backward {look:.4f} ms (its pair-table build {pair_ms:.4f}, "
+          f"one-hot pool {pool_ms:.4f}, one-hot dG0 {dg0_ms:.4f}), the "
+          f"MLPs and the interaction forward + backward with the loss "
+          f"{dense_ms:.4f}, the rest (update, glue) "
+          f"{dev - look - dense_ms:.4f} ({mhz_text(mhz)}) [{card}]")
+    print(f"[time] dlrm lookup forward + backward, in turns pair, no pair, "
+          f"no pair, pair: pair mode "
+          + " / ".join(f"{m:.4f} ms ({o:.1f} ops)" for m, o in looks["pair"])
+          + ", without pair mode "
+          + " / ".join(f"{m:.4f} ms ({o:.1f} ops)"
+                       for m, o in looks["no pair"]) + f" [{card}]")
+    top = sorted(per.items(), key=lambda kv: -kv[1])[:6]
+    print("[time] dlrm step's largest device kernels (ms per step): "
+          + "; ".join(f"{kernel_name(k)} {v:.4f}" for k, v in top))
+    del tparams, cores, mlp, emb, plan, rows, dz0
+    torch.cuda.empty_cache()
+    print(f"[dlrm+tools] phase took {time.perf_counter() - t_phase:.1f} s; "
+          + "; ".join(f"{k} {launch_text(v)}" for k, v in paths.items()))
+    return paths
+
+
+def phase_mark(name, t_start):
+    """A line with the seconds from ``t_start`` to the phase's start."""
+    print(f"[phase] {name}: starts {time.perf_counter() - t_start:.1f} s "
+          "into the run", flush=True)
+
+
 def check_close(name, got, want, tol):
     """max |got - want| after asserting closeness at ``tol``."""
     import torch
@@ -1918,6 +2309,7 @@ def check_close(name, got, want, tol):
 def main():
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a card")
     root = Path(__file__).resolve().parent
@@ -2000,6 +2392,7 @@ def main():
         if n_hmma == 0:
             fail(f"{stem}'s SASS holds no HMMA instruction")
 
+    phase_mark("3 kernels vs plain", t_start)
     # 3. kernels vs plain
     rng = np.random.default_rng(0)
     seg = tt_flat.SEG
@@ -2295,6 +2688,7 @@ def main():
               + ", ".join(f"{e:.3e}" for e in gerrs)
               + " (rtol 1e-4, atol 1e-5), both bitwise repeatable, ok")
 
+    phase_mark("4 serve", t_start)
     # 4. serve at full width
     cores = fbt.init_tt_cores(np.random.default_rng(0), "uniform", 1, E, D,
                               P, Q, R)
@@ -2425,10 +2819,12 @@ def main():
     print(f"[serve] launches on the cache-probing serving path: "
           f"{cserve_launches}")
 
+    phase_mark("4b folded", t_start)
     # 4b. the folded serve at full width
     folded_launches, int8_launches = folded_phase(
         fbt, card, wrappers, params, serve, cache, cserve, request)
 
+    phase_mark("5 train", t_start)
     # 5. train at full width
     def clone(prm):
         return fbt.TTEmbeddingParams(
@@ -2665,13 +3061,20 @@ def main():
     print(f"[train] launches on the FBTT_DG0=fused training path: "
           f"{dtrain_launches}")
 
+    phase_mark("5b module", t_start)
     # 5b. the modules at full width
     module_launches = module_phase(fbt, card, wrappers, request, count_step)
 
+    phase_mark("5c native+wide", t_start)
     # 5c. the native optimizers and the wide-key cache
     nw_launches = native_wide_phase(fbt, card, wrappers, request, cores,
                                     cache, count_step)
 
+    phase_mark("5d dlrm+tools", t_start)
+    # 5d. the DLRM trainer and the tools
+    dt_launches = dlrm_tools_phase(fbt, card, wrappers)
+
+    phase_mark("6 times", t_start)
     # 6. times. B1 on the inputs the B=512 uniform and Zipf(1.05) serves
     # hand it, beside one torch._grouped_mm call on the same inputs; the
     # uniform one's times go into the kernels' line
@@ -2989,7 +3392,8 @@ def main():
                                cserve_launches, ctrain_launches,
                                dtrain_launches, module_launches,
                                folded_launches, int8_launches,
-                               *nw_launches.values())))
+                               *nw_launches.values(),
+                               *dt_launches.values())))
     kernels = []
     for name, rows in times.items():
         src, replaces = KERNELS[name]
@@ -3012,6 +3416,8 @@ def main():
                                   for r in rows) else None),
             **({"path": rows[0]["path"]} if "path" in rows[0] else {}),
         })
+    print(f"[phase] all phases took {time.perf_counter() - t_start:.1f} s",
+          flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

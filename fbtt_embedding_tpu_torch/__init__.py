@@ -23,12 +23,29 @@ tables of 2^31 rows or more, keyed by ``wide_keyrows``). The modules
 serving folds the cores once (``make_folded_serving_fn``,
 ``emb.freeze_for_serving``: the pair table on B1, optionally int8;
 ``refold_cache``; ``make_bucketed_serving_fn`` for requests of any size).
-Also the
+The DLRM model (``models.dlrm``: ``DLRMConfig``, ``init_dlrm_params``,
+``dlrm_forward``, ``make_dlrm_train_step``, one device) trains on the same
+lookup through autograd, with its walkthrough ``examples.train_dlrm``;
+the tooling: ``utils.checkpoint`` (``save`` / ``restore``, npz files in
+the JAX package's leaf order), ``utils.guard`` (``finite_flag``,
+``assert_finite``, ``guard_step``), ``utils.profiling`` (``trace``,
+``tt_flops``, ``slope_time``, ``speed_of_light``) and the benchmark CLI
+``python -m fbtt_embedding_tpu_torch.benchmark``. Also the
 dense-mode functions (``tt_forward``, ``tt_dense_backward``,
 ``tt_sgd_backward``, ...), ``tt_embedding_forward``, ``tt_matrix_to_full``
 and the TT-SVD import ``tt_decompose``.
 """
 
+from fbtt_embedding_tpu_torch.models.dlrm import (
+    DLRMConfig,
+    DLRMParams,
+    MLPParams,
+    bce_loss,
+    dlrm_forward,
+    dlrm_params_from_jax,
+    init_dlrm_params,
+    make_dlrm_train_step,
+)
 from fbtt_embedding_tpu_torch.models.tt_embedding import (
     FoldedServingParams,
     OptimType,
@@ -123,21 +140,26 @@ from fbtt_embedding_tpu_torch.ops.lookup import (
     tt_forward,
     tt_grads_from_row_cotangents,
 )
+from fbtt_embedding_tpu_torch.utils import checkpoint, guard, profiling
 from fbtt_embedding_tpu_torch.utils.decompose import tt_decompose
 from fbtt_embedding_tpu_torch.utils.init import core_shapes, init_tt_cores
 from fbtt_embedding_tpu_torch.utils.shapes import suggested_tt_shapes
 
 __all__ = [
     "CacheState",
-    "NATIVE_HPARAM_DEFAULTS",
+    "DLRMConfig",
+    "DLRMParams",
     "FlatLookup",
     "FoldedServingParams",
     "GenericLookup",
+    "MLPParams",
+    "NATIVE_HPARAM_DEFAULTS",
     "OptimType",
     "TTEmbeddingBag",
     "TTEmbeddingParams",
     "TableBatchedTTEmbeddingBag",
     "adagrad_step",
+    "bce_loss",
     "cache_backward_adagrad",
     "cache_backward_dense",
     "cache_backward_rowwise_adagrad_approx",
@@ -145,16 +167,22 @@ __all__ = [
     "cache_forward",
     "cache_lookup",
     "cache_populate",
+    "checkpoint",
     "core_shapes",
     "decompose_indices",
     "decompose_indices64",
+    "dlrm_forward",
+    "dlrm_params_from_jax",
     "flat_train_apply",
     "generic_available",
+    "guard",
     "hash_keys",
     "hash_keys_wide",
+    "init_dlrm_params",
     "init_tt_cores",
     "make_bucketed_serving_fn",
     "make_cache_state",
+    "make_dlrm_train_step",
     "make_folded_serving_fn",
     "make_fused_train_step",
     "make_serving_fn",
@@ -166,6 +194,7 @@ __all__ = [
     "pooled_tt_lookup",
     "populate_plan",
     "preprocess_indices",
+    "profiling",
     "refold_cache",
     "reset_cache",
     "rowidx_from_offsets",

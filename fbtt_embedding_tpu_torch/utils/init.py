@@ -84,15 +84,18 @@ def init_tt_cores(
         # N(0,1) conditioned on |w| >= 2, then scaled so the product of
         # ndim cores reconstructs ~N(0, 1/sqrt(E)) rows
         # (tt_embeddings_ops.py:642-659). Vectorized rejection sampling in
-        # place of the reference's per-element Python loop.
+        # place of the reference's per-element Python loop; each round
+        # redraws the rejected elements in row-major order, as the JAX
+        # package does, and tests only those again.
         scale = np.power(1.0 / np.sqrt(3.0 * num_embeddings), 1.0 / 3.0)
         out = []
         for s in shapes:
             w = rng.normal(0.0, 1.0, size=s)
-            bad = np.abs(w) < 2.0
-            while bad.any():
-                w[bad] = rng.normal(0.0, 1.0, size=int(bad.sum()))
-                bad = np.abs(w) < 2.0
+            flat = w.reshape(-1)
+            bad = np.flatnonzero(np.abs(flat) < 2.0)
+            while bad.size:
+                flat[bad] = rng.normal(0.0, 1.0, size=bad.size)
+                bad = bad[np.abs(flat[bad]) < 2.0]
             out.append((w * scale).astype(np.float32))
         return out
 

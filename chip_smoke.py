@@ -172,6 +172,29 @@ CUDA card and ``nvcc``). Phases, each printing its own lines:
    lookup's forward + backward (with and without pair mode, in turns; its
    pair-table build, one-hot pool and one-hot dG0 product) and the MLPs
    with the interaction;
+5e. multi: ``torch.distributed`` worlds on the one card, each rank a
+   fresh process (``chip_smoke.py --multi-child ...``; the kernels and the
+   native loader built once here first), a world of 1 on NCCL, then one of
+   2 on gloo (NCCL takes one rank a card; gloo takes CUDA tensors for
+   all_reduce, all_gather and all_to_all, ``scripts/probe_gloo_cuda.py``).
+   On each: the data-parallel SGD step (``make_sharded_fused_train_step``)
+   of the headline model with LFU counting on (direct, ``hashtbl_size`` E,
+   ``cache_size`` E / 10), global B=1024 at pooling 20, run twice from the
+   same state (bitwise equal), the replicas' cores equal
+   (``assert_replicas_agree``), the launches equal to one device's on the
+   rank's block (B1, B2, B3; pair mode at 1024 a rank: B2, B3) and no
+   plain version, the gathered output and the cores held against the
+   single-device step on the whole batch (``hold_step``'s limits), the
+   counts equal to its counts; then ten Zipf(1.05) batches from the
+   native ``PrefetchLoader`` through ``csr_step_adapter`` (its output
+   bitwise the fixed batch's; B2 and B3 once a step), the loader's
+   batches/s alone and the step rate with it. On the world of 2 also the
+   table-sharded DLRM at DLRM_KW on a ``(dp, mp) = (1, 2)`` mesh, twice
+   (bitwise equal), held against the single-device DLRM step (loss at
+   OUT_TOL, logits at DLRM_LOGIT_TOL, each leaf's update by its cosine),
+   B1 and B3 launched, and ``examples.train_dlrm --steps 40 --mesh 1,2``
+   (the loss must fall). Each step's device ms and operations, host ms
+   and the collectives' host ms, per rank; a failing rank fails the run;
 6. times: each kernel pass's time per call on two yardsticks, beside its
    bound and its plain version's on both: between CUDA events over
    back-to-back calls (the kernels' line's ``ms`` and ``plain_ms``; the
@@ -260,7 +283,8 @@ PATHS = ("serve", "train", "serve_generic", "train_generic", "serve_cached",
          "serve_folded_int8", "train_native", "train_wide_cache",
          "serve_wide_cache", "module_wide_cache", "train_dlrm",
          "train_dlrm_f32", "train_dlrm_dg0", "dlrm_walkthrough", "cli",
-         "cli_generic")
+         "cli_generic", "train_multi_dp", "train_multi_csr",
+         "train_multi_dlrm", "dlrm_walkthrough_mesh")
 LR, EPS = 0.005, 1.0        # training steps of the check (EPS: Adagrad)
 # bf16 staging against the float32 plain step: outputs within 5e-3 of
 # max|out| (the serve's limit); each core's update within 3e-2 of its
@@ -300,6 +324,8 @@ DLRM_B, DLRM_LR = 512, 0.05
 # at this configuration and B=64, embeddings within 3.8e-3 of their largest
 # gave logits within 7.2e-3 of theirs
 DLRM_LOGIT_TOL = 2e-2
+# phase 5e: the data-parallel step's global batch, and the steps per timing
+MULTI_B, MULTI_STEPS = 1024, 10
 
 
 def fail(msg):
@@ -2287,6 +2313,396 @@ def dlrm_tools_phase(fbt, card, wrappers):
     return paths
 
 
+def world_device_ms(fn, n=10):
+    """Device ms per call of ``fn`` (a step with collectives, run by every
+    rank of a world the same number of times): the summed durations of the
+    device work between two marker kernels around ``n`` calls under
+    ``torch.profiler``, and the device operations per call; (None, None)
+    where the tracer dropped a marker (no retry: the ranks must run the
+    same calls)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1)
+        for _ in range(n):
+            fn()
+        torch.cuda._sleep(1)
+        torch.cuda.synchronize()
+    cuda = [ev for ev in prof.events() if ev.device_type == DeviceType.CUDA]
+    spins = sorted((ev.time_range for ev in cuda
+                    if "spin_kernel" in ev.name), key=lambda r: r.start)
+    if len(spins) != 2:
+        return None, None
+    lo, hi = spins[0].end, spins[1].start
+    inside = [ev for ev in cuda
+              if lo <= ev.time_range.start and ev.time_range.end <= hi]
+    return (sum(ev.time_range.elapsed_us() for ev in inside) / n / 1e3,
+            len(inside) / n)
+
+
+def world_host_ms(fn, n=10):
+    """Median host ms of one call of ``fn`` ending in a synchronise, over
+    ``n`` calls after a barrier (every rank runs the same calls)."""
+    import torch
+    import torch.distributed as dist
+
+    fn()
+    torch.cuda.synchronize()
+    dist.barrier()
+    samples = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        samples.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(samples)
+
+
+def world_times(fn, n=MULTI_STEPS):
+    """``(device ms, device operations, host ms, collective ms, collective
+    calls)`` per call of a world's step ``fn``; the collectives' host time
+    is read in a run of its own (each collective then synchronises)."""
+    from fbtt_embedding_tpu_torch.parallel import collectives
+
+    dev, ops = world_device_ms(fn, n)
+    host = world_host_ms(fn, n)
+    with collectives.timed() as rec:
+        for _ in range(n):
+            fn()
+    return dev, ops, host, rec["ms"] / n, rec["calls"] / n
+
+
+def times_of(t):
+    dev, ops, host, coll, calls = t
+    dev_txt = "not measured" if dev is None else f"{dev:.3f} ms"
+    return (f"device {dev_txt} ({ops} device operations), host {host:.3f} "
+            f"ms, collectives {coll:.3f} ms host time ({calls:g} calls) "
+            "per step")
+
+
+def multi_child(spec):
+    """One rank of phase 5e's worlds (``chip_smoke.py --multi-child
+    world,rank,backend,init_url,out_dir``): the data-parallel step at the
+    headline, the CSR path from the native loader, and (world 2) the
+    table-sharded DLRM, each held against the single-device step in this
+    process, and the walkthrough on the mesh; writes ``rank<r>.json``
+    (launches per path, times)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    world, rank, backend, init, out_dir = spec.split(",", 4)
+    world, rank = int(world), int(rank)
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import fbtt_embedding_tpu_torch as fbt
+    from fbtt_embedding_tpu_torch import native
+    from fbtt_embedding_tpu_torch.examples import train_dlrm
+    from fbtt_embedding_tpu_torch.models import dlrm
+    from fbtt_embedding_tpu_torch.ops.kernels.seg_accum import seg_accum
+    from fbtt_embedding_tpu_torch.ops.kernels.seg_accum_dg0 import (
+        seg_accum_dg0,
+    )
+    from fbtt_embedding_tpu_torch.ops.kernels.seg_fused_i2 import (
+        seg_fused_i2,
+    )
+    from fbtt_embedding_tpu_torch.ops.kernels.seg_transform import (
+        seg_transform,
+    )
+    from fbtt_embedding_tpu_torch.ops.kernels.tt_bwd import tt_bwd
+    from fbtt_embedding_tpu_torch.ops.kernels.tt_fwd import tt_fwd
+    from fbtt_embedding_tpu_torch.parallel import host_local_slice
+    from fbtt_embedding_tpu_torch.parallel.collectives import all_gather_cat
+    from fbtt_embedding_tpu_torch.utils import guard
+    from fbtt_embedding_tpu_torch.utils._tree import (
+        leaves_with_paths,
+        map_leaves,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    wrappers = {"seg_transform": seg_transform, "seg_fused_i2": seg_fused_i2,
+                "seg_accum": seg_accum, "seg_accum_dg0": seg_accum_dg0,
+                "tt_fwd": tt_fwd, "tt_bwd": tt_bwd}
+
+    def zero_counts():
+        for fn in wrappers.values():
+            fn.launches = 0
+
+    def counts():
+        return {name: fn.launches for name, fn in wrappers.items()}
+
+    fbt.initialize_distributed(init, world, rank, backend=backend,
+                               device="cuda", timeout_s=300)
+    tag = f"[multi] world {world} {backend} rank {rank}"
+    res = {"launches": {}, "times": {}}
+    try:
+        cuda = torch.device("cuda", torch.cuda.current_device())
+        mesh = fbt.make_mesh((world,), ("dp",), device_type="cuda")
+        bl = MULTI_B // world
+        spec_b = (None, "dp")
+
+        # 1. the data-parallel step at the headline, LFU counting on
+        rng = np.random.default_rng(0)
+        cores_np = fbt.init_tt_cores(rng, "uniform", 1, E, D, P, Q, R)
+        g_idx = rng.integers(0, E, size=(1, MULTI_B, POOL)).astype(np.int32)
+        g_dout = rng.normal(size=(1, MULTI_B, D)).astype(np.float32)
+
+        def fresh():
+            prm = fbt.params_from_jax(cores_np, device=cuda)
+            prm.cache = fbt.make_cache_state(E, E // 10, D,
+                                             num_embeddings=E, device=cuda)
+            return prm
+
+        step = fbt.make_sharded_fused_train_step(
+            mesh, P, Q, R, 1, MULTI_B, POOL, use_cache=True, device=cuda)
+        idx_l = torch.tensor(host_local_slice(mesh, spec_b, g_idx),
+                             device=cuda)
+        dout_l = torch.tensor(host_local_slice(mesh, spec_b, g_dout),
+                              device=cuda)
+        lr_eps = (LR, EPS)
+        zero_counts()
+        with plain_watch() as plains:
+            out_a, prm_a = step(fresh(), idx_l, dout_l, lr_eps)
+            torch.cuda.synchronize()
+        got = counts()
+        res["launches"]["train_multi_dp"] = got
+        out_b, prm_b = step(fresh(), idx_l, dout_l, lr_eps)
+        same = (torch.equal(out_a, out_b)
+                and all(torch.equal(a, b) for a, b in zip(prm_a.tt_cores,
+                                                          prm_b.tt_cores))
+                and torch.equal(prm_a.cache.freq, prm_b.cache.freq))
+        # the same kernels as one device on this rank's block
+        one = fbt.make_fused_train_step(P, Q, R, 1, bl, use_cache=True,
+                                        device=cuda)
+        zero_counts()
+        one(fresh(), idx_l.reshape(-1), torch.arange(
+            0, bl * POOL + 1, POOL, device=cuda), dout_l, lr_eps)
+        want = counts()
+        for c in prm_a.tt_cores:
+            guard.assert_replicas_agree(mesh, "dp", c, what="core")
+        guard.assert_replicas_agree(mesh, "dp", prm_a.cache.freq.sum(),
+                                    what="LFU count total")
+        out_all = all_gather_cat(out_a[0], mesh.get_group("dp"))[None]
+        ref_step = fbt.make_fused_train_step(P, Q, R, 1, MULTI_B,
+                                             use_cache=True, device=cuda)
+        ref_out, ref = ref_step(fresh(), g_idx.reshape(-1), np.arange(
+            0, MULTI_B * POOL + 1, POOL), g_dout, lr_eps)
+        line = (f"{tag}: dp SGD step with LFU counting, global B={MULTI_B} "
+                f"({bl} a rank) pooling {POOL}: launches {launch_text(got)} "
+                f"(one device on the rank's block: {launch_text(want)}), "
+                f"plain versions {plains or 0}; two runs bitwise equal "
+                f"{same}")
+        line = hold_step(line, out_all, ref_out, prm_a, ref, fresh(),
+                         OUT_TOL, UPDATE_TOL, f"{tag} dp step")
+        counts_equal = torch.equal(prm_a.cache.freq, ref.cache.freq)
+        print(line + f"; LFU counts equal to one device's over the global "
+              f"batch {counts_equal}", flush=True)
+        if plains or got != want or got["seg_accum"] == 0 or not same \
+                or not counts_equal:
+            fail(f"{tag}: the dp step's launches, repeatability or counts")
+        del prm_b, out_b, ref
+        scratch = fresh()
+        res["times"]["dp"] = world_times(
+            lambda: step(scratch, idx_l, dout_l, (1e-4, EPS)))
+        print(f"{tag}: dp step {times_of(res['times']['dp'])} [{card_line()}]",
+              flush=True)
+
+        # 2. the CSR path: native loader batches (Zipf 1.05) through
+        # csr_step_adapter into the dp step
+        n_csr = MULTI_STEPS
+        rate_loader = native.PrefetchLoader(E, 1, MULTI_B, POOL, alpha=1.05,
+                                            seed=100, num_batches=4 * n_csr)
+        t0 = time.perf_counter()
+        n_pulled = sum(1 for _ in rate_loader)
+        loader_rate = n_pulled / (time.perf_counter() - t0)
+        rate_loader.close()
+        adapter = fbt.csr_step_adapter(step, 1, bl, POOL)
+
+        def block(idx, offs):
+            lo, hi = int(offs[rank * bl]), int(offs[(rank + 1) * bl])
+            return idx[lo:hi], offs[rank * bl:(rank + 1) * bl + 1] - lo
+
+        first = native.generate_batch(100, E, 1, MULTI_B, POOL, alpha=1.05)
+        c_idx, c_offs = block(first[0], first[1])
+        out_c, _ = adapter(fresh(), c_idx, c_offs, dout_l, lr_eps)
+        out_f, _ = step(fresh(), torch.tensor(c_idx.reshape(1, bl, POOL),
+                                              device=cuda), dout_l, lr_eps)
+        if not torch.equal(out_c, out_f):
+            fail(f"{tag}: the CSR adapter disagrees with the fixed batch")
+        loader = native.PrefetchLoader(E, 1, MULTI_B, POOL, alpha=1.05,
+                                       seed=100, num_batches=n_csr)
+        zero_counts()
+        dist.barrier()
+        t0 = time.perf_counter()
+        with plain_watch() as plains:
+            for g_i, g_o, _ in loader:
+                adapter(scratch, *block(g_i, g_o), dout_l, (1e-4, EPS))
+            torch.cuda.synchronize()
+        csr_ms = (time.perf_counter() - t0) * 1e3 / n_csr
+        loader.close()
+        got = counts()
+        res["launches"]["train_multi_csr"] = got
+        res["times"]["csr_ms"], res["times"]["loader_bps"] = csr_ms, loader_rate
+        print(f"{tag}: CSR path ({n_csr} PrefetchLoader batches, Zipf 1.05, "
+              f"E={E}, global B={MULTI_B} pooling {POOL}, through "
+              f"csr_step_adapter): launches {launch_text(got)}, plain "
+              f"versions {plains or 0}; adapter output bitwise the fixed "
+              f"batch's; {csr_ms:.3f} ms a step with the loader "
+              f"({1e3 / csr_ms:.1f} steps/s); the loader alone "
+              f"{loader_rate:.1f} batches/s [{card_line()}]", flush=True)
+        # B2 and B3 once a step on the flat path, with or without pair mode
+        if plains or got["seg_fused_i2"] != n_csr \
+                or got["seg_accum"] != n_csr:
+            fail(f"{tag}: the CSR path's launches")
+        del scratch
+
+        # 3. the table-sharded DLRM at DLRM_KW on a (1, world) mesh
+        if world > 1:
+            dmesh = fbt.make_mesh((1, world), ("dp", "mp"),
+                                  device_type="cuda")
+            cfg = dlrm.DLRMConfig(**DLRM_KW)
+            full = dlrm.init_dlrm_params(cfg, seed=0, device=cuda)
+            batch = train_dlrm.make_batch(np.random.default_rng(8), cfg,
+                                          DLRM_B, cuda)
+            rows = (("dp", "mp"),)
+            local = (host_local_slice(dmesh, rows, batch[0]),
+                     host_local_slice(dmesh, ("mp", "dp"), batch[1]),
+                     host_local_slice(dmesh, rows, batch[2]))
+            lookup = fbt.make_table_sharded_lookup(
+                dmesh, cfg.tt_p_shapes, cfg.tt_q_shapes, cfg.tt_ranks)
+            dstep = dlrm.make_dlrm_train_step(cfg, mesh=dmesh,
+                                              learning_rate=DLRM_LR,
+                                              device=cuda)
+
+            def sharded():
+                return dlrm.shard_dlrm_params(full, cfg, dmesh)
+
+            with torch.no_grad():
+                logits = all_gather_cat(dlrm.dlrm_forward(
+                    sharded(), cfg, local[0], local[1], lookup))
+                ref_logits = dlrm.dlrm_forward(full, cfg, batch[0], batch[1])
+            zero_counts()
+            with plain_watch() as plains:
+                loss_a, pa = dstep(sharded(), *local)
+                torch.cuda.synchronize()
+            got = counts()
+            res["launches"]["train_multi_dlrm"] = got
+            loss_b, pb = dstep(sharded(), *local)
+            same = torch.equal(loss_a, loss_b) and all(
+                torch.equal(a, b) for (_, a), (_, b) in zip(
+                    leaves_with_paths(pa), leaves_with_paths(pb)))
+            one_step = dlrm.make_dlrm_train_step(cfg, learning_rate=DLRM_LR,
+                                                 device=cuda)
+            loss_r, pr = one_step(map_leaves(torch.clone, full), *batch)
+            mine = dlrm.shard_dlrm_params(pr, cfg, dmesh)
+            old = sharded()
+            lerr = abs(loss_a.item() - loss_r.item()) / abs(loss_r.item())
+            gerr = (logits - ref_logits).abs().max().item()
+            gscale = ref_logits.abs().max().item()
+            least_cos = 1.0
+            for (name, new), (_, r_new), (_, r_old) in zip(
+                    leaves_with_paths(pa), leaves_with_paths(mine),
+                    leaves_with_paths(old)):
+                cos = torch.nn.functional.cosine_similarity(
+                    (new - r_old).flatten(), (r_new - r_old).flatten(),
+                    dim=0).item()
+                least_cos = min(least_cos, cos)
+                if not (torch.isfinite(new).all() and cos >= COS_MIN):
+                    fail(f"{tag}: DLRM {name}'s update against one device's "
+                         f"(cosine {cos:.6f})")
+            print(f"{tag}: table-sharded DLRM (dp, mp) = (1, {world}) at "
+                  f"DLRM_KW, global B={DLRM_B}: launches {launch_text(got)}, "
+                  f"plain versions {plains or 0}; two runs bitwise equal "
+                  f"{same}; loss {loss_a.item():.6f} against one device's "
+                  f"{loss_r.item():.6f} (relative error {lerr:.3e}, limit "
+                  f"{OUT_TOL}); logits max_abs_err {gerr:.3e} (limit "
+                  f"{DLRM_LOGIT_TOL} x {gscale:.3e}); least cos(dp, "
+                  f"dp_one_device) over this rank's leaves {least_cos:.6f} "
+                  f"(limit {COS_MIN})", flush=True)
+            if (plains or not got["seg_transform"] or not got["seg_accum"]
+                    or not same or lerr > OUT_TOL
+                    or gerr > DLRM_LOGIT_TOL * gscale):
+                fail(f"{tag}: the DLRM step's launches, repeatability, loss "
+                     "or logits")
+            del pa, pb, pr, mine, old
+            dscratch = sharded()
+            res["times"]["dlrm"] = world_times(
+                lambda: dstep(dscratch, *local))
+            print(f"{tag}: DLRM step {times_of(res['times']['dlrm'])} "
+                  f"[{card_line()}]", flush=True)
+            del dscratch
+            # the walkthrough on this world's mesh, at its full size
+            zero_counts()
+            with plain_watch() as plains:
+                walk = train_dlrm.main(["--steps", "40", "--mesh",
+                                        f"1,{world}", "--device", "cuda"])
+            got = counts()
+            res["launches"]["dlrm_walkthrough_mesh"] = got
+            print(f"{tag}: examples.train_dlrm --steps 40 --mesh 1,{world}: "
+                  f"loss {walk['first_loss']:.4f} -> {walk['last_loss']:.4f}, "
+                  f"held-out AUC {walk['auc']:.4f} over the gathered logits; "
+                  f"launches {launch_text(got)}, plain versions "
+                  f"{plains or 0}", flush=True)
+            if plains or not walk["last_loss"] < walk["first_loss"] \
+                    or not got["seg_accum"]:
+                fail(f"{tag}: the walkthrough on the mesh")
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(res, f)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def multi_phase(card):
+    """Phase 5e of the docstring: the worlds of ``multi_child``, one after
+    the other on the card (world 1 on NCCL, world 2 on gloo), each child a
+    fresh process (spawned, never forked), the kernels and the native
+    loader built here first. Any child's failure fails the run. Returns
+    the launches of the paths ``train_multi_dp``, ``train_multi_csr``
+    (summed over the ranks of both worlds), ``train_multi_dlrm`` and
+    ``dlrm_walkthrough_mesh`` (the world of 2)."""
+    import tempfile
+
+    from fbtt_embedding_tpu_torch import native
+
+    t_phase = time.perf_counter()
+    print(f"[multi] native loader built: {native.build()}", flush=True)
+    paths = {}
+    for world, backend in ((1, "nccl"), (2, "gloo")):
+        with tempfile.TemporaryDirectory() as tmp:
+            init = "file://" + os.path.join(tmp, "rendezvous")
+            procs = [subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()),
+                 "--multi-child", f"{world},{r},{backend},{init},{tmp}"])
+                for r in range(world)]
+            try:
+                rcs = [p.wait(timeout=900) for p in procs]
+            finally:
+                for p in procs:
+                    if p.poll() is None:
+                        p.kill()
+                        p.wait()
+            if any(rcs):
+                fail(f"phase 5e: a rank of the world of {world} ({backend}) "
+                     f"failed: exit codes {rcs}")
+            for r in range(world):
+                with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                    res = json.load(f)
+                for path, got in res["launches"].items():
+                    acc = paths.setdefault(path, dict.fromkeys(got, 0))
+                    for k, v in got.items():
+                        acc[k] += v
+    print(f"[multi] phase took {time.perf_counter() - t_phase:.1f} s; "
+          f"launches summed over the ranks {paths} [{card}]", flush=True)
+    return paths
+
+
 def phase_mark(name, t_start):
     """A line with the seconds from ``t_start`` to the phase's start."""
     print(f"[phase] {name}: starts {time.perf_counter() - t_start:.1f} s "
@@ -3074,6 +3490,10 @@ def main():
     # 5d. the DLRM trainer and the tools
     dt_launches = dlrm_tools_phase(fbt, card, wrappers)
 
+    phase_mark("5e multi", t_start)
+    # 5e. multi-GPU: data-parallel worlds of 1 (NCCL) and 2 (gloo) ranks
+    multi_launches = multi_phase(card)
+
     phase_mark("6 times", t_start)
     # 6. times. B1 on the inputs the B=512 uniform and Zipf(1.05) serves
     # hand it, beside one torch._grouped_mm call on the same inputs; the
@@ -3393,7 +3813,8 @@ def main():
                                dtrain_launches, module_launches,
                                folded_launches, int8_launches,
                                *nw_launches.values(),
-                               *dt_launches.values())))
+                               *dt_launches.values(),
+                               *(multi_launches[k] for k in PATHS[-4:]))))
     kernels = []
     for name, rows in times.items():
         src, replaces = KERNELS[name]
@@ -3426,4 +3847,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--multi-child"]:
+        sys.exit(multi_child(sys.argv[2]))
     sys.exit(main())

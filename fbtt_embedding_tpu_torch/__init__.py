@@ -24,8 +24,15 @@ serving folds the cores once (``make_folded_serving_fn``,
 ``emb.freeze_for_serving``: the pair table on B1, optionally int8;
 ``refold_cache``; ``make_bucketed_serving_fn`` for requests of any size).
 The DLRM model (``models.dlrm``: ``DLRMConfig``, ``init_dlrm_params``,
-``dlrm_forward``, ``make_dlrm_train_step``, one device) trains on the same
-lookup through autograd, with its walkthrough ``examples.train_dlrm``;
+``dlrm_forward``, ``make_dlrm_train_step``) trains on the same lookup
+through autograd, with its walkthrough ``examples.train_dlrm``; on several
+GPUs (``parallel``, on ``torch.distributed``: ``initialize_distributed``,
+``make_mesh`` / ``make_hybrid_mesh``, the data-parallel and table-sharded
+lookups, the data-parallel fused step ``make_sharded_fused_train_step``
+with ``csr_step_adapter``, the table-sharded DLRM step with
+``shard_dlrm_params``), the host batches coming from the native loader
+(``native``: ``generate_batch``, ``PrefetchLoader``, the CSR re-layout
+``pad_csr_to_fixed``);
 the tooling: ``utils.checkpoint`` (``save`` / ``restore``, npz files in
 the JAX package's leaf order), ``utils.guard`` (``finite_flag``,
 ``assert_finite``, ``guard_step``), ``utils.profiling`` (``trace``,
@@ -36,6 +43,7 @@ dense-mode functions (``tt_forward``, ``tt_dense_backward``,
 and the TT-SVD import ``tt_decompose``.
 """
 
+from fbtt_embedding_tpu_torch import native, parallel
 from fbtt_embedding_tpu_torch.models.dlrm import (
     DLRMConfig,
     DLRMParams,
@@ -45,6 +53,7 @@ from fbtt_embedding_tpu_torch.models.dlrm import (
     dlrm_params_from_jax,
     init_dlrm_params,
     make_dlrm_train_step,
+    shard_dlrm_params,
 )
 from fbtt_embedding_tpu_torch.models.tt_embedding import (
     FoldedServingParams,
@@ -87,6 +96,7 @@ from fbtt_embedding_tpu_torch.ops.contraction import (
 from fbtt_embedding_tpu_torch.ops.indexing import (
     decompose_indices,
     decompose_indices64,
+    pad_csr_to_fixed,
     rowidx_from_offsets,
     tt_strides,
     wide_keyrows,
@@ -140,7 +150,20 @@ from fbtt_embedding_tpu_torch.ops.lookup import (
     tt_forward,
     tt_grads_from_row_cotangents,
 )
+from fbtt_embedding_tpu_torch.parallel import (
+    csr_step_adapter,
+    initialize_distributed,
+    make_dp_lookup,
+    make_hybrid_mesh,
+    make_mesh,
+    make_sharded_fused_train_step,
+    make_table_sharded_lookup,
+)
 from fbtt_embedding_tpu_torch.utils import checkpoint, guard, profiling
+from fbtt_embedding_tpu_torch.utils.guard import (
+    ReplicaDivergenceError,
+    assert_replicas_agree,
+)
 from fbtt_embedding_tpu_torch.utils.decompose import tt_decompose
 from fbtt_embedding_tpu_torch.utils.init import core_shapes, init_tt_cores
 from fbtt_embedding_tpu_torch.utils.shapes import suggested_tt_shapes
@@ -155,10 +178,12 @@ __all__ = [
     "MLPParams",
     "NATIVE_HPARAM_DEFAULTS",
     "OptimType",
+    "ReplicaDivergenceError",
     "TTEmbeddingBag",
     "TTEmbeddingParams",
     "TableBatchedTTEmbeddingBag",
     "adagrad_step",
+    "assert_replicas_agree",
     "bce_loss",
     "cache_backward_adagrad",
     "cache_backward_dense",
@@ -169,6 +194,7 @@ __all__ = [
     "cache_populate",
     "checkpoint",
     "core_shapes",
+    "csr_step_adapter",
     "decompose_indices",
     "decompose_indices64",
     "dlrm_forward",
@@ -180,14 +206,23 @@ __all__ = [
     "hash_keys_wide",
     "init_dlrm_params",
     "init_tt_cores",
+    "initialize_distributed",
     "make_bucketed_serving_fn",
     "make_cache_state",
     "make_dlrm_train_step",
+    "make_dp_lookup",
     "make_folded_serving_fn",
     "make_fused_train_step",
+    "make_hybrid_mesh",
+    "make_mesh",
     "make_serving_fn",
+    "make_sharded_fused_train_step",
+    "make_table_sharded_lookup",
+    "native",
     "native_optim_init",
     "native_optim_step",
+    "pad_csr_to_fixed",
+    "parallel",
     "params_from_jax",
     "params_from_state_dict",
     "pool_rows",
@@ -207,6 +242,7 @@ __all__ = [
     "seg_transform",
     "seg_transform_plain",
     "sgd_step",
+    "shard_dlrm_params",
     "suggested_tt_shapes",
     "tt_adagrad_backward",
     "tt_backward_kernel",

@@ -1,11 +1,13 @@
 """DLRM-style recommendation model over TT-compressed embedding tables.
 
-Counterpart of ``fbtt_embedding_tpu.models.dlrm`` on one device: a dense
-tower (bottom MLP -> pairwise dot interaction -> top MLP) fed by ``T``
-TT-compressed tables. The lookup is the port's ``pooled_tt_lookup`` (the
-flat pipeline's kernels on the card), differentiated by autograd through
-``FlatLookup``; the MLPs and the interaction are ``torch.matmul`` /
-``einsum``, as the JAX package computes them outside any kernel.
+Counterpart of ``fbtt_embedding_tpu.models.dlrm``: a dense tower (bottom
+MLP -> pairwise dot interaction -> top MLP) fed by ``T`` TT-compressed
+tables. The lookup is the port's ``pooled_tt_lookup`` (the flat pipeline's
+kernels on the card), differentiated by autograd through ``FlatLookup``;
+the MLPs and the interaction are ``torch.matmul`` / ``einsum``, as the JAX
+package computes them outside any kernel. On a mesh the cores are
+table-sharded and the embeddings exchanged (``parallel.sharded``), the
+dense tower data-parallel.
 
 All state lives in :class:`DLRMParams`; :func:`make_dlrm_train_step`
 updates it in place (the JAX step donates its buffers).
@@ -19,7 +21,13 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from fbtt_embedding_tpu_torch.ops.lookup import pooled_tt_lookup
+from fbtt_embedding_tpu_torch.parallel.collectives import all_reduce_sum
+from fbtt_embedding_tpu_torch.parallel.mesh import axis_group, axis_size
+from fbtt_embedding_tpu_torch.parallel.sharded import (
+    fixed_pool_lookup,
+    make_table_sharded_lookup,
+    shard_params_for_table_parallel,
+)
 from fbtt_embedding_tpu_torch.utils._tree import leaves_with_paths, map_leaves
 from fbtt_embedding_tpu_torch.utils.init import init_tt_cores
 
@@ -115,10 +123,12 @@ def init_dlrm_params(cfg: DLRMConfig, seed: int = 0,
     return DLRMParams(cores, bottom, top)
 
 
-def dlrm_params_from_jax(params, device="cuda") -> DLRMParams:
+def dlrm_params_from_jax(params, device="cuda", mesh=None,
+                         table_axis: str = "mp") -> DLRMParams:
     """The JAX package's ``DLRMParams`` (its leaves as numpy arrays, or any
     object with the same fields) -> this package's, every tensor a copy on
-    ``device``."""
+    ``device``; with ``mesh``, this rank's block of the cores
+    (:func:`shard_dlrm_params`)."""
     def put(a):
         return torch.tensor(np.asarray(a), device=device)
 
@@ -126,35 +136,26 @@ def dlrm_params_from_jax(params, device="cuda") -> DLRMParams:
         return MLPParams(tuple(put(w) for w in m.weights),
                          tuple(put(b) for b in m.biases))
 
-    return DLRMParams(tuple(put(c) for c in params.tt_cores),
-                      mlp(params.bottom_mlp), mlp(params.top_mlp))
+    cores = (tuple(put(c) for c in params.tt_cores) if mesh is None else
+             shard_params_for_table_parallel(mesh, params.tt_cores,
+                                             table_axis, device))
+    return DLRMParams(cores, mlp(params.bottom_mlp), mlp(params.top_mlp))
 
 
-def fixed_pool_lookup(
-    cores: Sequence[torch.Tensor],
-    indices: torch.Tensor,  # [T, B, L] int32
-    tt_p_shapes: Sequence[int],
-    tt_q_shapes: Sequence[int],
-    tt_ranks: Sequence[int],
-    weights: Optional[torch.Tensor] = None,  # [T, B, L]
-    precision: Optional[str] = None,
-    impl: str = "auto",
-) -> torch.Tensor:
-    """Pooled lookup of ``[T, B, L]`` indices (every bag L lookups) ->
-    ``[T, B, D]`` float32 through :func:`pooled_tt_lookup`, differentiable
-    with respect to the cores (the JAX package's
-    ``parallel.sharded._fixed_pool_lookup``)."""
-    t, b, length = indices.shape
-    nnz = t * b * length
-    pos = torch.arange(nnz, dtype=torch.int32, device=indices.device)
-    rowidx = (pos // length) % b
-    tableidx = pos // (b * length)
-    return pooled_tt_lookup(
-        cores, tt_p_shapes, tt_q_shapes, tt_ranks, b, indices.reshape(nnz),
-        rowidx, tableidx if t > 1 else None,
-        weights=(None if weights is None
-                 else weights.reshape(nnz).to(torch.float32)),
-        precision=precision, impl=impl)
+def shard_dlrm_params(params: DLRMParams, cfg: DLRMConfig, mesh,
+                      table_axis: str = "mp") -> DLRMParams:
+    """This rank's parameters for the table-sharded step: its contiguous
+    block of ``T / mp`` tables of every core and copies of the MLPs (which
+    every rank holds), on the params' device. Raises ValueError when ``mp``
+    does not divide ``cfg.num_tables``."""
+    device = params.tt_cores[0].device
+    return DLRMParams(
+        shard_params_for_table_parallel(mesh, params.tt_cores, table_axis,
+                                        device),
+        map_leaves(lambda t: t.detach().to(device, copy=True),
+                   params.bottom_mlp),
+        map_leaves(lambda t: t.detach().to(device, copy=True),
+                   params.top_mlp))
 
 
 def _mlp_apply(mlp: MLPParams, x: torch.Tensor,
@@ -202,11 +203,13 @@ def dlrm_forward(
     return _mlp_apply(params.top_mlp, z)[:, 0]
 
 
+def _bce_terms(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    return (torch.clamp_min(logits, 0) - logits * labels
+            + torch.log1p(torch.exp(-torch.abs(logits))))
+
+
 def bce_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    return torch.mean(
-        torch.clamp_min(logits, 0) - logits * labels
-        + torch.log1p(torch.exp(-torch.abs(logits)))
-    )
+    return torch.mean(_bce_terms(logits, labels))
 
 
 def make_dlrm_train_step(
@@ -216,9 +219,11 @@ def make_dlrm_train_step(
     device="cuda",
     impl: str = "auto",
     precision: Optional[str] = None,
+    table_axis: str = "mp",
+    batch_axis: str = "dp",
 ):
     """SGD train step ``step(params, dense, indices, labels) -> (loss,
-    params)`` on one device.
+    params)``.
 
     The BCE loss of :func:`dlrm_forward`, the gradient of every tensor of
     ``params`` by autograd (the cores' through the lookup of ``impl`` and
@@ -229,19 +234,38 @@ def make_dlrm_train_step(
     where the params must be. The loss is a 0-d device tensor: the step
     never synchronises with the host.
 
-    ``mesh``: the table-sharded multi-GPU step is not ported yet; passing
-    one raises NotImplementedError."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "make_dlrm_train_step(mesh=...): the table-sharded DLRM step is "
-            "multi-GPU work (ROADMAP A7), not ported yet")
+    ``mesh`` (a ``DeviceMesh`` with ``table_axis`` and, optionally,
+    ``batch_axis``): the JAX package's hybrid-parallel step. ``params`` is
+    this rank's (:func:`shard_dlrm_params`): its block of ``T / mp`` tables
+    of the cores, the whole MLPs. The batch is this rank's block:
+    ``indices [T / mp, B / dp, L]`` (tables over ``table_axis``, batch over
+    ``batch_axis``), ``dense [B / (dp * mp), dense_dim]`` and ``labels [B /
+    (dp * mp)]`` at its row-major ``(dp, mp)`` coordinate. The embeddings
+    go through the all_to_all exchange (``make_table_sharded_lookup``);
+    each rank's loss term is its sum over the global batch size, so one
+    all-reduce (sum) over every rank gives the MLPs' gradients and the
+    loss of the global batch, while the cores' gradients come back through
+    the exchange and are summed over ``batch_axis`` alone."""
     device = torch.device(device)
     lr = float(learning_rate)
-
-    def lookup(cores, indices):
-        return fixed_pool_lookup(cores, indices, cfg.tt_p_shapes,
-                                 cfg.tt_q_shapes, cfg.tt_ranks,
-                                 precision=precision, impl=impl)
+    if mesh is None:
+        def lookup(cores, indices):
+            return fixed_pool_lookup(cores, indices, cfg.tt_p_shapes,
+                                     cfg.tt_q_shapes, cfg.tt_ranks,
+                                     precision=precision, impl=impl)
+        everyone, n_batch = None, 1
+    else:
+        if table_axis not in (getattr(mesh, "mesh_dim_names", None) or ()):
+            raise ValueError(f"mesh {mesh!r} has no table axis "
+                             f"{table_axis!r} (parallel.make_mesh)")
+        b_axis = batch_axis if batch_axis in mesh.mesh_dim_names else None
+        lookup = make_table_sharded_lookup(
+            mesh, cfg.tt_p_shapes, cfg.tt_q_shapes, cfg.tt_ranks,
+            table_axis=table_axis, batch_axis=b_axis, precision=precision,
+            impl=impl)
+        batch_all = (b_axis, table_axis) if b_axis else (table_axis,)
+        everyone = axis_group(mesh, batch_all)
+        n_batch = int(np.prod([axis_size(mesh, a) for a in batch_all]))
 
     def step(params: DLRMParams, dense, indices, labels):
         dense = torch.as_tensor(dense, dtype=torch.float32, device=device)
@@ -252,11 +276,23 @@ def make_dlrm_train_step(
             # the graph's inputs: leaves sharing the params' storage
             view = map_leaves(lambda t: t.detach().requires_grad_(), params)
             live = [t for _, t in leaves_with_paths(view)]
-            loss = bce_loss(dlrm_forward(view, cfg, dense, indices, lookup),
-                            labels)
-            grads = torch.autograd.grad(loss, live)
+            logits = dlrm_forward(view, cfg, dense, indices, lookup)
+            if everyone is None:
+                loss = bce_loss(logits, labels)
+            else:
+                loss = (_bce_terms(logits, labels).sum()
+                        / (labels.shape[0] * n_batch))
+            grads = list(torch.autograd.grad(loss, live))
+        if everyone is not None:
+            # the MLPs' gradients and the loss summed over every rank; the
+            # cores' came back exact from the exchange and the dp sum
+            n_cores = len(params.tt_cores)
+            *mlp_grads, loss = all_reduce_sum(
+                grads[n_cores:] + [loss.detach().reshape(1)], everyone)
+            grads[n_cores:] = mlp_grads
+            loss = loss.reshape(())
         with torch.no_grad():
-            torch._foreach_add_(leaves, list(grads), alpha=-lr)
+            torch._foreach_add_(leaves, grads, alpha=-lr)
         return loss.detach(), params
 
     return step

@@ -684,31 +684,12 @@ def make_fused_train_step(
         tbl = tableidx if num_tables > 1 else None
         locations = _count_and_probe(cache, keys, use_cache and count,
                                      probe_cache, count_interval)
-        indices_p, rowidx_p, tbl_p, w_p, dead, live = _tt_path_inputs(
-            locations, impl, shapes, num_tables, bs, indices, parts, rowidx,
-            tbl, weights)
-        cores = params.tt_cores
-        if (impl in ("auto", "pallas_sorted")
-                and nnz <= _FUSED_APPLY_NNZ_MAX
-                and flat_available(*shapes, num_tables, bs)):
-            with torch.no_grad():  # the gradients come out explicitly
-                output, grads = flat_train_apply(
-                    cores, *shapes, bs, indices_p, rowidx_p, tbl_p, w_p,
-                    dead, d_output,
-                    compute_dtype=staging_dtype(device, precision),
-                    idx_parts=parts)
-        else:
-            leaves = [c.detach().requires_grad_() for c in cores]
-            with torch.enable_grad():
-                out = pooled_tt_lookup(
-                    leaves, *shapes, bs, indices_p, rowidx_p, tbl_p,
-                    weights=w_p, precision=precision, impl=impl,
-                    live_count=live, dead_mask=dead, idx_parts=parts)
-                grads = torch.autograd.grad(out, leaves, d_output)
-            output = out.detach()
+        output, grads = _forward_backward(
+            params.tt_cores, shapes, num_tables, bs, impl, precision, device,
+            locations, indices, parts, rowidx, tbl, weights, d_output)
         output = _cached_pool(output, cache, locations, weights, rowidx, tbl,
                               num_tables, bs)
-        new_cores, new_opt = _update_cores(optimizer, cores,
+        new_cores, new_opt = _update_cores(optimizer, params.tt_cores,
                                            params.optimizer_state, grads, lr,
                                            eps, native, hparams)
         if locations is not None:
@@ -773,6 +754,39 @@ def _tt_path_inputs(locations, impl: str, shapes, num_tables: int, bs: int,
         return (*packed, None, live)
     return (indices, rowidx, tbl, _masked_weights(locations < 0, weights),
             None, None)
+
+
+def _forward_backward(cores, shapes, num_tables: int, bs: int, impl: str,
+                      precision, device, locations, indices, parts, rowidx,
+                      tbl, weights, d_output):
+    """The training step's TT lookup and its core gradients for
+    ``d_output``, before any update: ``(output [T, bs, D] without the cache
+    rows, grads)``. At nnz <= ``_FUSED_APPLY_NNZ_MAX`` on a config the flat
+    pipeline takes, ``flat_train_apply`` (B1, B2, B3 on the card); else
+    autograd through ``pooled_tt_lookup`` (``FlatLookup``, the generic
+    ``GenericLookup`` under ``impl="pallas"``, or the plain chain). The
+    cache-served lookups (``locations``) are skipped as
+    :func:`_tt_path_inputs` says."""
+    nnz = rowidx.shape[0]
+    indices_p, rowidx_p, tbl_p, w_p, dead, live = _tt_path_inputs(
+        locations, impl, shapes, num_tables, bs, indices, parts, rowidx,
+        tbl, weights)
+    if (impl in ("auto", "pallas_sorted")
+            and nnz <= _FUSED_APPLY_NNZ_MAX
+            and flat_available(*shapes, num_tables, bs)):
+        with torch.no_grad():  # the gradients come out explicitly
+            return flat_train_apply(
+                cores, *shapes, bs, indices_p, rowidx_p, tbl_p, w_p, dead,
+                d_output, compute_dtype=staging_dtype(device, precision),
+                idx_parts=parts)
+    leaves = [c.detach().requires_grad_() for c in cores]
+    with torch.enable_grad():
+        out = pooled_tt_lookup(
+            leaves, *shapes, bs, indices_p, rowidx_p, tbl_p, weights=w_p,
+            precision=precision, impl=impl, live_count=live, dead_mask=dead,
+            idx_parts=parts)
+        grads = torch.autograd.grad(out, leaves, d_output)
+    return out.detach(), grads
 
 
 def _update_cores(optimizer: OptimType, cores, optimizer_state, grads, lr,

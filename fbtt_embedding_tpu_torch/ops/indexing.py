@@ -8,7 +8,9 @@ Counterpart of ``fbtt_embedding_tpu.ops.indexing``:
 - CSR offsets -> per-lookup (rowidx, tableidx), by marking bag starts
   and prefix-summing (no host synchronisation, empty bags allowed);
 - the wide int64 key-row layout ``(hi, lo, part_0..part_{ndim-1})`` that
-  serving takes for big tables.
+  serving takes for big tables;
+- the host-side CSR -> fixed-pooling re-layout of the multi-GPU steps
+  (``pad_csr_to_fixed``, on the native loader).
 """
 
 from __future__ import annotations
@@ -76,6 +78,27 @@ def split_wide_keyrows(keyrows: torch.Tensor, ndim: int):
             f"{tuple(keyrows.shape)}")
     parts = tuple(keyrows[:, 2 + t].to(torch.int32) for t in range(ndim))
     return parts, keyrows, keyrows.shape[0]
+
+
+def pad_csr_to_fixed(indices, offsets, num_tables: int, batch_size: int,
+                     pooling_factor: int,
+                     weights=None) -> Tuple[np.ndarray, np.ndarray]:
+    """Host-side CSR -> fixed-pooling re-layout for the multi-GPU steps
+    (``parallel.sharded``), which take ``[T, B, L]`` bags: ``(idx [T, B, L]
+    int32, w [T, B, L] float32)``, pad slots index -1 (dropped by LFU
+    counting in every cache mode, missed by probes) and weight 0 (nothing
+    forward or backward), so the padded batch trains as the CSR batch does
+    on one device. Runs on the native loader (``native.csr_to_padded_np``);
+    raises ValueError for a bag longer than ``pooling_factor`` or offsets
+    that decrease. Inputs may be numpy arrays or CPU tensors."""
+    from fbtt_embedding_tpu_torch import native
+
+    def host(a):
+        return a.numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+    return native.csr_to_padded_np(
+        host(indices), host(offsets), num_tables, batch_size, pooling_factor,
+        None if weights is None else host(weights))
 
 
 def rowidx_from_offsets(

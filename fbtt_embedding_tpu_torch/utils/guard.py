@@ -1,8 +1,7 @@
 """Failure detection: fail fast, name the failure, keep the step asynchronous.
 
-Counterpart of ``fbtt_embedding_tpu.utils.guard`` on one device. Non-finite
-values poison the whole state quickly (the fused optimizers update whole
-cores), so:
+Counterpart of ``fbtt_embedding_tpu.utils.guard``. Non-finite values poison
+the whole state quickly (the fused optimizers update whole cores), so:
 
 * :func:`finite_flag` gives one 0-d bool tensor on the device: every
   floating leaf of a state tree is finite. Reading it is the only host
@@ -12,8 +11,9 @@ cores), so:
   (``params.tt_cores[1]``); the wrapper reads the flag every ``every``
   calls, so the steps between run without a synchronisation.
 
-The cross-replica drift check (``assert_replicas_agree``) belongs with the
-multi-GPU port and is not here.
+On a mesh, :func:`assert_replicas_agree` catches the silent multi-GPU
+failure: replicas of a replicated value drifting apart (a desynchronised
+data pipeline, a missed all-reduce).
 """
 
 from __future__ import annotations
@@ -24,6 +24,10 @@ from typing import Any, Callable
 import torch
 
 from fbtt_embedding_tpu_torch.utils._tree import leaves_with_paths
+
+
+class ReplicaDivergenceError(RuntimeError):
+    """Replicated values disagree across a mesh axis."""
 
 
 class NonFiniteError(RuntimeError):
@@ -89,3 +93,29 @@ def guard_step(step_fn: Callable, every: int = 1) -> Callable:
         return out, new_params
 
     return guarded
+
+
+def assert_replicas_agree(mesh, axis: str, value, atol: float = 0.0,
+                          what: str = "value") -> None:
+    """Check that ``value``, replicated over mesh axis ``axis``, is the same
+    on every rank of the axis: an all-gather of the ranks' values (float64)
+    over the axis's group, then, on every rank, the largest ``|value_i -
+    mean|`` (the JAX package's drift); above ``atol`` raises
+    :class:`ReplicaDivergenceError` on every rank, naming the rank that
+    drifts most. Synchronises with the host."""
+    from fbtt_embedding_tpu_torch.parallel.collectives import all_gather_cat
+    from fbtt_embedding_tpu_torch.parallel.mesh import axis_group
+
+    t = value if isinstance(value, torch.Tensor) else torch.as_tensor(value)
+    if t.device.type != mesh.device_type:  # NCCL takes card tensors only
+        t = t.to(mesh.device_type)
+    every = all_gather_cat(t.detach().reshape(1, -1).to(torch.float64),
+                           axis_group(mesh, axis))
+    per_rank = (every - every.mean(dim=0)).abs().amax(dim=1) \
+        if every.shape[1] else torch.zeros(every.shape[0])
+    drift = float(per_rank.max())
+    if drift > atol:
+        raise ReplicaDivergenceError(
+            f"'{what}' diverges across mesh axis '{axis}': max drift "
+            f"{drift:.3e} > atol {atol:.3e} (most at rank "
+            f"{int(per_rank.argmax())} of the axis)")

@@ -10,7 +10,9 @@
 - the JAX package's DLRM learning tests as port cases with their
   thresholds (``tests/test_dlrm.py``, ``tests/test_end_task.py``) and the
   tiny walkthrough (``tests/test_examples.py``);
-- ``mesh=`` and ``--mesh`` raise NotImplementedError;
+- ``mesh=`` without a table axis, and ``--mesh`` without a launched
+  world, raise ValueError (the mesh step itself:
+  ``tests/test_torch_port_parallel.py``);
 - a fresh process trains a DLRM step, checkpoints and guards it without
   importing JAX.
 """
@@ -157,12 +159,12 @@ def test_dlrm_params_from_jax_roundtrips():
 
 
 def test_mesh_raises():
-    with pytest.raises(NotImplementedError, match="A7"):
+    with pytest.raises(ValueError, match="table axis"):
         tdlrm.make_dlrm_train_step(_cfgs(tdlrm, 2), mesh=object(),
                                    device="cpu")
     from fbtt_embedding_tpu_torch.examples import train_dlrm
 
-    with pytest.raises(NotImplementedError, match="A7"):
+    with pytest.raises(ValueError, match="launched world"):
         train_dlrm.main(["--tiny", "--mesh", "1,1", "--device", "cpu"])
 
 

@@ -72,6 +72,14 @@ CUDA card and ``nvcc``). Phases, each printing its own lines:
    ``TTEmbeddingBag.freeze_for_serving`` against the module's forward;
    then device ms, host ms and device operations per request of the
    unfolded, bf16 and int8 serves (uniform and Zipf), in turns;
+4c. pool: pools above 4096 rows (the deterministic
+   ``ops.hot_scatter.segment_sum``): the folded serve at T=1, B=8192 and
+   the DLRM's lookup (forward and backward, 8 tables of the walkthrough's
+   width) at T=8, B=1024, each twice and required bitwise equal, against
+   the plain float32 path (outputs within 5e-3 x max|out|, the core
+   gradients by their cosine >= 0.99); then the pool's device time on
+   those shapes, ``segment_sum`` against the parent's ``index_add_``, in
+   turns;
 5. train: the same model trains with fused SGD: five steps of B=512 at
    pooling 20 (uniform and Zipf 1.05), one of B=1024 (pair mode) and one
    of B=2048 (nnz 40960: autograd through the flat lookup), then one
@@ -193,8 +201,27 @@ CUDA card and ``nvcc``). Phases, each printing its own lines:
    (bitwise equal), held against the single-device DLRM step (loss at
    OUT_TOL, logits at DLRM_LOGIT_TOL, each leaf's update by its cosine),
    B1 and B3 launched, and ``examples.train_dlrm --steps 40 --mesh 1,2``
-   (the loss must fall). Each step's device ms and operations, host ms
-   and the collectives' host ms, per rank; a failing rank fails the run;
+   (the loss must fall). Then on both worlds, with the LFU cache counted
+   on 20 Zipf(1.05) batches of B=512 and populated (``cache_size`` E / 10,
+   a multiple of the ranks) and a Zipf(1.05) global batch of 1024: the
+   data-parallel serve (``make_dp_serving_fn``: folded bf16 and int8, not
+   folded) against the single-device serve of its kind on the whole
+   batch (bitwise on the world of 1, else within 5e-3 x max|out|; int8
+   within 1e-2 of bf16; the folded ones B1 once a request); the
+   replicated-cache lookup (``make_dp_cached_lookup``) against
+   ``make_dp_lookup``; the table-owned step
+   (``make_table_sharded_fused_train_step``) at the DLRM's width on a
+   ``(1, n)`` mesh, SGD and native ADAM, against the single-device step
+   on the whole batch (bitwise on the world of 1, else ``hold_step`` /
+   the cosine); the row-owned cache: populate against
+   ``shard_cache_weight_by_owner`` of ``cache_populate`` (counting fields
+   exact), the lookup against ``make_dp_lookup`` and the replicated
+   lookup, SGD and ``EXACT_ADAGRAD`` steps against the replicated-cache
+   dp step with ``probe_cache`` (output and cores at ``hold_step``'s
+   limits, owned rows and state within 3e-2 of the update, counts
+   exact); each run twice, bitwise equal, with its launches and no plain
+   version. Each step's and serve's device ms and operations, host ms and
+   the collectives' host ms, per rank; a failing rank fails the run;
 6. times: each kernel pass's time per call on two yardsticks, beside its
    bound and its plain version's on both: between CUDA events over
    back-to-back calls (the kernels' line's ``ms`` and ``plain_ms``; the
@@ -278,13 +305,18 @@ DG0_RULE_SHAPES = (
     (4, 136, 128, 64, False), (32, 32, 64, 16, True),
     (34, 32, 64, 16, True), (1, 8, 2048, 1, False), (1, 8, 2056, 1, False),
 )
+# phase 5e's paths, summed over the ranks of its worlds
+MULTI_PATHS = ("train_multi_dp", "train_multi_csr", "train_multi_dlrm",
+               "dlrm_walkthrough_mesh", "serve_multi_dp",
+               "serve_multi_dp_int8", "lookup_multi_dp_cached",
+               "train_multi_table_owned", "populate_multi_row_owned",
+               "lookup_multi_row_owned", "train_multi_row_owned")
 PATHS = ("serve", "train", "serve_generic", "train_generic", "serve_cached",
          "train_cached", "train_dg0", "module", "serve_folded",
          "serve_folded_int8", "train_native", "train_wide_cache",
          "serve_wide_cache", "module_wide_cache", "train_dlrm",
          "train_dlrm_f32", "train_dlrm_dg0", "dlrm_walkthrough", "cli",
-         "cli_generic", "train_multi_dp", "train_multi_csr",
-         "train_multi_dlrm", "dlrm_walkthrough_mesh")
+         "cli_generic") + MULTI_PATHS
 LR, EPS = 0.005, 1.0        # training steps of the check (EPS: Adagrad)
 # bf16 staging against the float32 plain step: outputs within 5e-3 of
 # max|out| (the serve's limit); each core's update within 3e-2 of its
@@ -326,6 +358,9 @@ DLRM_B, DLRM_LR = 512, 0.05
 DLRM_LOGIT_TOL = 2e-2
 # phase 5e: the data-parallel step's global batch, and the steps per timing
 MULTI_B, MULTI_STEPS = 1024, 10
+# the calls per timing of the paths phase 5e added second (serves, lookups,
+# the table-owned and row-owned steps)
+MULTI_CALLS = 5
 
 
 def fail(msg):
@@ -394,6 +429,7 @@ def mhz_text(mhz):
 
 PROFILER_PAD_S = 0.02  # untimed calls on each side of device_ms's window
 PROFILER_TRIES = 3
+WORLD_PAD_CALLS = 5  # untimed calls on each side of world_device_ms's window
 
 
 def device_ms(fn, n=20):
@@ -2313,36 +2349,162 @@ def dlrm_tools_phase(fbt, card, wrappers):
     return paths
 
 
-def world_device_ms(fn, n=10):
-    """Device ms per call of ``fn`` (a step with collectives, run by every
-    rank of a world the same number of times): the summed durations of the
-    device work between two marker kernels around ``n`` calls under
-    ``torch.profiler``, and the device operations per call; (None, None)
-    where the tracer dropped a marker (no retry: the ranks must run the
-    same calls)."""
+def pool_phase(fbt, card, params):
+    """Phase 4c of the docstring: pools above 4096 rows (the deterministic
+    segment sum): the folded serve at T=1, B=8192 and the DLRM's lookup
+    (forward and backward) at T=8, B=1024, each run twice and required
+    bitwise equal, held against the plain float32 path; then the pool's
+    device time there against the parent's ``index_add_`` pool on the same
+    rows, in turns."""
+    import numpy as np
     import torch
+
+    from fbtt_embedding_tpu_torch.ops.hot_scatter import segment_sum
+    from fbtt_embedding_tpu_torch.parallel import fixed_pool_lookup
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(9)
+    bb = 8192
+    idx = torch.as_tensor(rng.integers(0, E, size=bb * POOL), device="cuda")
+    offs = torch.arange(0, bb * POOL + 1, POOL, device="cuda")
+    fold, serve = fbt.make_folded_serving_fn(P, Q, R, 1, bb, device="cuda")
+    fp = fold(params)
+    with plain_watch() as plains:
+        out_a = serve(fp, idx, offs)
+        out_b = serve(fp, idx, offs)
+        torch.cuda.synchronize()
+    ref = fbt.make_serving_fn(P, Q, R, 1, bb, impl="xla", device="cuda")(
+        params, idx, offs)
+    scale = ref.abs().max().item()
+    err = (out_a - ref).abs().max().item()
+    same = torch.equal(out_a, out_b)
+    print(f"[pool] folded serve T=1 B={bb} pooling {POOL} ({bb} pooled rows): "
+          f"two runs bitwise equal {same}; max_abs_err {err:.3e} vs plain "
+          f"f32 (limit {OUT_TOL} x {scale:.3e}); plain versions "
+          f"{plains or 0}", flush=True)
+    if plains or not same or not err <= OUT_TOL * scale:
+        fail("the folded serve above 4096 pooled rows")
+    del fp, out_a, out_b, ref
+
+    dk = DLRM_KW
+    pd, t8, bd, ld = dk["tt_p_shapes"], dk["num_tables"], 1024, \
+        dk["pooling_factor"]
+    dcores = [torch.tensor(c, device="cuda") for c in fbt.init_tt_cores(
+        np.random.default_rng(0), "uniform", t8, dk["num_embeddings"], D,
+        pd, Q, R)]
+    didx = torch.as_tensor(rng.integers(0, dk["num_embeddings"], size=(
+        t8, bd, ld)).astype(np.int32), device="cuda")
+    dout = torch.as_tensor(rng.normal(size=(t8, bd, D)).astype(np.float32),
+                           device="cuda")
+
+    def lookup(impl):
+        leaves = [c.detach().requires_grad_() for c in dcores]
+        out = fixed_pool_lookup(leaves, didx, pd, Q, R, impl=impl)
+        return out.detach(), torch.autograd.grad(out, leaves, dout)
+
+    with plain_watch() as plains:
+        (oa, ga), (ob, gb) = lookup("auto"), lookup("auto")
+        torch.cuda.synchronize()
+    same = torch.equal(oa, ob) and all(torch.equal(a, b)
+                                       for a, b in zip(ga, gb))
+    oref, gref = lookup("xla")
+    scale = oref.abs().max().item()
+    err = (oa - oref).abs().max().item()
+    cos = min(torch.nn.functional.cosine_similarity(
+        a.flatten(), b.flatten(), dim=0).item() for a, b in zip(ga, gref))
+    print(f"[pool] DLRM lookup T={t8} B={bd} pooling {ld} ({t8 * bd} pooled "
+          f"rows), forward and backward: two runs bitwise equal {same}; "
+          f"output max_abs_err {err:.3e} vs plain f32 (limit {OUT_TOL} x "
+          f"{scale:.3e}); least cos(grad, grad_plain) {cos:.6f} (limit "
+          f"{COS_MIN}); plain versions {plains or 0}", flush=True)
+    if plains or not same or not err <= OUT_TOL * scale or cos < COS_MIN:
+        fail("the DLRM lookup above 4096 pooled rows")
+    del dcores, oa, ob, ga, gb, oref, gref
+
+    for label, n, tb in ((f"serve T=1 B={bb}", bb * POOL, bb),
+                         (f"DLRM T={t8} B={bd}", t8 * bd * ld, t8 * bd)):
+        rows = torch.randn(n, D, device="cuda")
+        seg = torch.randint(0, tb, (n,), dtype=torch.int32, device="cuda")
+
+        def new():
+            return segment_sum(rows, seg, tb)
+
+        def old():  # the parent's pool: float atomics
+            out = torch.zeros((tb + 1, D), device="cuda")
+            out.index_add_(0, seg.long(), rows)
+            return out[:tb]
+
+        got = new()
+        err = (got - old()).abs().max().item()
+        same = torch.equal(got, new())
+        first = old()
+        old_same = all(torch.equal(first, old()) for _ in range(4))
+        us = {"segment_sum": [], "index_add_": []}
+        for name, fn in (("segment_sum", new), ("index_add_", old),
+                         ("index_add_", old), ("segment_sum", new)):
+            us[name].append(device_ms(fn)[0] * 1e3)
+        print(f"[time] pool above 4096 rows, {label} ({n} rows of {D} into "
+              f"{tb}), device us per call in turns: segment_sum "
+              f"{us['segment_sum'][0]:.2f} / {us['segment_sum'][1]:.2f} "
+              f"({device_ms.ops:g} device operations), the parent's "
+              f"index_add_ {us['index_add_'][0]:.2f} / "
+              f"{us['index_add_'][1]:.2f}; max_abs_err {err:.3e} between "
+              f"them; segment_sum twice bitwise equal {same}, index_add_ "
+              f"five times {old_same} [{card}]", flush=True)
+        if not same or not err <= 1e-4 * got.abs().max().item():
+            fail(f"segment_sum at {label}")
+    print(f"[pool] phase took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
+def world_device_ms(fn, n=10, pad=WORLD_PAD_CALLS):
+    """Device ms per call of ``fn`` (run by every rank of a world the same
+    number of times; it may hold collectives): the summed durations of the
+    device work between two marker kernels around ``n`` calls under
+    ``torch.profiler``, and the device operations per call. As in
+    :func:`device_ms`, untimed calls run inside the session on each side
+    of the markers (a fixed count of them, ``pad``, so that every rank
+    calls ``fn`` as often as the others): the tracer misses work at
+    a session's ends (on the world of 2, after the walkthrough ran in the
+    rank's process, every marker of a serve's session was lost without
+    them). The ranks start each session together (a barrier) and agree on
+    its outcome (an all-reduce of a flag), so that a session where any
+    rank's tracer dropped a marker is run again by every rank, up to
+    PROFILER_TRIES sessions; (None, None) after that."""
+    import torch
+    import torch.distributed as dist
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        torch.cuda._sleep(1)
-        for _ in range(n):
-            fn()
-        torch.cuda._sleep(1)
-        torch.cuda.synchronize()
-    cuda = [ev for ev in prof.events() if ev.device_type == DeviceType.CUDA]
-    spins = sorted((ev.time_range for ev in cuda
-                    if "spin_kernel" in ev.name), key=lambda r: r.start)
-    if len(spins) != 2:
-        return None, None
-    lo, hi = spins[0].end, spins[1].start
-    inside = [ev for ev in cuda
-              if lo <= ev.time_range.start and ev.time_range.end <= hi]
-    return (sum(ev.time_range.elapsed_us() for ev in inside) / n / 1e3,
-            len(inside) / n)
+    for _ in range(PROFILER_TRIES):
+        dist.barrier()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(pad):
+                fn()
+            torch.cuda.synchronize()
+            torch.cuda._sleep(1)
+            for _ in range(n):
+                fn()
+            torch.cuda._sleep(1)
+            for _ in range(pad):
+                fn()
+            torch.cuda.synchronize()
+        cuda = [ev for ev in prof.events()
+                if ev.device_type == DeviceType.CUDA]
+        spins = sorted((ev.time_range for ev in cuda
+                        if "spin_kernel" in ev.name), key=lambda r: r.start)
+        flag = torch.tensor([int(len(spins) == 2)], device="cuda")
+        dist.all_reduce(flag, op=dist.ReduceOp.MIN)
+        if flag.item():
+            lo, hi = spins[0].end, spins[1].start
+            inside = [ev for ev in cuda
+                      if lo <= ev.time_range.start and ev.time_range.end <= hi]
+            return (sum(ev.time_range.elapsed_us() for ev in inside) / n
+                    / 1e3, len(inside) / n)
+    return None, None
 
 
 def world_host_ms(fn, n=10):
@@ -2363,13 +2525,13 @@ def world_host_ms(fn, n=10):
     return statistics.median(samples)
 
 
-def world_times(fn, n=MULTI_STEPS):
+def world_times(fn, n=MULTI_STEPS, pad=WORLD_PAD_CALLS):
     """``(device ms, device operations, host ms, collective ms, collective
     calls)`` per call of a world's step ``fn``; the collectives' host time
     is read in a run of its own (each collective then synchronises)."""
     from fbtt_embedding_tpu_torch.parallel import collectives
 
-    dev, ops = world_device_ms(fn, n)
+    dev, ops = world_device_ms(fn, n, pad)
     host = world_host_ms(fn, n)
     with collectives.timed() as rec:
         for _ in range(n):
@@ -2651,12 +2813,382 @@ def multi_child(spec):
             if plains or not walk["last_loss"] < walk["first_loss"] \
                     or not got["seg_accum"]:
                 fail(f"{tag}: the walkthrough on the mesh")
+        multi_rest(fbt, tag, world, rank, mesh, cuda, zero_counts, counts,
+                   res, cores_np, g_dout)
         with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
             json.dump(res, f)
         dist.barrier()
     finally:
         dist.destroy_process_group()
     return 0
+
+
+def add_launches(res, path, got):
+    """Add one run's launches to ``res["launches"][path]``."""
+    acc = res["launches"].setdefault(path, dict.fromkeys(got, 0))
+    for k, v in got.items():
+        acc[k] += v
+
+
+def held(tag, what, got, want, tol, world, bitwise_at_one=True):
+    """``got`` against ``want``: bitwise on a world of one (where
+    ``bitwise_at_one``: the same computation), else within ``tol`` x
+    max|want|; the text of the comparison, failing the run otherwise."""
+    import torch
+
+    scale = want.abs().max().item()
+    err = (got.float() - want.float()).abs().max().item()
+    if world == 1 and bitwise_at_one:
+        if not torch.equal(got, want):
+            fail(f"{tag}: {what} not bitwise equal to its twin's "
+                 f"(max_abs_err {err:.3e})")
+        return f"{what} bitwise equal to its twin's"
+    if not (torch.isfinite(got).all() and err <= tol * scale):
+        fail(f"{tag}: {what} max_abs_err {err:.3e} against {tol} x "
+             f"{scale:.3e}")
+    return f"{what} max_abs_err {err:.3e} (limit {tol} x {scale:.3e})"
+
+
+def multi_rest(fbt, tag, world, rank, mesh, cuda, zero_counts, counts, res,
+               cores_np, g_dout):
+    """Phase 5e's checks of the data-parallel serve, the replicated-cache
+    lookup, the table-owned step and the row-owned cache family on this
+    rank (see the docstring); launches and times into ``res``."""
+    import numpy as np
+    import torch
+
+    from fbtt_embedding_tpu_torch.parallel import host_local_slice
+
+    bl = MULTI_B // world
+    spec_b = (None, "dp")
+    rng = np.random.default_rng(3)  # the same on every rank
+    cores = fbt.params_from_jax(cores_np, device=cuda).tt_cores
+    # the LFU cache as phase 4 counts it: 20 Zipf(1.05) batches of B=512,
+    # cache_size E / 10 (rounded down to a multiple of the ranks)
+    c_size = (E // 10) // world * world
+    base = fbt.make_cache_state(E, c_size, D, num_embeddings=E, device=cuda)
+    for _ in range(20):
+        fbt.update_cache_state(base, torch.as_tensor(
+            (rng.zipf(1.05, size=B * POOL) - 1) % E, device=cuda))
+    rep = fbt.cache_populate(clone_cache(base), cores, P, Q, R)
+    g_idx = ((rng.zipf(1.05, size=MULTI_B * POOL) - 1) % E).astype(
+        np.int32).reshape(1, MULTI_B, POOL)
+    idx_l = torch.tensor(host_local_slice(mesh, spec_b, g_idx), device=cuda)
+    dout_l = torch.tensor(host_local_slice(mesh, spec_b, g_dout),
+                          device=cuda)
+    g_flat = torch.tensor(g_idx.reshape(-1), device=cuda)
+    g_offs = torch.arange(0, MULTI_B * POOL + 1, POOL, device=cuda)
+    hit = (fbt.cache_lookup(rep, idx_l.reshape(-1)) >= 0).float().mean(
+    ).item()
+    sprm = fbt.TTEmbeddingParams(cores, (), rep)
+    mine = slice(rank * bl, (rank + 1) * bl)
+    dlookup = fbt.make_dp_lookup(mesh, P, Q, R)
+
+    # 4. the data-parallel serve: folded bf16 and int8, and not folded,
+    # against the single-device serve of the same kind on the whole batch
+    outs = {}
+    for label, folded, quantize, path in (
+            ("folded bf16", True, None, "serve_multi_dp"),
+            ("folded int8", True, "int8", "serve_multi_dp_int8"),
+            ("not folded", False, None, "serve_multi_dp")):
+        fold, serve = fbt.make_dp_serving_fn(
+            mesh, P, Q, R, 1, MULTI_B, POOL, folded=folded,
+            quantize=quantize, device=cuda)
+        fp = fold(sprm)
+        if folded:
+            tfold, tserve = fbt.make_folded_serving_fn(
+                P, Q, R, 1, MULTI_B, quantize=quantize, device=cuda)
+            tfp = tfold(sprm)
+
+            def twin():
+                return tserve(tfp, g_flat, g_offs)
+        else:
+            tserve = fbt.make_serving_fn(P, Q, R, 1, MULTI_B, device=cuda)
+
+            def twin():
+                return tserve(sprm, g_flat, g_offs)
+        zero_counts()
+        with plain_watch() as plains:
+            out_a = serve(fp, idx_l)
+            torch.cuda.synchronize()
+        got = counts()
+        add_launches(res, path, got)
+        same = torch.equal(out_a, serve(fp, idx_l))
+        line = held(tag, "output", out_a, twin()[:, mine], OUT_TOL, world)
+        outs[label] = out_a
+        others = {k: v for k, v in got.items() if k != "seg_transform"}
+        b1_ok = got["seg_transform"] == 1 if folded \
+            else got["seg_transform"] >= 1
+        if plains or any(others.values()) or not b1_ok or not same:
+            fail(f"{tag}: dp serve {label}: launches {got}, plain versions "
+                 f"{plains}, repeatable {same}")
+        t = world_times(lambda: serve(fp, idx_l), MULTI_CALLS)
+        res["times"][f"serve {label}"] = t
+        print(f"{tag}: dp serve {label}, global B={MULTI_B} ({bl} a rank) "
+              f"pooling {POOL} Zipf 1.05 probing the populated cache "
+              f"(cache_size {c_size}, hit rate {hit:.4f}): launches "
+              f"{launch_text(got)}, plain versions {plains or 0}; two runs "
+              f"bitwise equal {same}; against the single-device serve on "
+              f"the whole batch: {line}; {times_of(t)} [{card_line()}]",
+              flush=True)
+        if label == "folded bf16":
+            t1 = world_times(twin, MULTI_CALLS)
+            res["times"]["serve single-device"] = t1
+            print(f"{tag}: the single-device folded bf16 serve at B="
+                  f"{MULTI_B} on this rank: {times_of(t1)} [{card_line()}]",
+                  flush=True)
+        del fp, twin
+    scale = outs["folded bf16"].abs().max().item()
+    err = (outs["folded int8"] - outs["folded bf16"]).abs().max().item()
+    print(f"{tag}: dp serve int8 against bf16: max_abs_err {err:.3e} (limit "
+          f"1e-2 x {scale:.3e})", flush=True)
+    if not err <= 1e-2 * scale:
+        fail(f"{tag}: the int8 dp serve against the bf16 one")
+
+    # 5. the replicated-cache lookup against the dp lookup, right after
+    # populate
+    clook = fbt.make_dp_cached_lookup(mesh, P, Q, R, device=cuda)
+    zero_counts()
+    with plain_watch() as plains:
+        out_a = clook(cores, rep, idx_l)
+        torch.cuda.synchronize()
+    got = counts()
+    add_launches(res, "lookup_multi_dp_cached", got)
+    same = torch.equal(out_a, clook(cores, rep, idx_l))
+    line = held(tag, "output", out_a, dlookup(cores, idx_l), OUT_TOL, world,
+                bitwise_at_one=False)
+    if plains or not got["seg_transform"] or not same:
+        fail(f"{tag}: the replicated-cache lookup's launches or "
+             "repeatability")
+    t = world_times(lambda: clook(cores, rep, idx_l), MULTI_CALLS)
+    res["times"]["dp cached lookup"] = t
+    print(f"{tag}: replicated-cache lookup, B={bl} a rank: launches "
+          f"{launch_text(got)}, plain versions {plains or 0}; two runs "
+          f"bitwise equal {same}; against make_dp_lookup: {line}; "
+          f"{times_of(t)} [{card_line()}]", flush=True)
+
+    # 6. the table-owned step at the DLRM walkthrough's width, mesh (1, n)
+    dk = DLRM_KW
+    tmesh = fbt.make_mesh((1, world), ("dp", "mp"), device_type="cuda")
+    t8, pd, ld = dk["num_tables"], dk["tt_p_shapes"], dk["pooling_factor"]
+    tcores = fbt.init_tt_cores(np.random.default_rng(4), "uniform", t8,
+                               dk["num_embeddings"], D, pd, Q, R)
+    t_idx = rng.integers(0, dk["num_embeddings"], size=(t8, DLRM_B, ld)
+                         ).astype(np.int32)
+    t_dout = rng.normal(size=(t8, DLRM_B, D)).astype(np.float32)
+    t_offs = np.arange(0, t8 * DLRM_B * ld + 1, ld)
+    idx_t = host_local_slice(tmesh, ("mp", "dp"), t_idx)
+    dout_t = host_local_slice(tmesh, (None, ("dp", "mp")), t_dout)
+    for optim, semantics in (("SGD", "reference"), ("ADAM", "native")):
+        opt_t = fbt.OptimType[optim]
+
+        def whole():
+            prm = fbt.params_from_jax(tcores, device=cuda)
+            prm.optimizer_state = (
+                fbt.native_optim_init(opt_t, prm.tt_cores)
+                if semantics == "native" else
+                tuple(torch.zeros(0, device=cuda) for _ in prm.tt_cores))
+            return prm
+
+        def owned():
+            return fbt.shard_table_sharded_params(tmesh, whole(), device=cuda)
+
+        tstep = fbt.make_table_sharded_fused_train_step(
+            tmesh, pd, Q, R, t8, DLRM_B, ld, optimizer=opt_t,
+            optim_semantics=semantics, device=cuda)
+        zero_counts()
+        with plain_watch() as plains:
+            out_a, pa = tstep(owned(), idx_t, dout_t, (LR, EPS))
+            torch.cuda.synchronize()
+        got = counts()
+        add_launches(res, "train_multi_table_owned", got)
+        out_b, pb = tstep(owned(), idx_t, dout_t, (LR, EPS))
+        same = torch.equal(out_a, out_b) and all(
+            torch.equal(a, b) for a, b in zip(pa.tt_cores + pa.optimizer_state,
+                                              pb.tt_cores + pb.optimizer_state))
+        one = fbt.make_fused_train_step(pd, Q, R, t8, DLRM_B, optimizer=opt_t,
+                                        optim_semantics=semantics,
+                                        device=cuda)
+        ref_out, ref = one(whole(), t_idx.reshape(-1), t_offs, t_dout,
+                           (LR, EPS))
+        ref = fbt.shard_table_sharded_params(tmesh, ref, device=cuda)
+        ref_out = host_local_slice(tmesh, (None, ("dp", "mp")), ref_out)
+        old = owned()
+        what = (f"{tag} table-owned {optim} step")
+        line = (f"{tag}: table-owned {optim} ({semantics}) step, mesh (1, "
+                f"{world}), {t8 // world} of {t8} tables of E="
+                f"{dk['num_embeddings']} a rank, B={DLRM_B} pooling {ld}: "
+                f"launches {launch_text(got)}, plain versions {plains or 0}; "
+                f"two runs bitwise equal {same}")
+        if world == 1:
+            bit = torch.equal(out_a, ref_out) and all(
+                torch.equal(a, b) for a, b in zip(
+                    pa.tt_cores + pa.optimizer_state,
+                    ref.tt_cores + ref.optimizer_state))
+            line += f"; bitwise the single-device step's {bit}"
+            if not bit:
+                fail(f"{what}: not bitwise the single-device step")
+        elif semantics == "native":
+            line += "; " + held(tag, "output", out_a, ref_out, OUT_TOL, world)
+            line = hold_cosine(line, pa, ref, old, what)
+        else:
+            line = hold_step(line, out_a, ref_out, pa, ref, old, OUT_TOL,
+                             UPDATE_TOL, what)
+        print(line, flush=True)
+        if plains or not same or not got["seg_fused_i2"] \
+                or not got["seg_accum"]:
+            fail(f"{what}: launches or repeatability")
+        if optim == "SGD":
+            scratch = owned()
+            t = world_times(lambda: tstep(scratch, idx_t, dout_t,
+                                          (1e-4, EPS)), MULTI_CALLS)
+            res["times"]["table-owned step"] = t
+            print(f"{tag}: table-owned SGD step {times_of(t)} "
+                  f"[{card_line()}]", flush=True)
+        del pa, pb, ref, old
+
+    # 7. the row-owned cache: populate, lookup and step against the
+    # replicated cache
+    owned_rep = fbt.shard_cache_weight_by_owner(mesh, rep.weight, device=cuda)
+    populate = fbt.make_row_owned_populate(mesh, P, Q, R, c_size,
+                                           device=cuda)
+    zero_counts()
+    with plain_watch() as plains:
+        t0 = time.perf_counter()
+        cnt, w_own, _ = populate(clone_cache(base), cores)
+        torch.cuda.synchronize()
+        pop_s = time.perf_counter() - t0
+    got = counts()
+    add_launches(res, "populate_multi_row_owned", got)
+    _, w_again, _ = populate(clone_cache(base), cores)
+    same = torch.equal(w_own, w_again)
+    exact = all(torch.equal(getattr(cnt, f), getattr(rep, f))
+                for f in ("keys", "freq", "slots"))
+    err = (w_own - owned_rep).abs().max().item()
+    wscale = owned_rep.abs().max().item()
+    print(f"{tag}: row-owned populate, cache_size {c_size} ({c_size // world}"
+          f" rows a rank): {pop_s:.2f} s; counting fields equal to "
+          f"cache_populate's {exact}; owned rows max_abs_err {err:.3e} "
+          f"against shard_cache_weight_by_owner of cache_populate's (limit "
+          f"1e-5 x {wscale:.3e}); two runs bitwise equal {same}; launches "
+          f"{launch_text(got) or 'none'} (populate decompresses by the plain "
+          f"chain), plain versions {plains or 0}", flush=True)
+    if not (exact and same and err <= 1e-5 * wscale):
+        fail(f"{tag}: the row-owned populate")
+    del w_again
+
+    olook = fbt.make_row_owned_cached_lookup(mesh, P, Q, R, c_size,
+                                             device=cuda)
+    zero_counts()
+    with plain_watch() as plains:
+        out_a = olook(cores, cnt.slots, w_own, idx_l)
+        torch.cuda.synchronize()
+    got = counts()
+    add_launches(res, "lookup_multi_row_owned", got)
+    same = torch.equal(out_a, olook(cores, cnt.slots, w_own, idx_l))
+    line = held(tag, "output", out_a, dlookup(cores, idx_l), OUT_TOL, world,
+                bitwise_at_one=False)
+    line2 = held(tag, "against the replicated-cache lookup", out_a,
+                 clook(cores, rep, idx_l), 1e-6, world, bitwise_at_one=False)
+    if plains or not got["seg_transform"] or not same:
+        fail(f"{tag}: the row-owned lookup's launches or repeatability")
+    t = world_times(lambda: olook(cores, cnt.slots, w_own, idx_l),
+                    MULTI_CALLS)
+    res["times"]["row-owned lookup"] = t
+    print(f"{tag}: row-owned lookup, B={bl} a rank: launches "
+          f"{launch_text(got)}, plain versions {plains or 0}; two runs "
+          f"bitwise equal {same}; against make_dp_lookup: {line}; {line2}; "
+          f"{times_of(t)} [{card_line()}]", flush=True)
+    del cnt, w_own, owned_rep
+
+    for optim, kind in (("SGD", "none"), ("EXACT_ADAGRAD", "full")):
+        opt_t = fbt.OptimType[optim]
+        opt0 = (tuple(torch.zeros(0, device=cuda) for _ in cores)
+                if optim == "SGD" else tuple(torch.zeros_like(c)
+                                             for c in cores))
+        kpop = fbt.make_row_owned_populate(mesh, P, Q, R, c_size,
+                                           opt_state_kind=kind, device=cuda)
+        ostep = fbt.make_row_owned_fused_train_step(
+            mesh, P, Q, R, c_size, MULTI_B, POOL, optimizer=opt_t,
+            device=cuda)
+
+        def owned_state():
+            cnt, w0, o0 = kpop(clone_cache(base), cores)
+            return (fbt.TTEmbeddingParams(
+                tuple(c.clone() for c in cores),
+                tuple(s.clone() for s in opt0), cnt), w0, o0)
+
+        prm_o, w0, o0 = owned_state()
+        w_old = w0.clone()
+        zero_counts()
+        with plain_watch() as plains:
+            out_a, pa, wa, oa = ostep(prm_o, w0, o0, idx_l, dout_l, (LR, EPS))
+            torch.cuda.synchronize()
+        got = counts()
+        add_launches(res, "train_multi_row_owned", got)
+        out_b, pb, wb, ob = ostep(*owned_state(), idx_l, dout_l, (LR, EPS))
+        same = (torch.equal(out_a, out_b) and torch.equal(wa, wb)
+                and torch.equal(oa, ob) and torch.equal(pa.cache.freq,
+                                                        pb.cache.freq)
+                and all(torch.equal(a, b) for a, b in zip(pa.tt_cores,
+                                                          pb.tt_cores)))
+        rstate = clone_cache(base)
+        if kind == "full":
+            rstate.opt_state = torch.zeros((c_size, D), device=cuda)
+        rstate = fbt.cache_populate(rstate, cores, P, Q, R)
+        rstep = fbt.make_sharded_fused_train_step(
+            mesh, P, Q, R, 1, MULTI_B, POOL, optimizer=opt_t, use_cache=True,
+            probe_cache=True, device=cuda)
+        rprm = fbt.TTEmbeddingParams(tuple(c.clone() for c in cores),
+                                     tuple(s.clone() for s in opt0), rstate)
+        r_old = fbt.TTEmbeddingParams(tuple(c.clone() for c in cores))
+        out_r, pr = rstep(rprm, idx_l, dout_l, (LR, EPS))
+        what = f"{tag} row-owned {optim} step"
+        line = (f"{tag}: row-owned {optim} step against the replicated-cache "
+                f"dp step, global B={MULTI_B} Zipf 1.05: launches "
+                f"{launch_text(got)}, plain versions {plains or 0}; two runs "
+                f"bitwise equal {same}")
+        line = hold_step(line, out_a, out_r, pa, pr, r_old, OUT_TOL,
+                         UPDATE_TOL, what)
+        counts_equal = torch.equal(pa.cache.freq, pr.cache.freq)
+        rows_rep = fbt.shard_cache_weight_by_owner(mesh, pr.cache.weight,
+                                                   device=cuda)
+        upd = (rows_rep - w_old).abs().max().item()
+        rerr = (wa - rows_rep).abs().max().item()
+        line += (f"; LFU counts equal {counts_equal}; owned rows' update "
+                 f"max|d - d_rep| {rerr:.3e} (limit {UPDATE_TOL} x "
+                 f"{upd:.3e})")
+        ok = counts_equal and upd > 0 and rerr <= UPDATE_TOL * upd
+        if kind == "full":
+            o_rep = fbt.shard_cache_weight_by_owner(mesh, pr.cache.opt_state,
+                                                    device=cuda)
+            oscale = o_rep.abs().max().item()
+            oerr = (oa - o_rep).abs().max().item()
+            line += (f"; owned Adagrad state max_abs_err {oerr:.3e} (limit "
+                     f"{UPDATE_TOL} x {oscale:.3e})")
+            ok = ok and oerr <= UPDATE_TOL * oscale
+        print(line, flush=True)
+        if plains or not same or not ok or got["seg_fused_i2"] != 1 \
+                or got["seg_accum"] != 1:
+            fail(f"{what}: launches, repeatability, counts or owned rows")
+        if optim == "SGD":
+            sc = owned_state()
+            t = world_times(lambda: ostep(*sc, idx_l, dout_l, (1e-4, EPS)),
+                            MULTI_CALLS)
+            res["times"]["row-owned step"] = t
+            rsc = fbt.TTEmbeddingParams(tuple(c.clone() for c in cores),
+                                        opt0, clone_cache(rep))
+            # few calls: each all-reduces the [C, D] row gradients, and
+            # one call pads the profiler's window well enough
+            tr = world_times(lambda: rstep(rsc, idx_l, dout_l, (1e-4, EPS)),
+                             n=2, pad=1)
+            res["times"]["replicated-cache step"] = tr
+            print(f"{tag}: row-owned SGD step {times_of(t)}; the "
+                  f"replicated-cache dp step {times_of(tr)} [{card_line()}]",
+                  flush=True)
+            del sc, rsc
+        del pa, pb, pr, rprm, rstate, wa, wb, oa, ob
+    torch.cuda.empty_cache()
 
 
 def multi_phase(card):
@@ -3240,6 +3772,10 @@ def main():
     folded_launches, int8_launches = folded_phase(
         fbt, card, wrappers, params, serve, cache, cserve, request)
 
+    phase_mark("4c pool", t_start)
+    # 4c. pools above 4096 rows
+    pool_phase(fbt, card, params)
+
     phase_mark("5 train", t_start)
     # 5. train at full width
     def clone(prm):
@@ -3814,7 +4350,7 @@ def main():
                                folded_launches, int8_launches,
                                *nw_launches.values(),
                                *dt_launches.values(),
-                               *(multi_launches[k] for k in PATHS[-4:]))))
+                               *(multi_launches[k] for k in MULTI_PATHS))))
     kernels = []
     for name, rows in times.items():
         src, replaces = KERNELS[name]

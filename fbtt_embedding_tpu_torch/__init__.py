@@ -29,7 +29,11 @@ through autograd, with its walkthrough ``examples.train_dlrm``; on several
 GPUs (``parallel``, on ``torch.distributed``: ``initialize_distributed``,
 ``make_mesh`` / ``make_hybrid_mesh``, the data-parallel and table-sharded
 lookups, the data-parallel fused step ``make_sharded_fused_train_step``
-with ``csr_step_adapter``, the table-sharded DLRM step with
+with ``csr_step_adapter``, the table-owned step
+``make_table_sharded_fused_train_step``, the data-parallel serve
+``make_dp_serving_fn``, the replicated-cache lookup
+``make_dp_cached_lookup``, the row-owned cache's lookup, populate and step
+``make_row_owned_*``, the table-sharded DLRM step with
 ``shard_dlrm_params``), the host batches coming from the native loader
 (``native``: ``generate_batch``, ``PrefetchLoader``, the CSR re-layout
 ``pad_csr_to_fixed``);
@@ -153,11 +157,19 @@ from fbtt_embedding_tpu_torch.ops.lookup import (
 from fbtt_embedding_tpu_torch.parallel import (
     csr_step_adapter,
     initialize_distributed,
+    make_dp_cached_lookup,
     make_dp_lookup,
+    make_dp_serving_fn,
     make_hybrid_mesh,
     make_mesh,
+    make_row_owned_cached_lookup,
+    make_row_owned_fused_train_step,
+    make_row_owned_populate,
     make_sharded_fused_train_step,
+    make_table_sharded_fused_train_step,
     make_table_sharded_lookup,
+    shard_cache_weight_by_owner,
+    shard_table_sharded_params,
 )
 from fbtt_embedding_tpu_torch.utils import checkpoint, guard, profiling
 from fbtt_embedding_tpu_torch.utils.guard import (
@@ -210,13 +222,19 @@ __all__ = [
     "make_bucketed_serving_fn",
     "make_cache_state",
     "make_dlrm_train_step",
+    "make_dp_cached_lookup",
     "make_dp_lookup",
+    "make_dp_serving_fn",
     "make_folded_serving_fn",
     "make_fused_train_step",
     "make_hybrid_mesh",
     "make_mesh",
+    "make_row_owned_cached_lookup",
+    "make_row_owned_fused_train_step",
+    "make_row_owned_populate",
     "make_serving_fn",
     "make_sharded_fused_train_step",
+    "make_table_sharded_fused_train_step",
     "make_table_sharded_lookup",
     "native",
     "native_optim_init",
@@ -242,7 +260,9 @@ __all__ = [
     "seg_transform",
     "seg_transform_plain",
     "sgd_step",
+    "shard_cache_weight_by_owner",
     "shard_dlrm_params",
+    "shard_table_sharded_params",
     "suggested_tt_shapes",
     "tt_adagrad_backward",
     "tt_backward_kernel",

@@ -4,7 +4,8 @@ The counterpart of the JAX package's ``scripts/multihost_smoke.py``. Each
 rank initialises the world (``initialize_distributed``), builds a hybrid
 ``(dp, mp)`` mesh, runs the table-sharded all_to_all lookup and the
 data-parallel fused train step, checks every result against the same
-computation on this rank alone, and prints ``MULTIHOST_OK``. It imports
+computation on this rank alone (and the table-owned step, each rank owning
+its tables' cores and Adagrad state), and prints ``MULTIHOST_OK``. It imports
 neither JAX nor the JAX package.
 
 Two processes on the CPU (gloo)::
@@ -35,7 +36,12 @@ table-sharded DLRM step), ``walkthrough`` (``examples.train_dlrm --tiny
 agreeing and drifting values), ``mesh`` (default and one-axis meshes,
 ``host_local_to_global``, the hybrid mesh's and the specs' refusals),
 ``shard_error`` (a table count the table axis does not
-divide).
+divide), ``dp_cached_lookup`` (the replicated cache), ``dp_serve`` (the
+data-parallel serve, folded, int8 or not folded, wide key rows too),
+``table_step`` (the table-owned step; ``cache_error``: one with a cache),
+``row_owned_lookup``, ``row_owned_populate``, ``row_owned_step`` (the
+row-owned cache: populate, then the step) and ``value_errors`` (the
+refusals of the new entries).
 """
 
 from __future__ import annotations
@@ -97,6 +103,30 @@ def _smoke(fbt, mesh, dp: int, mp: int, device) -> None:
                           np.arange(0, b * L + 1, L), dout, lr_eps)
     for a, w, o in zip(new.tt_cores, ref_new.tt_cores, params().tt_cores):
         _hold(a - o, w - o, "data-parallel step's update", device)
+
+    # the table-owned step: each mp rank owns T / mp tables' cores and
+    # their Adagrad state, the pooled embeddings go through the exchange
+    dout_mp = (rng.normal(size=(t, b, d)) * 0.1).astype(np.float32)
+    adagrad = (0.05, 1.0)  # eps 1: no sign-like steps on near-zero grads
+
+    def owned_params():
+        return fbt.TTEmbeddingParams(tuple(c.clone() for c in full),
+                                     tuple(torch.zeros_like(c) for c in full))
+
+    mp_step = fbt.make_table_sharded_fused_train_step(
+        mesh, p, q, r, t, b, L, optimizer=fbt.OptimType.EXACT_ADAGRAD,
+        device=device)
+    _, mp_new = mp_step(
+        fbt.shard_table_sharded_params(mesh, owned_params(), device=device),
+        idx, host_local_slice(mesh, (None, ("dp", "mp")), dout_mp), adagrad)
+    ref_mp = fbt.make_fused_train_step(
+        p, q, r, t, b, optimizer=fbt.OptimType.EXACT_ADAGRAD, device=device)
+    _, ref_new = ref_mp(owned_params(), idx_np.reshape(-1),
+                        np.arange(0, t * b * L + 1, L), dout_mp, adagrad)
+    want = fbt.shard_table_sharded_params(mesh, ref_new, device=device)
+    old = fbt.shard_table_sharded_params(mesh, owned_params(), device=device)
+    for a, w, o in zip(mp_new.tt_cores, want.tt_cores, old.tt_cores):
+        _hold(a - o, w - o, "table-owned step's update", device)
 
 
 def _hold(got, want, what: str, device) -> None:
@@ -264,6 +294,8 @@ def _run_cases(fbt, cases: _Cases, device, rank: int) -> None:
                 except ValueError:
                     raised.append(1)
             cases.put(name, "raised", raised)
+        elif kind in _NEW_KINDS:
+            _NEW_KINDS[kind](fbt, cases, c, mesh, device)
         elif kind == "shard_error":
             try:
                 sharded.shard_params_for_table_parallel(
@@ -342,6 +374,213 @@ def _dp_step_case(fbt, cases: _Cases, c, mesh, device) -> None:
         if new.cache is not None:
             for f in ("keys", "freq", "slots", "weight", "opt_state"):
                 cases.put(name, f"{k}/cache/{f}", getattr(new.cache, f))
+
+
+def _cache_of(cases: _Cases, name: str, device, field: str = "cache"):
+    """The case's cache (its five fields under ``<field>/0..4``) as a
+    ``CacheState`` on ``device``, or None."""
+    import torch
+
+    from fbtt_embedding_tpu_torch.ops.cache import CacheState
+
+    fields = cases.seq(name, field)
+    if not fields:
+        return None
+    return CacheState(*(torch.tensor(a, device=device) for a in fields))
+
+
+def _put_cache(cases: _Cases, name: str, prefix: str, cache) -> None:
+    for f in ("keys", "freq", "slots", "weight", "opt_state"):
+        cases.put(name, f"{prefix}/{f}", getattr(cache, f))
+
+
+def _dp_cached_lookup_case(fbt, cases, c, mesh, device) -> None:
+    from fbtt_embedding_tpu_torch.parallel.multihost import host_local_slice
+
+    import torch
+
+    name = c["name"]
+    lookup = fbt.make_dp_cached_lookup(mesh, c["p"], c["q"], c["r"],
+                                       device=device)
+    idx = host_local_slice(mesh, (None, "dp"), cases.get(name, "indices"))
+    cores = [torch.tensor(a, device=device) for a in cases.seq(name,
+                                                               "cores")]
+    cases.put(name, "out", lookup(cores, _cache_of(cases, name, device),
+                                  idx))
+
+
+def _dp_serve_case(fbt, cases, c, mesh, device) -> None:
+    """``calls``: each ``{"weights": bool}`` serves the case's indices with
+    or without its weights; results ``<k>/out``."""
+    from fbtt_embedding_tpu_torch.parallel.multihost import host_local_slice
+
+    name = c["name"]
+    params = fbt.params_from_jax(cases.seq(name, "cores"), device=device)
+    params.cache = _cache_of(cases, name, device)
+    fold, serve = fbt.make_dp_serving_fn(
+        mesh, c["p"], c["q"], c["r"], c["T"], c["B"], c["L"],
+        probe_cache=True, folded=c["folded"], quantize=c.get("quantize"),
+        device=device)
+    fp = fold(params)
+    cases.put(name, "flat_mode", int(fp.setup is not None))
+    cases.put(name, "cache_int8", int(
+        fp.cache is not None and str(fp.cache.weight.dtype) == "torch.int8"))
+    idx = cases.get(name, "indices")
+    idx = host_local_slice(mesh, (None, "dp") + (None,) * (idx.ndim - 2),
+                           idx)
+    w = cases.get(name, "weights")
+    for k, call in enumerate(c["calls"]):
+        use_w = call["weights"]
+        cases.put(name, f"{k}/out", serve(
+            fp, idx, host_local_slice(mesh, (None, "dp"), w) if use_w
+            else None))
+
+
+def _table_step_case(fbt, cases, c, mesh, device) -> None:
+    from fbtt_embedding_tpu_torch.parallel.multihost import host_local_slice
+
+    name = c["name"]
+    step = fbt.make_table_sharded_fused_train_step(
+        mesh, c["p"], c["q"], c["r"], c["T"], c["B"], c["L"],
+        optimizer=fbt.OptimType[c["optimizer"]],
+        optim_semantics=c.get("optim_semantics", "reference"), device=device)
+    params = fbt.shard_table_sharded_params(
+        mesh, fbt.TTEmbeddingParams(cases.seq(name, "cores"),
+                                    cases.seq(name, "opt")), device=device)
+    idx = host_local_slice(mesh, ("mp", "dp"), cases.get(name, "indices"))
+    d_out = host_local_slice(mesh, (None, ("dp", "mp")),
+                             cases.get(name, "d_out"))
+    w = cases.get(name, "weights")
+    lr_eps = (float(cases.get(name, "lr")), float(cases.get(name, "eps")))
+    if c.get("cache_error"):
+        params.cache = _cache_of(cases, name, device)
+        try:
+            step(params, idx, d_out, lr_eps)
+            cases.put(name, "raised", "")
+        except ValueError as e:
+            cases.put(name, "raised", str(e))
+        return
+    out, new = step(params, idx, d_out, lr_eps,
+                    weights=None if w is None
+                    else host_local_slice(mesh, ("mp", "dp"), w))
+    cases.put(name, "out", out)
+    for i, x in enumerate(new.tt_cores):
+        cases.put(name, f"core/{i}", x)
+    for i, x in enumerate(new.optimizer_state):
+        cases.put(name, f"opt/{i}", x)
+
+
+def _row_owned_lookup_case(fbt, cases, c, mesh, device) -> None:
+    import torch
+
+    from fbtt_embedding_tpu_torch.parallel.multihost import host_local_slice
+
+    name = c["name"]
+    cache = _cache_of(cases, name, device)
+    w_owned = fbt.shard_cache_weight_by_owner(mesh, cases.seq(name,
+                                                              "cache")[3],
+                                              device=device)
+    cases.put(name, "w_owned", w_owned)
+    lookup = fbt.make_row_owned_cached_lookup(
+        mesh, c["p"], c["q"], c["r"], c["C"], device=device)
+    cores = [torch.tensor(a, device=device) for a in cases.seq(name,
+                                                               "cores")]
+    idx = host_local_slice(mesh, (None, "dp"), cases.get(name, "indices"))
+    cases.put(name, "out", lookup(cores, cache.slots, w_owned, idx))
+
+
+def _row_owned_populate_case(fbt, cases, c, mesh, device) -> None:
+    name = c["name"]
+    populate = fbt.make_row_owned_populate(
+        mesh, c["p"], c["q"], c["r"], c["C"], opt_state_kind=c["opt_kind"],
+        device=device)
+    cores = fbt.params_from_jax(cases.seq(name, "cores"),
+                                device=device).tt_cores
+    new_cache, w_owned, opt_owned = populate(
+        _cache_of(cases, name, device), cores)
+    _put_cache(cases, name, "cache", new_cache)
+    cases.put(name, "w_owned", w_owned)
+    cases.put(name, "opt_owned", opt_owned)
+
+
+def _row_owned_step_case(fbt, cases, c, mesh, device) -> None:
+    """The owned lifecycle: populate on the owners, then one step."""
+    from fbtt_embedding_tpu_torch.parallel.multihost import host_local_slice
+
+    name = c["name"]
+    params = fbt.params_from_jax(cases.seq(name, "cores"),
+                                 cases.seq(name, "opt"), device=device)
+    populate = fbt.make_row_owned_populate(
+        mesh, c["p"], c["q"], c["r"], c["C"], opt_state_kind=c["opt_kind"],
+        device=device)
+    params.cache, w_owned, opt_owned = populate(
+        _cache_of(cases, name, device), params.tt_cores)
+    step = fbt.make_row_owned_fused_train_step(
+        mesh, c["p"], c["q"], c["r"], c["C"], c["B"], c["L"],
+        optimizer=fbt.OptimType[c["optimizer"]], device=device)
+    spec = (None, "dp")
+    lr_eps = (float(cases.get(name, "lr")), float(cases.get(name, "eps")))
+    out, new, w2, o2 = step(
+        params, w_owned, opt_owned,
+        host_local_slice(mesh, spec, cases.get(name, "indices")),
+        host_local_slice(mesh, spec, cases.get(name, "d_out")), lr_eps,
+        weights=host_local_slice(mesh, spec, cases.get(name, "weights")))
+    cases.put(name, "out", out)
+    for i, x in enumerate(new.tt_cores):
+        cases.put(name, f"core/{i}", x)
+    cases.put(name, "freq", new.cache.freq)
+    cases.put(name, "w_owned", w2)
+    cases.put(name, "opt_owned", o2)
+
+
+def _value_errors_case(fbt, cases, c, mesh, device) -> None:
+    """Whether each refusal raised ValueError, on a ``(1, n)`` mesh: an
+    ``mp`` that does not divide T; a cache_size that the ranks (``mp``
+    taken as the batch axis) do not divide, in the row-owned lookup,
+    populate and step; a row-owned step given two tables."""
+    import numpy as _np
+
+    name = c["name"]
+    p, q, r = c["p"], c["q"], c["r"]
+    n = mesh.size()
+    own = dict(batch_axis="mp", device=device)
+    step = fbt.make_row_owned_fused_train_step(mesh, p, q, r, 2 * n, 2 * n,
+                                               2, **own)
+    params = fbt.params_from_jax(
+        [_np.zeros((1, pi, r[i] * q[i] * r[i + 1]), _np.float32)
+         for i, pi in enumerate(p)], device=device)
+    attempts = [
+        lambda: fbt.make_table_sharded_fused_train_step(
+            mesh, p, q, r, n + 1, 4 * n, 2, device=device),
+        lambda: fbt.make_row_owned_cached_lookup(mesh, p, q, r, n + 1, **own),
+        lambda: fbt.make_row_owned_populate(mesh, p, q, r, n + 1, **own),
+        lambda: fbt.make_row_owned_fused_train_step(mesh, p, q, r, n + 1,
+                                                    2 * n, 2, **own),
+        lambda: step(params, _np.zeros((2, 1), _np.float32),
+                     _np.zeros(0, _np.float32), _np.zeros((2, 2, 2),
+                                                          _np.int32),
+                     _np.zeros((2, 2, int(_np.prod(q))), _np.float32),
+                     (0.1, 1.0)),
+    ]
+    raised = []
+    for attempt in attempts:
+        try:
+            attempt()
+            raised.append(0)
+        except ValueError:
+            raised.append(1)
+    cases.put(name, "raised", raised)
+
+
+_NEW_KINDS = {
+    "dp_cached_lookup": _dp_cached_lookup_case,
+    "dp_serve": _dp_serve_case,
+    "table_step": _table_step_case,
+    "row_owned_lookup": _row_owned_lookup_case,
+    "row_owned_populate": _row_owned_populate_case,
+    "row_owned_step": _row_owned_step_case,
+    "value_errors": _value_errors_case,
+}
 
 
 def main(argv=None) -> int:

@@ -325,12 +325,10 @@ def cache_lookup(state: CacheState, indices: torch.Tensor) -> torch.Tensor:
             loc = torch.where(hit, state.slots[slot], loc)
             found = found | hit
         return loc
+    if state.direct:
+        return direct_lookup(state.slots, indices)
     idx = indices.to(torch.int32)
     miss = torch.full_like(idx, -1)
-    if state.direct:
-        n = state.slots.shape[0]
-        loc = state.slots[idx.clamp(0, n - 1).long()]
-        return torch.where((idx >= 0) & (idx < n), loc, miss)
     h_size = state.hashtbl_size
     h = hash_keys(idx, h_size)
     loc = miss
@@ -341,6 +339,15 @@ def cache_lookup(state: CacheState, indices: torch.Tensor) -> torch.Tensor:
         loc = torch.where(hit, state.slots[slot], loc)
         found = found | hit
     return loc
+
+
+def direct_lookup(slots: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
+    """The direct layout's probe: ``slots[indices]`` (int32), -1 where an
+    id lies outside the table (a negative id, a pad -1, misses)."""
+    idx = indices.to(torch.int32)
+    n = slots.shape[0]
+    loc = slots[idx.clamp(0, n - 1).long()]
+    return torch.where((idx >= 0) & (idx < n), loc, torch.full_like(idx, -1))
 
 
 def _decompress_rows(tt_cores, tt_p_shapes, tt_q_shapes, tt_ranks, rows_idx,

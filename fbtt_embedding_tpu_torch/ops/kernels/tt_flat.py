@@ -73,6 +73,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from fbtt_embedding_tpu_torch.ops.hot_scatter import segment_sum
 from fbtt_embedding_tpu_torch.ops.indexing import tt_strides
 from fbtt_embedding_tpu_torch.ops.kernels.seg_accum import (
     diag_block_sum,
@@ -99,7 +100,7 @@ SPAN_BLOCK = 4
 # cap on the G0xG1 pair-product table (rebuilt per call from the cores,
 # or built once by a serving fold)
 _PAIR_TABLE_BYTES = 96 * 1024 * 1024
-# one-hot pooling up to this many pooled rows, index_add_ above
+# one-hot pooling up to this many pooled rows, segment_sum above
 _POOL_ONEHOT_MAX_TB = 4096
 
 
@@ -372,9 +373,10 @@ def _extract_bd_grad(dgbd: torch.Tensor, mm: int, r_t: int, w_t: int):
 
 def _pool_flat(rows: torch.Tensor, plan: FlatPlan, tb: int, dt):
     """Pool per-lookup rows (last sort space) into float32 ``[tb, d]``: a
-    one-hot product for small batches, ``index_add_`` above
-    ``_POOL_ONEHOT_MAX_TB``. The one-hot weights are rounded to the
-    staging dtype and the product is float32, as in the JAX package."""
+    one-hot product for small batches, the deterministic ``segment_sum``
+    above ``_POOL_ONEHOT_MAX_TB`` (pad rows, ``rowidx_last`` -1, dropped).
+    The one-hot weights are rounded to the staging dtype and the product is
+    float32, as in the JAX package."""
     if tb <= _POOL_ONEHOT_MAX_TB:
         iota_b = torch.arange(tb, dtype=torch.int32, device=rows.device)
         hit = plan.rowidx_last[None, :] == iota_b[:, None]
@@ -388,12 +390,7 @@ def _pool_flat(rows: torch.Tensor, plan: FlatPlan, tb: int, dt):
     rows_f = rows.float()
     if plan.w_last is not None:
         rows_f = rows_f * plan.w_last[:, None]
-    seg = torch.where(plan.rowidx_last >= 0, plan.rowidx_last,
-                      torch.full_like(plan.rowidx_last, tb))
-    out = torch.zeros((tb + 1, rows.shape[1]), dtype=torch.float32,
-                      device=rows.device)
-    out.index_add_(0, seg.long(), rows_f)
-    return out[:tb]
+    return segment_sum(rows_f, plan.rowidx_last, tb)
 
 
 def _flat_setup(cores, p, q, r, dt):

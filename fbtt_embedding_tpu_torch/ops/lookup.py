@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from fbtt_embedding_tpu_torch.ops.contraction import tt_rows, validate_tt_shapes
+from fbtt_embedding_tpu_torch.ops.hot_scatter import segment_sum
 from fbtt_embedding_tpu_torch.ops.indexing import (
     decompose_indices,
     rowidx_from_offsets,
@@ -41,15 +42,14 @@ from fbtt_embedding_tpu_torch.ops.kernels.tt_kernel import (
 def pool_rows(rows: torch.Tensor, rowidx: torch.Tensor,
               tableidx: Optional[torch.Tensor], num_tables: int,
               batch_size: int) -> torch.Tensor:
-    """Sum-pool per-lookup rows into ``[num_tables, B, D]`` bags."""
-    d = rows.shape[-1]
+    """Sum-pool per-lookup rows into ``[num_tables, B, D]`` bags, by the
+    deterministic :func:`~fbtt_embedding_tpu_torch.ops.hot_scatter.
+    segment_sum` (the JAX package's ``segment_sum``)."""
     seg = rowidx.long()
     if num_tables > 1 and tableidx is not None:
         seg = tableidx.long() * batch_size + seg
-    pooled = torch.zeros((num_tables * batch_size, d), dtype=rows.dtype,
-                         device=rows.device)
-    pooled.index_add_(0, seg, rows)
-    return pooled.reshape(num_tables, batch_size, d)
+    return segment_sum(rows, seg, num_tables * batch_size).reshape(
+        num_tables, batch_size, rows.shape[-1])
 
 
 def tt_forward(tt_cores: Sequence[torch.Tensor], tt_p_shapes, tt_q_shapes,

@@ -1,25 +1,37 @@
 #!/usr/bin/env python3
-"""Where the time of a multi-GPU training step of fbtt_embedding_tpu_torch
-goes, rank by rank.
+"""Where the time of a multi-GPU training step or serve of
+fbtt_embedding_tpu_torch goes, rank by rank.
 
 Usage: ``python3 scripts/profile_torch_multi.py [--world 2] [--backend
-gloo] [--batch 1024] [--iters 10] [--dlrm] [--trace DIR]`` from the root
-of a checkout, on a machine with a CUDA card. Launches ``--world``
-processes (one rank each, on the visible cards in turn; several ranks on
-one card need ``--backend gloo``: NCCL takes one rank a card), each of
-which runs the data-parallel fused SGD step
-(``make_sharded_fused_train_step``) of the headline model (p=[200,220,250],
-q=[4,4,4], ranks [32,32]; random cores from seed 0; LFU counting on, a
-direct-mode cache of ``hashtbl_size`` E and ``cache_size`` E / 10) at
-pooling 20 and global batch ``--batch``, or with ``--dlrm`` the
-table-sharded DLRM step (8 tables of E=1M, ``(dp, mp) = (1, world)``,
-global B=512), and prints per rank: the host-clock ms per step, the
-device ms per step and the device operations per step under
-``torch.profiler``, the device busy share (device over host), the
-collectives' host ms per step (each collective between two
-synchronisations, in a run of its own) and their share of the step, and
-the largest kernels. ``--trace DIR`` writes each rank's Chrome trace there
-(``rank<r>.json``).
+gloo] [--batch 1024] [--iters 10] [--dlrm | --serving [--quantized] |
+--cache-mode replicated|owned] [--trace DIR]`` from the root of a
+checkout, on a machine with a CUDA card. Launches ``--world`` processes
+(one rank each, on the visible cards in turn; several ranks on one card
+need ``--backend gloo``: NCCL takes one rank a card), each of which runs,
+on the headline model (p=[200,220,250], q=[4,4,4], ranks [32,32]; random
+cores from seed 0) at pooling 20 and global batch ``--batch``:
+
+* by default the data-parallel fused SGD step
+  (``make_sharded_fused_train_step``) with LFU counting on (a direct-mode
+  cache of ``hashtbl_size`` E and ``cache_size`` E / 10, uniform ids);
+* ``--dlrm``: the table-sharded DLRM step (8 tables of E=1M, ``(dp, mp)
+  = (1, world)``, global B=512);
+* ``--serving``: the data-parallel folded serve (``make_dp_serving_fn``;
+  ``--quantized``: the int8 fold), Zipf(1.05) ids probing the cache
+  counted on 20 Zipf batches of 512 and populated (the counterpart of the
+  JAX package's ``scripts/bench_sharded.py --serving``);
+* ``--cache-mode replicated|owned``: the SGD step probing that populated
+  cache, replicated on every rank (``make_sharded_fused_train_step`` with
+  ``probe_cache``) or owned by rows (``make_row_owned_fused_train_step``
+  after ``make_row_owned_populate``), Zipf(1.05) ids (the counterpart of
+  ``bench_sharded.py --cache-mode``);
+
+and prints per rank: the host-clock ms per call, the device ms per call
+and the device operations per call under ``torch.profiler``, the device
+busy share (device over host), the collectives' host ms per call (each
+collective between two synchronisations, in a run of its own) and their
+share of the call, and the largest kernels. ``--trace DIR`` writes each
+rank's Chrome trace there (``rank<r>.json``).
 """
 
 import argparse
@@ -81,21 +93,60 @@ def _rank(args) -> None:
         rng = np.random.default_rng(0)
         params = fbt.params_from_jax(
             fbt.init_tt_cores(rng, "uniform", 1, e, d, p, q, r), device=cuda)
-        params.cache = fbt.make_cache_state(e, e // 10, d, num_embeddings=e,
+        c_size = (e // 10) // args.world * args.world
+        params.cache = fbt.make_cache_state(e, c_size, d, num_embeddings=e,
                                             device=cuda)
-        idx = rng.integers(0, e, size=(1, args.batch, pool)).astype(np.int32)
+        zipf = args.serving or args.cache_mode is not None
+        if zipf:  # the populated cache of Zipf traffic
+            for _ in range(20):
+                fbt.update_cache_state(params.cache, torch.as_tensor(
+                    (rng.zipf(1.05, size=512 * pool) - 1) % e, device=cuda))
+            counting = params.cache
+            params.cache = fbt.cache_populate(counting, params.tt_cores, p,
+                                              q, r)
+            idx = ((rng.zipf(1.05, size=(1, args.batch, pool)) - 1) % e)
+        else:
+            idx = rng.integers(0, e, size=(1, args.batch, pool))
         dout = rng.normal(size=(1, args.batch, d)).astype(np.float32)
-        idx = torch.tensor(host_local_slice(mesh, (None, "dp"), idx),
+        idx = torch.tensor(host_local_slice(mesh, (None, "dp"),
+                                            idx.astype(np.int32)),
                            device=cuda)
         dout = torch.tensor(host_local_slice(mesh, (None, "dp"), dout),
                             device=cuda)
-        step = fbt.make_sharded_fused_train_step(
-            mesh, p, q, r, 1, args.batch, pool, use_cache=True, device=cuda)
-        what = (f"data-parallel SGD step with LFU counting, global "
-                f"B={args.batch} pooling {pool}")
+        traffic = (f"global B={args.batch} pooling {pool}"
+                   + (f", Zipf 1.05 probing a populated cache of {c_size} "
+                      "rows" if zipf else ""))
+        if args.serving:
+            fold, serve = fbt.make_dp_serving_fn(
+                mesh, p, q, r, 1, args.batch, pool,
+                quantize="int8" if args.quantized else None, device=cuda)
+            fp = fold(params)
+            kind = "int8" if args.quantized else "bf16"
+            what = f"data-parallel folded {kind} serve, {traffic}"
 
-        def fn():
-            step(params, idx, dout, (1e-4, 1.0))
+            def fn():
+                serve(fp, idx)
+        elif args.cache_mode == "owned":
+            populate = fbt.make_row_owned_populate(mesh, p, q, r, c_size,
+                                                   device=cuda)
+            cnt, w_own, o_own = populate(counting, params.tt_cores)
+            params.cache = cnt
+            step = fbt.make_row_owned_fused_train_step(
+                mesh, p, q, r, c_size, args.batch, pool, device=cuda)
+            what = f"row-owned-cache SGD step, {traffic}"
+
+            def fn():
+                step(params, w_own, o_own, idx, dout, (1e-4, 1.0))
+        else:
+            step = fbt.make_sharded_fused_train_step(
+                mesh, p, q, r, 1, args.batch, pool, use_cache=True,
+                probe_cache=args.cache_mode == "replicated", device=cuda)
+            what = ((f"replicated-cache SGD step, {traffic}"
+                     if args.cache_mode else
+                     f"data-parallel SGD step with LFU counting, {traffic}"))
+
+            def fn():
+                step(params, idx, dout, (1e-4, 1.0))
 
     n = args.iters
     for _ in range(3):
@@ -132,12 +183,12 @@ def _rank(args) -> None:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()[0]
     print(f"[multi-profile] rank {args.rank} of {args.world} "
-          f"({args.backend}), {what}: host {host_ms:.3f} ms/step, device "
-          f"{dev_ms:.3f} ms/step ({ops / n:g} device operations a step), "
+          f"({args.backend}), {what}: host {host_ms:.3f} ms/call, device "
+          f"{dev_ms:.3f} ms/call ({ops / n:g} device operations a call), "
           f"busy {dev_ms / host_ms:.3f}; collectives {coll_ms:.3f} ms host "
-          f"time a step ({rec['calls'] / n:g} calls), "
-          f"{coll_ms / host_ms:.3f} of the step's host time; largest "
-          "kernels (ms/step): " + ", ".join(
+          f"time a call ({rec['calls'] / n:g} calls), "
+          f"{coll_ms / host_ms:.3f} of the call's host time; largest "
+          "kernels (ms/call): " + ", ".join(
               f"{name[:60]} {ms:.4f}" for name, ms in top)
           + f" [{card}]", flush=True)
     if args.trace:
@@ -156,11 +207,19 @@ def main() -> int:
                          "else nccl")
     ap.add_argument("--batch", type=int, default=1024)
     ap.add_argument("--iters", type=int, default=10)
-    ap.add_argument("--dlrm", action="store_true")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--dlrm", action="store_true")
+    mode.add_argument("--serving", action="store_true")
+    mode.add_argument("--cache-mode", choices=("replicated", "owned"),
+                      default=None)
+    ap.add_argument("--quantized", action="store_true",
+                    help="with --serving: the int8 fold")
     ap.add_argument("--trace", default=None)
     ap.add_argument("--rank", type=int, default=None)
     ap.add_argument("--init", default=None)
     args = ap.parse_args()
+    if args.quantized and not args.serving:
+        ap.error("--quantized goes with --serving")
     if args.rank is not None:
         _rank(args)
         return 0
@@ -181,6 +240,9 @@ def main() -> int:
                "--backend", backend, "--batch", str(args.batch), "--iters",
                str(args.iters), "--init", init]
         cmd += ["--dlrm"] if args.dlrm else []
+        cmd += ["--serving"] if args.serving else []
+        cmd += ["--quantized"] if args.quantized else []
+        cmd += ["--cache-mode", args.cache_mode] if args.cache_mode else []
         cmd += ["--trace", args.trace] if args.trace else []
         procs = [subprocess.Popen(cmd + ["--rank", str(r)])
                  for r in range(args.world)]

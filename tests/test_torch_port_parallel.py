@@ -401,12 +401,12 @@ def _world_cases(world):
 # ------------------------------------------------------------- the worlds
 
 class _World:
-    """A launched world of ``n`` ranks running every case of this module;
-    :meth:`result` waits for it once."""
+    """A launched world of ``n`` ranks running every case of ``cases(n)``
+    (this module's by default); :meth:`result` waits for it once."""
 
-    def __init__(self, n: int, tmp: Path):
+    def __init__(self, n: int, tmp: Path, cases=None):
         self.n, self.tmp = n, tmp
-        specs, arrays = _world_cases(n)
+        specs, arrays = (cases or _world_cases)(n)
         self.specs = {s["name"]: s for s in specs}
         np.savez(tmp / "cases.npz", __spec__=np.asarray(json.dumps(specs)),
                  **arrays)

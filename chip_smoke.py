@@ -98,6 +98,20 @@ CUDA card and ``nvcc``). Phases, each printing its own lines:
    with B1, B2, B3 once; and with ``FBTT_DG0=fused`` steps of B=512,
    B=1024 (pair mode), B=2048 (autograd) and the cached B=512 step, with
    B6 once and B3 off the i1 pass;
+5a. knobs: ``FBTT_PAIR`` and ``FBTT_FUSED_APPLY`` (``utils/knobs.py``,
+   read at every call; ``describe()`` is printed after the device lines):
+   the headline counting step (LFU counting on) under each setting of
+   KNOB_RUNS, unset and each knob forced both ways at B=512 and B=2048,
+   twice from the same state (outputs, cores and counts bitwise equal),
+   held against the plain float32 step, with its launches of B1, B2 and
+   B3 checked (B=512: unset 1, 1, 1; ``FBTT_PAIR=1`` 0, 1, 1;
+   ``FBTT_FUSED_APPLY=0`` 2, 0, 2; B=2048: unset 1, 0, 2;
+   ``FBTT_FUSED_APPLY=1`` 0, 1, 1; ``FBTT_PAIR=0`` 2, 0, 2); then each
+   gate on against off, in turns on, off, off, on (device ms, device
+   operations, host ms): ``FBTT_PAIR`` on the counting step over
+   KNOB_PAIR_BS and on the DLRM's lookup forward + backward (T=8,
+   pooling 8) over KNOB_DLRM_BS, ``FBTT_FUSED_APPLY`` on the counting
+   step over KNOB_APPLY_BS, and where each pays;
 5b. module: ``TTEmbeddingBag`` on the same model (approx-normal cores from
    seed 0, the LFU cache at its default sizes: direct, E rows counted,
    0.1 E cached) takes four forward + SGD ``backward`` calls of B=512 at
@@ -177,7 +191,8 @@ CUDA card and ``nvcc``). Phases, each printing its own lines:
    113 times each: 3 + 10 + 100 steps) and with ``--impl pallas`` (B4, B5
    113 each), its us/nnz beside ``speed_of_light``; then the DLRM step's
    device ms, device operations and host ms, the device ms split into the
-   lookup's forward + backward (with and without pair mode, in turns; its
+   lookup's forward + backward (``FBTT_PAIR`` unset, pair mode by nza,
+   against "0", in turns; its
    pair-table build, one-hot pool and one-hot dG0 product) and the MLPs
    with the interaction;
 5e. multi: ``torch.distributed`` worlds on the one card, each rank a
@@ -312,8 +327,9 @@ MULTI_PATHS = ("train_multi_dp", "train_multi_csr", "train_multi_dlrm",
                "train_multi_table_owned", "populate_multi_row_owned",
                "lookup_multi_row_owned", "train_multi_row_owned")
 PATHS = ("serve", "train", "serve_generic", "train_generic", "serve_cached",
-         "train_cached", "train_dg0", "module", "serve_folded",
-         "serve_folded_int8", "train_native", "train_wide_cache",
+         "train_cached", "train_dg0", "train_knobs", "module",
+         "serve_folded", "serve_folded_int8", "train_native",
+         "train_wide_cache",
          "serve_wide_cache", "module_wide_cache", "train_dlrm",
          "train_dlrm_f32", "train_dlrm_dg0", "dlrm_walkthrough", "cli",
          "cli_generic") + MULTI_PATHS
@@ -868,17 +884,29 @@ def hold_cache(line, new, ref, old, what):
 
 
 @contextlib.contextmanager
-def dg0_knob(mode):
-    """``FBTT_DG0=mode`` in this process for the block, then as before."""
-    before = os.environ.get("FBTT_DG0")
-    os.environ["FBTT_DG0"] = mode
+def knob(env):
+    """The ``FBTT_*`` knobs of ``env`` ({name: value}, None unsets; each
+    registered in ``utils.knobs``, else KeyError) in this process for the
+    block, then as before. The library reads them at every call."""
+    from fbtt_embedding_tpu_torch.utils import knobs
+
+    before = {}
+    for name in env:
+        knobs.get_str(name)
+        before[name] = os.environ.get(name)
     try:
+        for name, value in env.items():
+            if value is None:
+                os.environ.pop(name, None)
+            else:
+                os.environ[name] = value
         yield
     finally:
-        if before is None:
-            os.environ.pop("FBTT_DG0", None)
-        else:
-            os.environ["FBTT_DG0"] = before
+        for name, value in before.items():
+            if value is None:
+                os.environ.pop(name, None)
+            else:
+                os.environ[name] = value
 
 
 def clone_cache(c):
@@ -1370,7 +1398,7 @@ def module_phase(fbt, card, wrappers, request, fused_step):
     del bmod, aref, state, fused_new
 
     # FBTT_DG0=fused: B6 takes the i1 pass from B3
-    with dg0_knob("fused"):
+    with knob({"FBTT_DG0": "fused"}):
         checked(mod, ref, batch(True), two, want(B3=1, B6=1),
                 f"TTEmbeddingBag SGD B={B} zipf1.05 probed, FBTT_DG0=fused")
 
@@ -1712,7 +1740,7 @@ def native_wide_phase(fbt, card, wrappers, request, cores, cache,
                      label, store_ulp=True)
     print(hold_state(line, new.optimizer_state, ref.optimizer_state,
                      old.optimizer_state, F32_UPDATE_TOL, label))
-    with dg0_knob("fused"):
+    with knob({"FBTT_DG0": "fused"}):
         prm = native_params(adam, cached=False)
         label = f"native ADAM FBTT_DG0=fused B={B} zipf1.05 bf16"
         out, new, ref_out, ref, old = stepped(
@@ -2145,7 +2173,7 @@ def dlrm_tools_phase(fbt, card, wrappers):
             dict(precision="highest"), batches[5], want(B1=2, B3=2),
             (F32_OUT_TOL, F32_OUT_TOL, F32_UPDATE_TOL),
             f"dlrm SGD step float32 staging B={DLRM_B}")
-    with dg0_knob("fused"):
+    with knob({"FBTT_DG0": "fused"}):
         checked("train_dlrm_dg0", kstep, {}, batches[6],
                 want(B1=1, B3=1, B6=1), (OUT_TOL, DLRM_LOGIT_TOL, None),
                 f"dlrm SGD step FBTT_DG0=fused bf16 B={DLRM_B}")
@@ -2285,16 +2313,12 @@ def dlrm_tools_phase(fbt, card, wrappers):
         emb = dlrm.fixed_pool_lookup(cores, batch[1], tp, qs, rs)
         torch.autograd.grad(emb, cores, g_emb)
 
-    gate = tt_flat._pair_gate
     looks = {"pair": [], "no pair": []}
     for mode in ("pair", "no pair", "no pair", "pair"):
-        tt_flat._pair_gate = gate if mode == "pair" else \
-            (lambda *a, **k: False)
-        try:
+        # FBTT_PAIR unset: pair mode by nza (32768 here); "0": never
+        with knob({"FBTT_PAIR": None if mode == "pair" else "0"}):
             looks[mode].append((device_ms(lookup_call, n=25)[0],
                                 device_ms.ops))
-        finally:
-            tt_flat._pair_gate = gate
     gk = kernel_core_layouts([c.detach() for c in cores], tp, qs, rs)
     pair_ms = device_ms(lambda: tt_flat._pair_table(
         gk, tp, qs, rs, nt, torch.bfloat16))[0]
@@ -2347,6 +2371,182 @@ def dlrm_tools_phase(fbt, card, wrappers):
     print(f"[dlrm+tools] phase took {time.perf_counter() - t_phase:.1f} s; "
           + "; ".join(f"{k} {launch_text(v)}" for k, v in paths.items()))
     return paths
+
+
+# the knob phase's checks: (B, knobs, (B1, B2, B3) of one counting step).
+# FBTT_PAIR "1" skips B1's i1 pass; FBTT_FUSED_APPLY "0" trades B2 for
+# B1's and B3's i2 passes (autograd through FlatLookup), and "1" takes B2
+# at B=2048 (nnz 40960, pair mode by nza)
+KNOB_RUNS = (
+    (B, {}, (1, 1, 1)),
+    (B, {"FBTT_PAIR": "1"}, (0, 1, 1)),
+    (B, {"FBTT_PAIR": "0"}, (1, 1, 1)),
+    (B, {"FBTT_FUSED_APPLY": "0"}, (2, 0, 2)),
+    (B, {"FBTT_FUSED_APPLY": "1"}, (1, 1, 1)),
+    (4 * B, {}, (1, 0, 2)),
+    (4 * B, {"FBTT_FUSED_APPLY": "1"}, (0, 1, 1)),
+    (4 * B, {"FBTT_FUSED_APPLY": "0"}, (1, 0, 2)),
+    (4 * B, {"FBTT_PAIR": "0"}, (2, 0, 2)),
+    (4 * B, {"FBTT_PAIR": "1"}, (1, 0, 2)),
+)
+# the gates' sweeps: batch sizes of the headline counting step at pooling
+# 20 (FBTT_PAIR: nnz 4160, 20480, 65440; FBTT_FUSED_APPLY: nnz 8160,
+# 30720, 65440) and of the DLRM's lookup (T=8, pooling 8, the
+# walkthrough's tables: nnz 8192, 32768, 65536); every B a multiple of 8
+# (flat_available). Three points a sweep keep the phase near a minute:
+# each turn is one profiler session.
+KNOB_PAIR_BS = (208, 1024, 3272)
+KNOB_APPLY_BS = (408, 1536, 3272)
+KNOB_DLRM_BS = (128, 512, 1024)
+KNOB_DLRM = dict(tables=8, pool=8, p=[100, 100, 100], e=10 ** 6)
+
+
+def knob_phase(fbt, card, wrappers, cores, train_batch, plain_steps):
+    """``FBTT_PAIR`` and ``FBTT_FUSED_APPLY`` on the card: the headline
+    counting step under each of KNOB_RUNS, twice from the same state
+    (bitwise equal) and against the plain float32 step, with its launches;
+    then each gate on against off, in turns, over its sweep (device ms,
+    device operations, host ms). Returns the checks' launches."""
+    import numpy as np
+    import torch
+
+    from fbtt_embedding_tpu_torch.models import dlrm
+
+    t_phase = time.perf_counter()
+
+    def zero_counts():
+        for fn in wrappers.values():
+            fn.launches = 0
+
+    def counts():
+        return {name: fn.launches for name, fn in wrappers.items()}
+
+    def fresh(cache):
+        return fbt.TTEmbeddingParams(
+            fbt.params_from_jax(cores, device="cuda").tt_cores, (), cache)
+
+    base = fbt.make_cache_state(E, E // 10, D, num_embeddings=E,
+                                device="cuda")
+    steps = {b: fbt.make_fused_train_step(P, Q, R, 1, b, use_cache=True,
+                                          device="cuda") for b in (B, 4 * B)}
+    batches = {b: train_batch(b, False) for b in (B, 4 * B)}
+    launches = dict.fromkeys(wrappers, 0)
+    for b, env, want in KNOB_RUNS:
+        want = {**dict.fromkeys(wrappers, 0), **dict(zip(
+            ("seg_transform", "seg_fused_i2", "seg_accum"), want))}
+        label = (f"counting step B={b} pooling {POOL} "
+                 + (" ".join(f"{k}={v}" for k, v in env.items())
+                    or "no knob set"))
+        runs = []
+        with knob(env):
+            for _ in range(2):
+                prm = fresh(clone_cache(base))
+                zero_counts()
+                out, new = steps[b](prm, *batches[b], (LR, EPS))
+                torch.cuda.synchronize()
+                runs.append((out, new, counts()))
+        (out, new, got), (out2, new2, got2) = runs
+        if got != want or got2 != want:
+            fail(f"{label}: launches {got} / {got2}, expected {want}")
+        if not (torch.equal(out, out2) and all(
+                torch.equal(a, c) for a, c in zip(new.tt_cores,
+                                                  new2.tt_cores))
+                and torch.equal(new.cache.freq, new2.cache.freq)):
+            fail(f"{label}: two runs from the same state differ")
+        old = fresh(None)
+        ref_out, ref = plain_steps[b](
+            fbt.TTEmbeddingParams(tuple(c.clone() for c in old.tt_cores),
+                                  (), None), *batches[b], (LR, EPS))
+        for k in wrappers:
+            launches[k] += got[k]
+        line = (f"[knobs] {label}: launches B1 {got['seg_transform']} B2 "
+                f"{got['seg_fused_i2']} B3 {got['seg_accum']}, twice "
+                "bitwise equal")
+        print(hold_step(line, out, ref_out, new, ref, old, OUT_TOL,
+                        UPDATE_TOL, label), flush=True)
+        del runs, out, new, out2, new2
+    del base
+    torch.cuda.empty_cache()
+
+    def turns(name, on, off, call):
+        """(on, off): [(device ms, device ops, host ms)] x 2 each, in turns
+        on, off, off, on."""
+        res = {on: [], off: []}
+        for v in (on, off, off, on):
+            with knob({name: v}):
+                dev = device_ms(call, n=10)[0]
+                res[v].append((dev, device_ms.ops, host_ms(call, reps=10)))
+        return res[on], res[off]
+
+    def text(rows):
+        return " / ".join(f"{d:.4f} ms ({o:.0f} ops, host {h:.3f})"
+                          for d, o, h in rows)
+
+    def sweep(what, name, on, off, bs, nnz_of, make_call):
+        """Each B's A/B line; [(nnz, whether ``on``'s device time, the mean
+        of its two turns, is the lower)]."""
+        wins = []
+        for b in bs:
+            a, z = turns(name, on, off, make_call(b))
+            da, dz = (statistics.mean(r[0] for r in x) for x in (a, z))
+            wins.append((nnz_of(b), da < dz))
+            print(f"[time] knobs: {what} B={b} (nnz {nnz_of(b)}), in turns "
+                  f"{name}={on}, {off}, {off}, {on}: {on} {text(a)}; {off} "
+                  f"{text(z)}; {on} - {off} {da - dz:+.4f} ms of device "
+                  f"time [{card}]", flush=True)
+            torch.cuda.empty_cache()
+        return wins
+
+    scratch = fresh(fbt.make_cache_state(E, E // 10, D, num_embeddings=E,
+                                         device="cuda"))
+
+    def headline(b):
+        step = fbt.make_fused_train_step(P, Q, R, 1, b, use_cache=True,
+                                         device="cuda")
+        batch = train_batch(b, False)
+        return lambda: step(scratch, *batch, (1e-5, EPS))
+
+    pair_wins = sweep("FBTT_PAIR, headline counting step", "FBTT_PAIR",
+                      "1", "0", KNOB_PAIR_BS, lambda b: b * POOL, headline)
+    apply_wins = sweep("FBTT_FUSED_APPLY, headline counting step",
+                       "FBTT_FUSED_APPLY", "1", "0", KNOB_APPLY_BS,
+                       lambda b: b * POOL, headline)
+    del scratch
+    torch.cuda.empty_cache()
+
+    nt, pool, dp = KNOB_DLRM["tables"], KNOB_DLRM["pool"], KNOB_DLRM["p"]
+    de = KNOB_DLRM["e"]
+    dcores = [c.requires_grad_() for c in fbt.params_from_jax(
+        fbt.init_tt_cores(np.random.default_rng(0), "uniform", nt, de, D,
+                          dp, Q, R), device="cuda").tt_cores]
+    rng = np.random.default_rng(3)
+
+    def dlrm_lookup(b):
+        idx = torch.as_tensor(rng.integers(0, de, size=(nt, b, pool)),
+                              dtype=torch.int32, device="cuda")
+        g = torch.randn(nt, b, D, device="cuda")
+
+        def call():
+            emb = dlrm.fixed_pool_lookup(dcores, idx, dp, Q, R)
+            torch.autograd.grad(emb, dcores, g)
+        return call
+
+    dlrm_wins = sweep(f"FBTT_PAIR, DLRM lookup forward + backward T={nt} "
+                      f"pooling {pool}", "FBTT_PAIR", "1", "0",
+                      KNOB_DLRM_BS, lambda b: nt * b * pool, dlrm_lookup)
+    del dcores
+    torch.cuda.empty_cache()
+
+    def crossing(wins):
+        return ", ".join(f"nnz {n} {'yes' if w else 'no'}" for n, w in wins)
+
+    print(f"[knobs] does it pay on this card (device time, mean of two "
+          f"turns)? pair mode at the headline: {crossing(pair_wins)}; at "
+          f"the DLRM's lookup: {crossing(dlrm_wins)}; the fused apply: "
+          f"{crossing(apply_wins)} [{card}]")
+    print(f"[knobs] phase took {time.perf_counter() - t_phase:.1f} s; "
+          f"launches {launch_text(launches)}", flush=True)
+    return launches
 
 
 def pool_phase(fbt, card, params):
@@ -3266,6 +3466,7 @@ def main():
 
     import fbtt_embedding_tpu_torch as fbt
     from fbtt_embedding_tpu_torch.ops.kernels import _build
+    from fbtt_embedding_tpu_torch.utils import knobs
     from fbtt_embedding_tpu_torch.ops.kernels import tt_flat, tt_kernel
     from fbtt_embedding_tpu_torch.ops.kernels.seg_accum import (
         seg_accum,
@@ -3314,6 +3515,9 @@ def main():
     print(card)
     print(f"[device] torch {torch.__version__}, cuda {torch.version.cuda}, "
           f"{torch.cuda.device_count()} card(s)")
+    # the knobs as this process reads them (5a sets FBTT_PAIR and
+    # FBTT_FUSED_APPLY, 5 and 5b-5d FBTT_DG0, each for its block only)
+    print("[knobs] " + knobs.describe().replace("\n", "\n[knobs] "))
 
     # 2. build
     t0 = time.perf_counter()
@@ -3988,7 +4192,7 @@ def main():
 
     # (c) FBTT_DG0=fused: B6 replaces B3 on the i1 pass
     dtrain_launches = dict.fromkeys(wrappers, 0)
-    with dg0_knob("fused"):
+    with knob({"FBTT_DG0": "fused"}):
         dplan = [  # step, plain step, batch, (B1, B2, B3, B6), label
             (sgd_steps[B], sgd_plain[B], cbatches[0], (1, 1, 0, 1),
              f"FBTT_DG0=fused sgd B={B} (fused)", False),
@@ -4012,6 +4216,12 @@ def main():
                 dtrain_launches[k] += got[k]
     print(f"[train] launches on the FBTT_DG0=fused training path: "
           f"{dtrain_launches}")
+
+    phase_mark("5a knobs", t_start)
+    # 5a. FBTT_PAIR and FBTT_FUSED_APPLY: launches, limits, repeats; the
+    # card's A/B of both gates
+    knob_launches = knob_phase(fbt, card, wrappers, cores, train_batch,
+                               sgd_plain)
 
     phase_mark("5b module", t_start)
     # 5b. the modules at full width
@@ -4304,7 +4514,7 @@ def main():
           f"us/lookup [{card}]")
     ab = {"onehot": [], "fused": []}
     for mode in ("onehot", "fused", "fused", "onehot"):
-        with dg0_knob(mode):
+        with knob({"FBTT_DG0": mode}):
             ab[mode].append(host_ms(lambda: count_step(
                 cscratch, *cbatch, (1e-4, EPS))))
     print(f"[time] counting step B={B} FBTT_DG0 A/B, in turns onehot, fused, "
@@ -4346,7 +4556,8 @@ def main():
     by_path = dict(zip(PATHS, (serve_launches, train_launches,
                                gserve_launches, gtrain_launches,
                                cserve_launches, ctrain_launches,
-                               dtrain_launches, module_launches,
+                               dtrain_launches, knob_launches,
+                               module_launches,
                                folded_launches, int8_launches,
                                *nw_launches.values(),
                                *dt_launches.values(),

@@ -44,7 +44,10 @@ the JAX package's leaf order), ``utils.guard`` (``finite_flag``,
 ``python -m fbtt_embedding_tpu_torch.benchmark``. Also the
 dense-mode functions (``tt_forward``, ``tt_dense_backward``,
 ``tt_sgd_backward``, ...), ``tt_embedding_forward``, ``tt_matrix_to_full``
-and the TT-SVD import ``tt_decompose``.
+and the TT-SVD import ``tt_decompose``. The ``FBTT_*`` knobs it reads
+(``FBTT_DG0``, ``FBTT_PAIR``, ``FBTT_FUSED_APPLY``: A/B overrides of the
+schedule, read at every call) are listed by ``python -m
+fbtt_embedding_tpu_torch.utils.knobs``.
 """
 
 from fbtt_embedding_tpu_torch import native, parallel

@@ -69,6 +69,7 @@ from fbtt_embedding_tpu_torch.ops.lookup import (
     staging_dtype,
     unpad_flat_output,
 )
+from fbtt_embedding_tpu_torch.utils import knobs
 from fbtt_embedding_tpu_torch.utils.decompose import tt_decompose
 from fbtt_embedding_tpu_torch.utils.init import init_tt_cores
 from fbtt_embedding_tpu_torch.utils.shapes import suggested_tt_shapes
@@ -104,7 +105,8 @@ class OptimType(Enum):
 
 _SGD_OPTIMS = (OptimType.SGD, OptimType.EXACT_SGD)
 # above this many lookups the step differentiates the two-pass lookup
-# instead of running flat_train_apply (the JAX package's crossover)
+# instead of running flat_train_apply (the JAX package's crossover), unless
+# FBTT_FUSED_APPLY says otherwise (_fused_apply_gate)
 _FUSED_APPLY_NNZ_MAX = 32768
 
 
@@ -627,8 +629,9 @@ def make_fused_train_step(
     Inputs may be numpy arrays or tensors and go to ``device``, where the
     params must be.
 
-    At nnz <= 32768 on a config the flat pipeline takes unpadded, the step
-    runs ``flat_train_apply`` (kernels B1, B2, B3 on the card, their plain
+    At nnz <= 32768 (or as ``FBTT_FUSED_APPLY`` "0" / "1" says) on a
+    config the flat pipeline takes unpadded, the step runs
+    ``flat_train_apply`` (kernels B1, B2, B3 on the card, their plain
     versions on the CPU); otherwise autograd through ``pooled_tt_lookup``:
     the flat ``FlatLookup``, with ``impl="pallas"`` the generic
     ``GenericLookup`` (kernel B4 forward, B5 backward, float32; it raises
@@ -756,14 +759,24 @@ def _tt_path_inputs(locations, impl: str, shapes, num_tables: int, bs: int,
             None, None)
 
 
+def _fused_apply_gate(nnz: int) -> bool:
+    """Whether a step of ``nnz`` lookups may take ``flat_train_apply``:
+    nnz <= ``_FUSED_APPLY_NNZ_MAX``, or as ``FBTT_FUSED_APPLY`` "0" / "1"
+    says (read at every call; the JAX package's semantics)."""
+    mode = knobs.get_str("FBTT_FUSED_APPLY", "auto")
+    if mode in ("0", "1"):
+        return mode == "1"
+    return nnz <= _FUSED_APPLY_NNZ_MAX
+
+
 def _forward_backward(cores, shapes, num_tables: int, bs: int, impl: str,
                       precision, device, locations, indices, parts, rowidx,
                       tbl, weights, d_output):
     """The training step's TT lookup and its core gradients for
     ``d_output``, before any update: ``(output [T, bs, D] without the cache
-    rows, grads)``. At nnz <= ``_FUSED_APPLY_NNZ_MAX`` on a config the flat
-    pipeline takes, ``flat_train_apply`` (B1, B2, B3 on the card); else
-    autograd through ``pooled_tt_lookup`` (``FlatLookup``, the generic
+    rows, grads)``. Where :func:`_fused_apply_gate` allows, on a config the
+    flat pipeline takes, ``flat_train_apply`` (B1, B2, B3 on the card);
+    else autograd through ``pooled_tt_lookup`` (``FlatLookup``, the generic
     ``GenericLookup`` under ``impl="pallas"``, or the plain chain). The
     cache-served lookups (``locations``) are skipped as
     :func:`_tt_path_inputs` says."""
@@ -772,7 +785,7 @@ def _forward_backward(cores, shapes, num_tables: int, bs: int, impl: str,
         locations, impl, shapes, num_tables, bs, indices, parts, rowidx,
         tbl, weights)
     if (impl in ("auto", "pallas_sorted")
-            and nnz <= _FUSED_APPLY_NNZ_MAX
+            and _fused_apply_gate(nnz)
             and flat_available(*shapes, num_tables, bs)):
         with torch.no_grad():  # the gradients come out explicitly
             return flat_train_apply(

@@ -32,10 +32,10 @@ middle digits (``_bd_widths``). The kernels B1, B2 and B3 fold it
 (``mm``): they read only its first diagonal block, ``G2[j]``; B2 and B3 give
 ``dG2`` as the sum of the diagonal blocks (what ``_extract_bd_grad``
 takes of an unfolded gradient). In pair mode (``_pair_gate``: nza >= 16384
-and the pair table fits) a ``[T*p0*p1 + 1, q0*q1*r2]`` table of
-``G0[i0] @ G1[i1]`` replaces the z0 gather, the first pass and the s1 -> s2
-permute: ``Z1' = G01[pair_s2]``, and only the last pass runs forward; the
-backward recomputes z0 by the gather.
+or ``FBTT_PAIR=1``, and the pair table fits) a ``[T*p0*p1 + 1, q0*q1*r2]``
+table of ``G0[i0] @ G1[i1]`` replaces the z0 gather, the first pass and the
+s1 -> s2 permute: ``Z1' = G01[pair_s2]``, and only the last pass runs
+forward; the backward recomputes z0 by the gather.
 
 Dead lookups (cache-served: ``dead_mask`` or positions past
 ``live_count``) and padding get a sentinel key ``T*p_t``; they sort into the
@@ -122,9 +122,15 @@ def pair_structural_ok(num_tables: int, p, q, r, itemsize: int) -> bool:
 
 def _pair_gate(nza: int, num_tables: int, p, q, r, itemsize: int) -> bool:
     """Pair mode when structurally possible and nza >= 16384, where the
-    per-call table build amortises (the JAX package's threshold)."""
-    return pair_structural_ok(num_tables, p, q, r, itemsize) and \
-        nza >= 16384
+    per-call table build amortises (the JAX package's threshold).
+    ``FBTT_PAIR`` "0" / "1", read at every call, overrides the nza
+    threshold for an A/B, never the structural gate."""
+    if not pair_structural_ok(num_tables, p, q, r, itemsize):
+        return False
+    env = knobs.get_str("FBTT_PAIR")
+    if env in ("0", "1"):
+        return env == "1"
+    return nza >= 16384
 
 
 def _bd_widths(tt_q_shapes, ranks):

@@ -291,9 +291,10 @@ def test_flat_train_apply_dg0_fused_matches_jax(monkeypatch, cid, dead,
 
 
 def test_flat_train_apply_dg0_fused_pair_mode(monkeypatch):
-    """Pair mode (gate forced): B6's x is the recomputed z0."""
+    """Pair mode (``FBTT_PAIR=1`` at a small nnz): B6's x is the
+    recomputed z0."""
     monkeypatch.setenv("FBTT_DG0", "fused")
-    monkeypatch.setattr(tflat, "_pair_gate", lambda *a: True)
+    monkeypatch.setenv("FBTT_PAIR", "1")
     case = CASES[1]
     rfull, cores, idx, rowidx, _, w = make_case(**case, seed=9)
     p, q, b = case["p"], case["q"], case["b"]
@@ -334,7 +335,7 @@ def test_flat_lookup_backward_dg0_fused_matches_jax(monkeypatch, cid, dead,
     ``make_flat_vjp`` with the same knob."""
     monkeypatch.setenv("FBTT_DG0", "fused")
     if pair:
-        monkeypatch.setattr(tflat, "_pair_gate", lambda *a: True)
+        monkeypatch.setenv("FBTT_PAIR", "1")
     case = CASES[cid]
     rfull, cores, idx, rowidx, tab, w = make_case(**case, seed=cid + 30)
     p, q, T, b = case["p"], case["q"], case.get("T", 1), case["b"]

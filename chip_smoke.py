@@ -38,14 +38,16 @@ CUDA card and ``nvcc``). Phases, each printing its own lines:
    Python copy on DG0_RULE_SHAPES, which must agree; the generic
    forward (B4) and backward (B5) in float32 on the headline batch
    (uniform and Zipf 1.05), a tt_ndim-2 model (uniform and Zipf 1.05), a
-   tt_ndim-4 and a rank-64 model, two tables with weights, a live-count
-   tail and a tt_ndim-3 model whose last core (q_0 q_1 = 12, r_2 = 8) B4
-   multiplies on the CUDA cores, B4 and B5 each run twice and required
-   bitwise equal (B4 also where its wrapper sorts core 1 itself), each
-   case printing and
-   requiring B4's and B5's paths (the pivot pass at tt_ndim 2 and 3, the
-   chain pass at tt_ndim 4; the library's query and its Python copy must
-   agree, for B4 also on the shapes of FWD_RULE_SHAPES);
+   small tt_ndim-4 model, the billion-row tt_ndim-4 model (P4, Q4, R4) at
+   B=512, pooling 20 (uniform and Zipf 1.05), a tt_ndim-4 model of r_1 =
+   12, a rank-64 model, two tables with weights, a live-count tail and a
+   tt_ndim-3 model whose last core (q_0 q_1 = 12, r_2 = 8) B4 multiplies
+   on the CUDA cores, B4 and B5 each run twice and required bitwise equal
+   (B4 also where its wrapper sorts its pivot cores itself), each case
+   printing and requiring B4's and B5's paths (the pivot path wherever
+   the middle cores' slabs stage, tt_ndim 4 included; the chain pass at r_1
+   = 12), the library's query and its Python copy agreeing, as they must
+   on the shapes of FWD_RULE_SHAPES for both;
 4. serve: the headline model (p=[200,220,250], q=[4,4,4], ranks [32,32]:
    E=11M, D=64) with random cores from seed 0 serves five requests of
    B=512 at pooling 20 (uniform and Zipf 1.05 row ids) and one of B=1024
@@ -90,6 +92,13 @@ CUDA card and ``nvcc``). Phases, each printing its own lines:
    backward, float32) takes two SGD steps of B=512 (uniform, Zipf), one of
    B=2048 and one Adagrad step of B=512, each held against the plain
    float32 step, with B4 and B5 once and B1-B3 never per step; then the
+   billion-row tt_ndim-4 model (P4, Q4, R4: E=10^9, D=64, random cores
+   from seed 4) with ``impl="pallas"`` serves a uniform and a Zipf B=512
+   request and takes two SGD steps and two with LFU counting into a hashed
+   table of 2^24 slots and 2^20 rows, each held against the plain float32
+   serve or step (counts, keys and slots exactly), B4 once per request and
+   B4 and B5 once per step, with device ms, device operations and host ms
+   of the serve and both steps (``[time] tt_ndim-4`` lines); then the
    reference benchmark's step: five SGD steps of B=512 with LFU counting
    on (``use_cache``; counts checked exactly), SGD and ``EXACT_ADAGRAD``
    steps on the populated cache with ``probe_cache`` (held against the
@@ -254,7 +263,8 @@ CUDA card and ``nvcc``). Phases, each printing its own lines:
    kernels); B4's and B5's bounds both at the float32 CUDA-core peak (the
    ``[time]`` lines) and, for the pivot passes, as three TF32 products at
    the tensor-core peak (``bound_ms``), beside each one's ``path`` (the
-   kernels' line); host-clock
+   kernels' line), on the headline batches and on the billion-row
+   tt_ndim-4 model's (the kernels' line's ``ndim4``); host-clock
    medians of the serve per request, the training step per call at
    B=512, 1024 and 2048, the ``impl="pallas"`` serve and step at B=512, the B=512 step with LFU counting on (beside
    the reference's V100 figure), the cached step with its hit rate, the
@@ -297,16 +307,22 @@ KERNELS = {
     "tt_fwd": (CSRC + "tt_fwd.cu", TT_KERNEL + ":274"),
     "tt_bwd": (CSRC + "tt_bwd.cu", TT_KERNEL + ":400"),
 }
-# (q, inner ranks) on which B4's path rule is asked of the library and of
-# its Python copy: tests/test_torch_port_fwd.py's path cases, and tt_ndim-3
-# shapes whose last core's product runs fused (r_2 = 32, q_2 4 and 8), on
-# the tensor cores (r_2 16) and on the CUDA cores (q_0 q_1 = 4)
+# (q, inner ranks) on which B4's and B5's path rules are asked of the
+# library and of their Python copies: tests/test_torch_port_fwd.py's and
+# test_torch_port_bwd.py's path cases, and tt_ndim-3 shapes whose last
+# core's product runs fused (r_2 = 32, q_2 4 and 8), on the tensor cores
+# (r_2 16) and on the CUDA cores (q_0 q_1 = 4)
 FWD_RULE_SHAPES = (
     ([8, 8], [32]), ([4, 4], [16]), ([4, 4, 4], [32, 32]),
     ([4, 4, 4], [64, 64]), ([2, 4, 2], [8, 8]), ([4, 4, 4], [12, 8]),
     ([4, 3, 4], [8, 5]), ([4, 4, 4, 4], [32, 32, 32]),
     ([4, 8, 4], [128, 128]), ([256, 256], [64]), ([4, 4, 8], [32, 32]),
     ([4, 4, 4], [32, 16]), ([2, 2, 4], [8, 8]), ([3, 4, 5], [16, 8]),
+    ([2, 4, 2, 4], [32, 32, 32]), ([2, 2, 2, 2], [8, 8, 8]),
+    ([2, 2, 2, 2], [16, 16, 16]), ([4, 4, 4, 4], [12, 8, 8]),
+    ([4, 4, 3, 3], [8, 8, 5]), ([4, 4, 4, 4], [32, 32, 10]),
+    ([2, 4, 2], [16, 8]), ([2, 4, 2], [12, 8]), ([4, 8, 4], [64, 64]),
+    ([4, 4, 4], [30, 30]), ([4, 4, 4], [256, 256]),
 )
 # (blocks, bw_x, bw_y, seg, bfloat16) on which B6's path rule is asked of
 # the library and of its Python copy: tests/test_torch_port_dg0.py's path
@@ -326,7 +342,8 @@ MULTI_PATHS = ("train_multi_dp", "train_multi_csr", "train_multi_dlrm",
                "serve_multi_dp_int8", "lookup_multi_dp_cached",
                "train_multi_table_owned", "populate_multi_row_owned",
                "lookup_multi_row_owned", "train_multi_row_owned")
-PATHS = ("serve", "train", "serve_generic", "train_generic", "serve_cached",
+PATHS = ("serve", "train", "serve_generic", "train_generic",
+         "serve_generic_ndim4", "train_generic_ndim4", "serve_cached",
          "train_cached", "train_dg0", "train_knobs", "module",
          "serve_folded", "serve_folded_int8", "train_native",
          "train_wide_cache",
@@ -372,6 +389,12 @@ DLRM_B, DLRM_LR = 512, 0.05
 # at this configuration and B=64, embeddings within 3.8e-3 of their largest
 # gave logits within 7.2e-3 of theirs
 DLRM_LOGIT_TOL = 2e-2
+# phase 5's tt_ndim-4 model: the billion-row table (the JAX package's
+# suggested_tt_shapes(10**9, 4)) at the headline's width (q from
+# suggested_tt_shapes(64, 4)); its counting step counts into a hashed table
+# of the wide cell's sizes (H_WIDE slots, C_WIDE rows)
+P4, Q4, R4 = [125, 200, 200, 200], [2, 4, 2, 4], [1, 32, 32, 32, 1]
+E4 = 125 * 200 ** 3
 # phase 5e: the data-parallel step's global batch, and the steps per timing
 MULTI_B, MULTI_STEPS = 1024, 10
 # the calls per timing of the paths phase 5e added second (serves, lookups,
@@ -536,7 +559,7 @@ def kernel_times(fn, ref_fn, plain_reps=25, plain_inner=10):
         "plain_ms": cuda_ms(ref_fn, reps=plain_reps, inner=plain_inner),
         "device_ms": k_dev,
         "plain_device_ms": device_ms(ref_fn, n=5)[0],
-        "parts": " + ".join(f"{kernel_name(name)} {ms * 1e3:.2f}"
+        "parts": " + ".join(f"{kernel_name(name, True)} {ms * 1e3:.2f}"
                             for name, ms in per.items()),
         "sm_mhz": mhz,
     }
@@ -552,13 +575,18 @@ def times_text(t):
             f"{t['plain_device_ms'] * 1e3:.2f} us on the device")
 
 
-def kernel_name(full):
-    """A device kernel's name without namespaces, templates and arguments."""
+def kernel_name(full, templates=False):
+    """A device kernel's name without namespaces, templates and arguments;
+    with ``templates``, its template arguments kept (B4's and B5's pivot
+    passes of one kernel template at two tt_ndim)."""
     import re
 
     names = [w for w in re.findall(r"(\w+)\s*[<(]", full)
              if w not in ("void", "anonymous")]
-    return names[0] if names else full[:40]
+    if not names:
+        return full[:40]
+    args = re.match(r"\s*(<[^()]*>)\s*\(", full.split(names[0], 1)[1])
+    return names[0] + (args.group(1) if templates and args else "")
 
 
 def host_ms(fn, reps=25):
@@ -943,6 +971,150 @@ def plain_watch():
     finally:
         for mod, name, fn in saved:
             setattr(mod, name, fn)
+
+
+def generic4_phase(fbt, card, wrappers):
+    """Phase 5's tt_ndim-4 part: the billion-row model (P4, Q4, R4; random
+    cores from seed 4) served and trained with ``impl="pallas"`` at B=512,
+    pooling 20, uniform and Zipf(1.05) ids: two requests, two SGD steps and
+    two with LFU counting into a hashed table (H_WIDE slots, C_WIDE rows),
+    each held against the plain float32 serve or step on the same inputs
+    (outputs and core updates at F32_OUT_TOL and F32_UPDATE_TOL; the counts'
+    keys, counts and slots exactly), with B4 once per request and B4 and B5
+    once per step and no plain kernel version; then device ms, device
+    operations and host ms per request and step. Returns the launches of
+    the serve and the steps by path."""
+    import numpy as np
+    import torch
+
+    def zero_counts():
+        for fn in wrappers.values():
+            fn.launches = 0
+
+    def counts():
+        return {name: fn.launches for name, fn in wrappers.items()}
+
+    def clone(prm):
+        return fbt.TTEmbeddingParams(
+            tuple(c.clone() for c in prm.tt_cores), (),
+            clone_cache(prm.cache) if prm.cache is not None else None)
+
+    rng = np.random.default_rng(6)
+
+    def batch(zipf):
+        n = B * POOL
+        ids = ((rng.zipf(1.05, size=n) - 1) % E4 if zipf
+               else rng.integers(0, E4, size=n))
+        return (torch.as_tensor(ids.astype(np.int32), device="cuda"),
+                torch.arange(0, n + 1, POOL, device="cuda"),
+                torch.as_tensor(rng.standard_normal((1, B, D)),
+                                dtype=torch.float32, device="cuda"))
+
+    zeros = dict.fromkeys(wrappers, 0)
+    paths = {"serve_generic_ndim4": dict(zeros),
+             "train_generic_ndim4": dict(zeros)}
+    t0 = time.perf_counter()
+    cores = fbt.init_tt_cores(np.random.default_rng(4), "uniform", 1, E4, D,
+                              P4, Q4, R4)
+    params = fbt.params_from_jax(cores, device="cuda")
+    batches = [batch(z) for z in (False, True)]
+    serve = fbt.make_serving_fn(P4, Q4, R4, 1, B, impl="pallas",
+                                device="cuda")
+    plain = fbt.make_serving_fn(P4, Q4, R4, 1, B, impl="xla", device="cuda")
+    for zipf, (idx, offs, _) in zip((False, True), batches):
+        zero_counts()
+        with plain_watch() as plains:
+            out = serve(params, idx, offs)
+            torch.cuda.synchronize()
+        got = counts()
+        for k in wrappers:
+            paths["serve_generic_ndim4"][k] += got[k]
+        ref = plain(params, idx, offs)
+        label = "zipf1.05" if zipf else "uniform"
+        if got != {**zeros, "tt_fwd": 1} or plains:
+            fail(f"tt_ndim-4 serve {label}: launches {got}, plain versions "
+                 f"{plains}; expected tt_fwd 1 and nothing else")
+        if out.shape != (1, B, D) or not torch.isfinite(out).all():
+            fail(f"tt_ndim-4 serve {label}: bad output {tuple(out.shape)}")
+        scale = ref.abs().max().item()
+        err = (out - ref).abs().max().item()
+        print(f"[generic4] serve impl='pallas' p={P4} q={Q4} ranks "
+              f"{R4[1:-1]} (E={E4}) B={B} pooling {POOL} {label}: max_abs_err "
+              f"{err:.3e} vs plain f32, limit {F32_OUT_TOL * scale:.3e} "
+              f"({F32_OUT_TOL} x max|out| {scale:.3e}); launches B4 1")
+        if not err <= F32_OUT_TOL * scale:
+            fail(f"tt_ndim-4 serve {label}: disagrees with the plain path")
+    steps = {
+        counting: (fbt.make_fused_train_step(
+            P4, Q4, R4, 1, B, use_cache=counting, impl="pallas",
+            device="cuda"), fbt.make_fused_train_step(
+            P4, Q4, R4, 1, B, use_cache=counting, impl="xla",
+            precision="highest", device="cuda"))
+        for counting in (False, True)}
+    prm = params
+    for counting in (False, True):
+        kstep, pstep = steps[counting]
+        if counting:  # hashed: no num_embeddings
+            prm = fbt.TTEmbeddingParams(prm.tt_cores, (), fbt.make_cache_state(
+                H_WIDE, C_WIDE, D, device="cuda"))
+        for zipf, (idx, offs, d_out) in zip((False, True), batches):
+            old = clone(prm)
+            zero_counts()
+            with plain_watch() as plains:
+                out, new = kstep(prm, idx, offs, d_out, (LR, EPS))
+                torch.cuda.synchronize()
+            got = counts()
+            for k in wrappers:
+                paths["train_generic_ndim4"][k] += got[k]
+            ref_out, ref = pstep(clone(old), idx, offs, d_out, (LR, EPS))
+            what = (f"tt_ndim-4 step impl='pallas' {'counting ' * counting}"
+                    f"{'zipf1.05' if zipf else 'uniform'}")
+            if got != {**zeros, "tt_fwd": 1, "tt_bwd": 1} or plains:
+                fail(f"{what}: launches {got}, plain versions {plains}; "
+                     "expected tt_fwd 1, tt_bwd 1 and nothing else")
+            if out.shape != (1, B, D) or not torch.isfinite(out).all():
+                fail(f"{what}: bad output {tuple(out.shape)}")
+            line = (f"[generic4] {what} SGD B={B} pooling {POOL}: launches "
+                    "B4 1 B5 1")
+            line = hold_step(line, out, ref_out, new, ref, old, F32_OUT_TOL,
+                             F32_UPDATE_TOL, what)
+            if counting:
+                for f in ("keys", "freq", "slots"):
+                    if not torch.equal(getattr(new.cache, f),
+                                       getattr(ref.cache, f)):
+                        fail(f"{what}: cache {f} differs from the plain "
+                             "step's")
+                line += (f"; {int(new.cache.freq.long().sum())} lookups "
+                         f"counted in {int((new.cache.keys != -1).sum())} of "
+                         f"{H_WIDE} slots, keys, counts and slots equal the "
+                         "plain step's")
+            print(line)
+            prm = new
+    print(f"[generic4] launches: serve {paths['serve_generic_ndim4']}, "
+          f"steps {paths['train_generic_ndim4']} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    # device ms, operations and host ms per call, uniform batch; the steps
+    # on scratch copies at a small learning rate
+    idx, offs, d_out = batches[0]
+    sgd_scratch = clone(fbt.TTEmbeddingParams(prm.tt_cores, (), None))
+    cnt_scratch = clone(prm)
+    for label, fn in (
+            ("serve", lambda: serve(params, idx, offs)),
+            ("SGD step", lambda: steps[False][0](sgd_scratch, idx, offs,
+                                                 d_out, (1e-4, EPS))),
+            ("counting step", lambda: steps[True][0](
+                cnt_scratch, idx, offs, d_out, (1e-4, EPS)))):
+        ms, per, mhz = device_ms(fn)
+        ops = device_ms.ops
+        hms = host_ms(fn)
+        kern = " + ".join(f"{kernel_name(k, True)} {v * 1e3:.2f}"
+                          for k, v in per.items() if "tt_" in k)
+        print(f"[time] tt_ndim-4 {label} impl='pallas' B={B} pooling {POOL} "
+              f"uniform: {ms:.4f} ms on the device, {ops:.0f} device "
+              f"operations, {hms:.3f} ms host ({hms * 1e3 / (B * POOL):.4f} "
+              f"us/lookup); B4/B5 kernels {kern} us; {mhz_text(mhz)} "
+              f"[{card}]")
+    return paths
 
 
 def folded_phase(fbt, card, wrappers, params, serve, cache, cserve,
@@ -3756,18 +3928,20 @@ def main():
     print(f"[kernel] seg_accum_dg0 path rule: the library and its Python copy "
           f"agree on {len(DG0_RULE_SHAPES)} shapes")
 
-    # B4's path rule: the library's answer and its Python copy (code on the
-    # CPU, the tests) agree on every shape of the CPU tests' path cases and
-    # on each way of the last core's product
-    for q_, r_ in FWD_RULE_SHAPES:
-        rk_ = tuple(tt_kernel.full_ranks(q_, r_))
-        took, rule = (tt_fwd_mod.fwd_path(q_, rk_, card=True),
-                      tt_fwd_mod.fwd_path(q_, rk_))
-        if took != rule:
-            fail(f"tt_fwd path rule, q={q_} ranks={r_}: the library says "
-                 f"{took}, the Python copy {rule}")
-    print(f"[kernel] tt_fwd path rule: the library and its Python copy "
-          f"agree on {len(FWD_RULE_SHAPES)} shapes")
+    # B4's and B5's path rules: the library's answers and their Python
+    # copies (code on the CPU, the tests) agree on every shape of the CPU
+    # tests' path cases, each way of the last core's product and each rule
+    # of the tt_ndim-4 passes
+    for kname, query in (("tt_fwd", tt_fwd_mod.fwd_path),
+                         ("tt_bwd", tt_bwd_mod.bwd_path)):
+        for q_, r_ in FWD_RULE_SHAPES:
+            rk_ = tuple(tt_kernel.full_ranks(q_, r_))
+            took, rule = query(q_, rk_, card=True), query(q_, rk_)
+            if took != rule:
+                fail(f"{kname} path rule, q={q_} ranks={r_}: the library "
+                     f"says {took}, the Python copy {rule}")
+        print(f"[kernel] {kname} path rule: the library and its Python copy "
+              f"agree on {len(FWD_RULE_SHAPES)} shapes")
 
     # B4 and B5 in float32 on whole batches (the generic path has no
     # bfloat16 staging); each twice
@@ -3783,7 +3957,15 @@ def main():
         ("ndim2 q=[8,8] r=[32] zipf1.05", [3300, 3300], [8, 8], [32], B, POOL,
          1, True, False, None, "pivot"),
         ("ndim4 q=[4]*4 r=[32]*3", [60] * 4, [4] * 4, [32] * 3, 64, 8, 1,
-         False, False, None, "chain"),
+         False, False, None, "pivot"),
+        # the billion-row tt_ndim-4 model at the headline batch
+        ("ndim4 billion", P4, Q4, R4[1:-1], B, POOL, 1, False, False, None,
+         "pivot"),
+        ("ndim4 billion zipf1.05", P4, Q4, R4[1:-1], B, POOL, 1, True, False,
+         None, "pivot"),
+        # tt_ndim 4 on the chain passes (r_1 not a multiple of 8)
+        ("ndim4 q=[4]*4 r=[12,8,8]", [60] * 4, [4] * 4, [12, 8, 8], 64, 8, 1,
+         True, True, None, "chain"),
         ("rank 64", P, Q, [64, 64], B, POOL, 1, False, False, None, "pivot"),
         ("T=2 weighted", P, Q, R[1:-1], 128, POOL, 2, False, True, None,
          "pivot"),
@@ -3808,8 +3990,9 @@ def main():
                 fail(f"{kname} {name}: takes the {took[0]} pass (chunk, CTAs "
                      f"an SM: {took[1:]}; the Python rule says {rule}), "
                      f"expected {path}")
-        # core 1's order, as the step's forward builds it for both kernels
-        core1 = tuple(x[1] for x in sched[:2])
+        # the pivot orders (core 1's; at tt_ndim 4 cores 1 and 2), as the
+        # step's forward builds them for both kernels
+        core1 = tuple(x[1:3] for x in sched[:2])
         out = tt_fwd(gk, gidx, rowv, wv, order, starts, core1=core1)
         out2 = tt_fwd(gk, gidx, rowv, wv, order, starts, core1=core1)
         g1 = tt_bwd(gk, gidx, rowv, wv, dout, *sched, seg=tt_kernel.SEG)
@@ -4097,6 +4280,9 @@ def main():
             gparams = new
     print(f"[train] launches on the impl='pallas' training path: "
           f"{gtrain_launches}")
+
+    phase_mark("5 generic tt_ndim 4", t_start)
+    g4_launches = generic4_phase(fbt, card, wrappers)
 
     # the reference benchmark's step: (a) five SGD steps with LFU counting
     # on (direct mode, hashtbl_size = E, cache_size = 0.1 E)
@@ -4448,7 +4634,7 @@ def main():
         fargs = (gk, gidx, rowv, wv, order, starts)
         bargs = (gk, gidx, rowv, wv, dout, *sched)
         # core 1's order as the step builds it: its sort is not timed
-        fkw = dict(core1=tuple(x[1] for x in sched[:2]))
+        fkw = dict(core1=tuple(x[1:3] for x in sched[:2]))
         kseg = dict(seg=tt_kernel.SEG)
         for kname, fn, ref_fn, args, kw, query in (
                 ("tt_fwd", tt_fwd, tt_fwd_plain, fargs, fkw,
@@ -4475,6 +4661,40 @@ def main():
             print(f"[time] {kname} headline B={B} pooling {POOL} {label} "
                   f"(nnz {gidx.shape[1]}, float32): {times_text(t)}{extra} "
                   f"[{card}]")
+    # and on the billion-row tt_ndim-4 model's batches: the uniform one's
+    # times go into the kernels' line as each row's "ndim4"
+    for label, zipf in (("uniform", False), ("zipf1.05", True)):
+        gk, gidx, rowv, wv, order, starts, sched, dout = generic_inputs(
+            np.random.default_rng(2), P4, Q4, R4[1:-1], B, POOL, zipf=zipf)
+        fargs = (gk, gidx, rowv, wv, order, starts)
+        bargs = (gk, gidx, rowv, wv, dout, *sched)
+        fkw = dict(core1=tuple(x[1:3] for x in sched[:2]))
+        kseg = dict(seg=tt_kernel.SEG)
+        for kname, fn, ref_fn, args, kw, query in (
+                ("tt_fwd", tt_fwd, tt_fwd_plain, fargs, fkw,
+                 tt_fwd_mod.fwd_path),
+                ("tt_bwd", tt_bwd, tt_bwd_plain, bargs, kseg,
+                 tt_bwd_mod.bwd_path)):
+            t = kernel_times(lambda: fn(*args, **kw),
+                             lambda: ref_fn(*args, **kw), 5, 3)
+            backward = kname == "tt_bwd"
+            bound_f32_ms = generic_bound(gk, gidx, rowv, wv, B, backward)[0]
+            t["bound_ms"], t["bound_by"] = generic_bound(
+                gk, gidx, rowv, wv, B, backward, tf32x3=True)
+            t["path"] = query(*chain_dims(gk), card=True)[0]
+            if t["path"] != "pivot":
+                fail(f"{kname} tt_ndim-4 {label}: takes the {t['path']} "
+                     "pass, expected pivot")
+            if label == "uniform":
+                times[kname][0]["ndim4"] = {
+                    k: t[k] for k in ("ms", "plain_ms", "device_ms",
+                                      "plain_device_ms", "bound_ms",
+                                      "bound_by", "path")}
+            print(f"[time] {kname} tt_ndim-4 p={P4} q={Q4} ranks "
+                  f"{R4[1:-1]} B={B} pooling {POOL} {label} (nnz "
+                  f"{gidx.shape[1]}, float32): {times_text(t)}; pivot path, "
+                  f"bound at the float32 CUDA-core peak "
+                  f"{bound_f32_ms * 1e3:.2f} us [{card}]")
 
     gserve_ms = host_ms(lambda: gserve(params, idx, offs))
     print(f"[time] serve impl='pallas' B={B} pooling {POOL}: {gserve_ms:.3f} "
@@ -4555,6 +4775,7 @@ def main():
 
     by_path = dict(zip(PATHS, (serve_launches, train_launches,
                                gserve_launches, gtrain_launches,
+                               *g4_launches.values(),
                                cserve_launches, ctrain_launches,
                                dtrain_launches, knob_launches,
                                module_launches,
@@ -4583,6 +4804,7 @@ def main():
                            if all(r.get("library_ms") is not None
                                   for r in rows) else None),
             **({"path": rows[0]["path"]} if "path" in rows[0] else {}),
+            **({"ndim4": rows[0]["ndim4"]} if "ndim4" in rows[0] else {}),
         })
     print(f"[phase] all phases took {time.perf_counter() - t_start:.1f} s",
           flush=True)

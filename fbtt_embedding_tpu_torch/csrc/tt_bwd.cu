@@ -26,8 +26,9 @@
 //
 // Two paths (fbtt_tt_bwd_path; the wrapper asks it which one runs).
 //
-// The pivot pass (tt_ndim 2 and 3, wherever the middle core's slab stages;
-// three launches). At the headline shape (q=[4,4,4], ranks [32,32]) 92% of
+// The pivot path (wherever the middle cores' slabs stage). At tt_ndim 2
+// and 3 one pivot pass, the end sums and the reduce: three launches. At
+// the headline shape (q=[4,4,4], ranks [32,32]) 92% of
 // a lookup's 53 k multiply-adds are products with core 1's slab G_1[i_1]
 // (32 x 128 floats, 16 KB): z_1 = z_0 G_1, dG_1 = z_0^T dz_1 and dz_0 =
 // dz_1 G_1^T, 16 k each, which the chain pass read per lookup from L2 (~3
@@ -46,23 +47,42 @@
 // second kernel adds them per span in 32-row chunks of that core's own
 // order, and the reduce kernel adds the chunks.
 //
-// The chain pass (tt_ndim 4, and configs the pivot pass cannot stage; two
-// launches): one CTA per (seg-row segment of core t's order, core t) runs
-// each of its lookups' chains in chunks of lc (z_{t-1} by the forward
-// steps 0 .. t-1, dz_t by the backward steps from the last core down to
-// t+1) on the CUDA cores and adds z^T dz into a float32 tile. Each
-// lookup's chain runs once per core it updates; every slab but core t's is
-// read per lookup from L2.
+// At tt_ndim 4 (five launches) both middle cores' gradients take tiles
+// kept across spans, and no one order stages both slabs; the other middle
+// core's per-lookup slab through scratch (as the end cores') would be
+// 32 x 128 or 32 x 64 floats a lookup, 84-168 MB at nnz 10240 for the
+// billion-row model (q = [2,4,2,4], ranks 32). So the path runs one pivot
+// pass per middle core, each the pass above on a sub-chain (tt_chain.cuh),
+// with the states that cross between them by lookup in two buffers of
+// [nnz, q_0 q_1 r_2] floats (10.5 MB each at that model; in L2): (1) the
+// forward's head pass (tt_fwd_pivot.cuh, cores 0-1, weight 1) writes z_1
+// over core 1's order; (2) the tail pass (a tt_ndim-3 chain: z_1 read at
+// the lookup's id, cores 2 and 3) over core 2's order keeps dG_2[j] in
+// tiles, writes dz_1 = dz_2 G_2^T to the second buffer and z_2^T dz_3 (the
+// last core's slab) to scratch; (3) the head pass (a tt_ndim-2 chain,
+// cores 0-1) over core 1's order, with dz_1 read at the lookup's id for its
+// row cotangent, keeps dG_1[j] in tiles and writes dz_0 to scratch; then
+// the end sums (cores 0 and 3) and the reduce.
 //
-// Bound: operations. At the headline shape a lookup costs ~106 kFLOP
-// (forward ~37k; back through G2 and G1 and the dG1, dG2 products ~74k),
-// ~1.09 GFLOP at nnz 10240: ~16 us at 67 TFLOP/s on the CUDA cores (the
-// chain pass), ~6.6 us as three TF32 products at 495 TFLOP/s on the tensor
-// cores (the pivot pass), against ~7.7 MB moved (~2.3 us at 3.35 TB/s; the
-// pivot pass adds ~10 MB of scratch and ~8 MB of partial tiles, mostly in
-// L2).
+// The chain pass (configs the pivot path cannot stage; two launches): one CTA
+// per (seg-row segment of core t's order, core t) runs each of its lookups'
+// chains in chunks of lc (z_{t-1} by the forward steps 0 .. t-1, dz_t by the
+// backward steps from the last core down to t+1) on the CUDA cores and adds
+// z^T dz into a float32 tile. Each lookup's chain runs once per core it
+// updates; every slab but core t's is read per lookup from L2.
+//
+// Bound: operations. At the headline shape a lookup costs ~106 kFLOP (forward
+// ~37k; back through G2 and G1 and the dG1, dG2 products ~74k), ~1.09 GFLOP
+// at nnz 10240: ~16 us at 67 TFLOP/s on the CUDA cores (the chain pass), ~6.6
+// us as three TF32 products at 495 TFLOP/s on the tensor cores (the pivot
+// pass), against ~7.7 MB moved (~2.3 us at 3.35 TB/s; the pivot pass adds ~10
+// MB of scratch and ~8 MB of partial tiles, mostly in L2). At the tt_ndim-4
+// model ~156 kFLOP a lookup: ~23.8 us on the CUDA cores, ~9.7 us as 3xTF32,
+// against ~10.4 MB (~3.1 us; the path adds ~29 MB of buffers and scratch,
+// written and read once).
 
 #include "tt_chain.cuh"
+#include "tt_fwd_pivot.cuh"
 #include "tt_mma.cuh"
 
 using namespace fbtt_chain;
@@ -272,13 +292,23 @@ inline size_t pivot_smem_bytes(const Chain& c, const Pivot& p, int lc) {
   return f * sizeof(float);
 }
 
-// lc of the pivot pass, or 0 where it does not take the config: tt_ndim 2
+// lc of the pivot path, or 0 where it does not take the config: tt_ndim 2
 // or 3, the tensor-core tiles (r_1 a multiple of 16, q_1 r_2 of 8), float4
 // rows (D and, at tt_ndim 3, r_2 multiples of 4), dG_1 within kTilesMax
-// tiles a warp, all in one row of tiles, the slab and a sub-chunk of 4 lookups within kPivotSmemMax
-// bytes of shared memory, and every index of a sub-chunk's loops within
-// FastDiv's range.
+// tiles a warp, all in one row of tiles, the slab and a sub-chunk of 4
+// lookups within kPivotSmemMax bytes of shared memory, and every index of
+// a sub-chunk's loops within FastDiv's range; at tt_ndim 4 the same of
+// both its passes (the head's and the tail's, see fbtt_tt_bwd), at the
+// least of their lc, and the forward's rule of the head pass.
 inline int pivot_chunk(const Chain& c) {
+  if (c.ndim == 4) {
+    // the head's forward pass writes z_1; the tail (core 2) and the head
+    // (core 1) then run this rule's passes, at the least of their lc
+    const Chain head = sub_chain(c, 0, 1, nullptr), tail = sub_chain(c, 2, 3, nullptr);
+    if (!fbtt_fwd::fwd_pivot_chunk(head)) return 0;
+    const int a = pivot_chunk(head), b = pivot_chunk(tail);
+    return a && b ? std::min(a, b) : 0;
+  }
   if (c.ndim != 2 && c.ndim != 3) return 0;
   const Pivot p = make_pivot(c);
   if (p.R % 16 || p.W % 8 || p.d % 4 || (c.ndim == 3 && p.r2 % 4)) return 0;
@@ -293,6 +323,13 @@ inline int pivot_chunk(const Chain& c) {
   return fits(4, kPivotSmemMax) ? 4 : 0;
 }
 
+// 16 x 8 tiles of dG a warp holds on the pivot path: the most of its passes.
+inline int pivot_tpw(const Chain& c) {
+  if (c.ndim != 4) return make_pivot(c).tpw;
+  return std::max(make_pivot(sub_chain(c, 0, 1, nullptr)).tpw,
+                  make_pivot(sub_chain(c, 2, 3, nullptr)).tpw);
+}
+
 // Threads per chunk of the end-core sums: a power of two up to kThreads,
 // at least the slab's floats.
 __host__ __device__ inline int end_lanes(int tile) {
@@ -305,19 +342,23 @@ __host__ __device__ inline int end_lanes(int tile) {
 // (the sentinel) for a dead or padding lookup.
 __device__ __forceinline__ int span_key(const Chain& c, const int* __restrict__ rowv, int t,
                                         int lk) {
-  return lk < c.nnz && rowv[lk] >= 0 ? c.idx[static_cast<size_t>(t) * c.nnz + lk] : c.rows[t];
+  return lk < c.nnz && rowv[lk] >= 0 ? core_row(c, t, lk) : c.rows[t];
 }
 
-// The pivot pass: one CTA per chunk c of `sub` rows of core 1's order.
-// TPW: 16 x 8 tiles of dG_1[j] per warp, in registers across the span.
+// The pivot pass of chain c (tt_ndim NDIM: a whole chain, or a sub_chain
+// of a tt_ndim-4 one): one CTA per chunk c of `sub` rows of the order of
+// c's core 1 (ord, span starts rn); its tiles of dG_1 to part (c + j: the
+// chunk's sum of span j). TPW: 16 x 8 tiles of dG_1[j] per warp, in
+// registers across the span. The row cotangent (dz_1 at tt_ndim 2, dz_2 at
+// 3) is w * dout[rowv[lookup]], or with dz_by_lookup dout[lookup] (a
+// buffer by lookup id, weights null).
 template <int NDIM, int TPW>
 __global__ void __launch_bounds__(kThreads, pivot_ctas_per_sm(TPW))
 tt_bwd_pivot_kernel(Chain c, Pivot p, const float* __restrict__ weights,
                     const int* __restrict__ rowv, const float* __restrict__ dout,
-                    const int* __restrict__ orders, const int* __restrict__ runs,
-                    float* __restrict__ partial, float* __restrict__ scratch0,
-                    float* __restrict__ scratch_last, Offsets off, int nza, int rstride,
-                    int sub, int lc) {
+                    int dz_by_lookup, const int* __restrict__ ord, const int* __restrict__ rn,
+                    float* __restrict__ part, float* __restrict__ scratch0,
+                    float* __restrict__ scratch_last, int nza, int sub, int lc) {
   extern __shared__ float4 smem4[];
   // the ids of up to kIdWindow rows of the chunk from row wb: lookup, core-0
   // and core-2 rows, pooled row, weight
@@ -335,8 +376,6 @@ tt_bwd_pivot_kernel(Chain c, Pivot p, const float* __restrict__ weights,
   const int r2q2 = r2 * q2;
   const int lo = blockIdx.x * sub;
   const int hi = min(lo + sub, nza);
-  const int* ord = orders + nza;  // core 1
-  const int* rn = runs + rstride;
   const int rows1 = c.rows[1];
   const float* g1 = c.g[1];
   const float* g0 = c.g[0];
@@ -380,9 +419,9 @@ tt_bwd_pivot_kernel(Chain c, Pivot p, const float* __restrict__ weights,
           const int lk = ord[wb + threadIdx.x];
           const int row = rowv[lk];
           w_lk[threadIdx.x] = lk;
-          w_i0[threadIdx.x] = c.idx[lk];
-          if (NDIM == 3) w_i2[threadIdx.x] = c.idx[2 * static_cast<size_t>(c.nnz) + lk];
-          w_row[threadIdx.x] = row;
+          w_i0[threadIdx.x] = core_row(c, 0, lk);
+          if (NDIM == 3) w_i2[threadIdx.x] = core_row(c, 2, lk);
+          w_row[threadIdx.x] = dz_by_lookup ? lk : row;
           // a dead lookup is in no span j < rows1; weight 0 guards the rest
           w_w[threadIdx.x] = row < 0 ? 0.f : (weights ? weights[lk] : 1.f);
         }
@@ -563,7 +602,7 @@ tt_bwd_pivot_kernel(Chain c, Pivot p, const float* __restrict__ weights,
     }
     // the span's tile: the K-split warps' sums added in warp order, then
     // written once
-    float* dst = partial + off.part[1] + static_cast<size_t>(blockIdx.x + j) * tile1;
+    float* dst = part + static_cast<size_t>(blockIdx.x + j) * tile1;
     if (kw > 1) {  // CTA-uniform; one tile per warp
       __syncthreads();
 #pragma unroll
@@ -809,45 +848,64 @@ Chain chain_of(int ndim, int nnz, int q0, int q1, int q2, int q3, int r1, int r2
 
 template <int NDIM, int TPW>
 cudaError_t launch_pivot(const Chain& c, const Pivot& p, const float* weights, const int* rowv,
-                         const float* dout, const int* orders, const int* runs, float* partial,
-                         float* scratch0, float* scratch_last, const Offsets& off, int nza,
-                         int rstride, int sub, int lc, cudaStream_t st) {
+                         const float* dout, int dz_by_lookup, const int* ord, const int* rn,
+                         float* part, float* scratch0, float* scratch_last, int nza, int sub,
+                         int lc, cudaStream_t st) {
   auto kern = tt_bwd_pivot_kernel<NDIM, TPW>;
   const size_t smem = pivot_smem_bytes(c, p, lc);
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  kern<<<(nza + sub - 1) / sub, kThreads, smem, st>>>(c, p, weights, rowv, dout, orders, runs,
-                                                      partial, scratch0, scratch_last, off, nza,
-                                                      rstride, sub, lc);
+  kern<<<(nza + sub - 1) / sub, kThreads, smem, st>>>(c, p, weights, rowv, dout, dz_by_lookup,
+                                                      ord, rn, part, scratch0, scratch_last,
+                                                      nza, sub, lc);
   return cudaGetLastError();
 }
 
-// Rows per chunk of core t's partial tiles: `sub` for core 1 and kEndChunk
-// for the end cores on the pivot pass, the segment on the chain pass.
-int core_chunk(int pivot, int t, int seg, int sub) {
+// One pivot pass of chain c (tt_ndim NDIM), built for its tiles a warp.
+template <int NDIM>
+cudaError_t launch_pass(const Chain& c, const float* weights, const int* rowv, const float* dout,
+                        int dz_by_lookup, const int* ord, const int* rn, float* part,
+                        float* scratch0, float* scratch_last, int nza, int sub, int lc,
+                        cudaStream_t st) {
+  const Pivot p = make_pivot(c);
+  auto go = [&](auto launch) {
+    return launch(c, p, weights, rowv, dout, dz_by_lookup, ord, rn, part, scratch0,
+                  scratch_last, nza, sub, lc, st);
+  };
+  return p.tpw == 1   ? go(launch_pivot<NDIM, 1>)
+         : p.tpw == 2 ? go(launch_pivot<NDIM, 2>)
+         : p.tpw == 4 ? go(launch_pivot<NDIM, 4>)
+         : p.tpw == 8 ? go(launch_pivot<NDIM, 8>)
+                      : go(launch_pivot<NDIM, 16>);
+}
+
+// Rows per chunk of core t's partial tiles: `sub` for the pivot cores
+// (core 1, and core 2 at tt_ndim 4) and kEndChunk for the end cores on the
+// pivot path, the segment on the chain pass.
+int core_chunk(int pivot, int ndim, int t, int seg, int sub) {
   if (!pivot) return seg;
-  return t == 1 ? sub : kEndChunk;
+  return t == 1 || (t > 1 && t < ndim - 1) ? sub : kEndChunk;
 }
 
 }  // namespace
 
 extern "C" {
 
-// lc of the pivot pass for these shapes (q, the inner ranks), or 0 where
+// lc of the pivot path for these shapes (q, the inner ranks), or 0 where
 // the chain pass runs; *ctas_per_sm: the pivot CTAs an SM holds at once
-// (0 on the chain pass).
+// (0 on the chain pass; at tt_ndim 4 the least of its passes').
 int fbtt_tt_bwd_path(int ndim, int q0, int q1, int q2, int q3, int r1, int r2, int r3,
                      int* ctas_per_sm) {
   const void* g[kMaxDim] = {};
   const Chain c = chain_of(ndim, 0, q0, q1, q2, q3, r1, r2, r3, 0, 0, 0, 0, g, nullptr,
                            nullptr);
   const int lc = pivot_chunk(c);
-  *ctas_per_sm = lc ? pivot_ctas_per_sm(make_pivot(c).tpw) : 0;
+  *ctas_per_sm = lc ? pivot_ctas_per_sm(pivot_tpw(c)) : 0;
   return lc;
 }
 
-// Launches the pass of `pivot` (1: the pivot pass, its end-core sums and
+// Launches the path of `pivot` (1: the pivot passes, the end-core sums and
 // the reduce; 0: the chain pass and the reduce) on `stream`; returns
 // cudaGetLastError() after the launches (0 on success). g0..g3: the kernel
 // core layouts (float32; unused ones null), gt1..gt3 the transposes
@@ -857,11 +915,12 @@ int fbtt_tt_bwd_path(int ndim, int q0, int q1, int q2, int q3, int r1, int r2, i
 // sorted stably by their core-t row, runs [ndim, rstride] span starts,
 // first / cnt [ndim, nseg] the spans of each seg-row segment (the chain
 // pass). partial holds, core after core, (ceil(nza / chunk_t) + rows_t)
-// tiles of r_t q_t r_{t+1} floats (chunk_t: `sub` for core 1 and 32 for
-// the end cores on the pivot pass, `seg` on the chain pass) and grads
-// rows_t such tiles; scratch (the pivot pass) nnz q_0 r_1 and then, at
-// tt_ndim 3, nnz r_2 q_2 floats. lc and zs as the wrapper sized the shared
-// memory; on the pivot pass lc must be fbtt_tt_bwd_path's.
+// tiles of r_t q_t r_{t+1} floats (chunk_t: `sub` for the pivot cores and
+// 32 for the end cores on the pivot path, `seg` on the chain pass) and
+// grads rows_t such tiles; scratch (the pivot path) nnz q_0 r_1 floats,
+// then at tt_ndim 3 and 4 nnz r_{n-1} q_{n-1}, then at tt_ndim 4 2 nnz q_0
+// q_1 r_2. lc and zs as the wrapper sized the shared memory; on the pivot
+// path lc must be fbtt_tt_bwd_path's.
 int fbtt_tt_bwd(const void* g0, const void* g1, const void* g2, const void* g3,
                 const void* gt1, const void* gt2, const void* gt3, const int* idx,
                 const float* weights, const int* rowv, const float* dout, const int* orders,
@@ -882,7 +941,7 @@ int fbtt_tt_bwd(const void* g0, const void* g1, const void* g2, const void* g3,
   int tile_max = 0, ctas = 0;
   for (int t = 0; t < ndim; ++t) {
     const int tile = slab_size(c, t);
-    off.chunk[t] = core_chunk(pivot, t, seg, sub);
+    off.chunk[t] = core_chunk(pivot, ndim, t, seg, sub);
     off.part[t] = part;
     off.grad[t] = grad;
     const size_t chunks = (static_cast<size_t>(nza) + off.chunk[t] - 1) / off.chunk[t];
@@ -903,35 +962,48 @@ int fbtt_tt_bwd(const void* g0, const void* g1, const void* g2, const void* g3,
   if (err != cudaSuccess) return static_cast<int>(err);
   const int resident = 4 * sms;
   if (nza > 0 && pivot) {
-    const Pivot p = make_pivot(c);
-    float* scratch_last = scratch + static_cast<size_t>(nnz) * p.tile0;
-    auto go = [&](auto launch) {
-      return launch(c, p, weights, rowv, dout, orders, runs, partial, scratch, scratch_last,
-                    off, nza, rstride, sub, lc, st);
-    };
-    if (ndim == 3) {
-      err = p.tpw == 1   ? go(launch_pivot<3, 1>)
-            : p.tpw == 2 ? go(launch_pivot<3, 2>)
-            : p.tpw == 4 ? go(launch_pivot<3, 4>)
-            : p.tpw == 8 ? go(launch_pivot<3, 8>)
-                         : go(launch_pivot<3, 16>);
+    const int tile0 = slab_size(c, 0);
+    const int tile_last = ndim > 2 ? slab_size(c, ndim - 1) : 0;
+    float* scratch_last = scratch + static_cast<size_t>(nnz) * tile0;
+    if (ndim == 4) {
+      // after dz_0 and the last core's slabs, z_1 and then dz_1 by lookup
+      // ([nnz, m_1 r_2] each)
+      float* z1 = scratch_last + static_cast<size_t>(nnz) * tile_last;
+      float* dz1 = z1 + static_cast<size_t>(nnz) * c.m[1] * c.r[2];
+      const Chain head = sub_chain(c, 0, 1, nullptr), tail = sub_chain(c, 2, 3, z1);
+      // z_1 = z_0 G_1[i_1]: the forward's head pass over core 1's order
+      err = fbtt_fwd::launch_pivot<2>(head, fbtt_fwd::make_fwd_pivot(head), nullptr,
+                                      orders + nza, runs + rstride, z1, nza, sub,
+                                      fbtt_fwd::fwd_pivot_chunk(head), st);
+      // core 2's order: dG_2's tiles, dz_1 by lookup, the last core's slabs
+      if (err == cudaSuccess) {
+        err = launch_pass<3>(tail, weights, rowv, dout, 0, orders + 2 * static_cast<size_t>(nza),
+                             runs + 2 * rstride, partial + off.part[2], dz1, scratch_last, nza,
+                             sub, lc, st);
+      }
+      // core 1's order: dG_1's tiles from dz_1, dz_0 by lookup
+      if (err == cudaSuccess) {
+        err = launch_pass<2>(head, nullptr, rowv, dz1, 1, orders + nza, runs + rstride,
+                             partial + off.part[1], scratch, nullptr, nza, sub, lc, st);
+      }
+    } else if (ndim == 3) {
+      err = launch_pass<3>(c, weights, rowv, dout, 0, orders + nza, runs + rstride,
+                           partial + off.part[1], scratch, scratch_last, nza, sub, lc, st);
     } else {
-      err = p.tpw == 1   ? go(launch_pivot<2, 1>)
-            : p.tpw == 2 ? go(launch_pivot<2, 2>)
-            : p.tpw == 4 ? go(launch_pivot<2, 4>)
-            : p.tpw == 8 ? go(launch_pivot<2, 8>)
-                         : go(launch_pivot<2, 16>);
+      err = launch_pass<2>(c, weights, rowv, dout, 0, orders + nza, runs + rstride,
+                           partial + off.part[1], scratch, nullptr, nza, sub, lc, st);
     }
     if (err != cudaSuccess) return static_cast<int>(err);
-    // end-core chunks per CTA: one per end_lanes(tile) threads
-    int lanes = end_lanes(p.tile0);
-    if (ndim == 3 && end_lanes(p.tile_last) > lanes) lanes = end_lanes(p.tile_last);
+    // the end cores (0, and the last at tt_ndim 3 and 4); chunks per CTA:
+    // one per end_lanes(tile) threads
+    int lanes = end_lanes(tile0);
+    if (ndim > 2 && end_lanes(tile_last) > lanes) lanes = end_lanes(tile_last);
     const int per = kThreads / lanes;
     const int chunks = (nza + kEndChunk - 1) / kEndChunk;
     const int blocks = (chunks + per - 1) / per;
-    tt_bwd_end_kernel<<<dim3(blocks < resident ? blocks : resident, ndim - 1), kThreads, 0,
-                        st>>>(c, rowv, orders, scratch, scratch_last, partial, off, nza, p.tile0,
-                              p.tile_last, blocks);
+    tt_bwd_end_kernel<<<dim3(blocks < resident ? blocks : resident, ndim > 2 ? 2 : 1), kThreads,
+                        0, st>>>(c, rowv, orders, scratch, scratch_last, partial, off, nza, tile0,
+                                 tile_last, blocks);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   } else if (nseg > 0) {

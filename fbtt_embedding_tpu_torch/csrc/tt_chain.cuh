@@ -1,8 +1,8 @@
 // Per-lookup TT chain in shared memory, for Hopper (sm_90a). Shared by the
 // chain passes of tt_fwd.cu (kernel B4) and tt_bwd.cu (kernel B5), which
-// run at tt_ndim 4 and where the pivot passes cannot stage the middle core
-// (the pivot passes share each span's slab instead, see there); see those
-// files for what each replaces.
+// run where the pivot passes cannot stage a middle core (the pivot passes
+// share each span's slab instead, see there), and the sub-chains those
+// pivot passes run at tt_ndim 4; see those files for what each replaces.
 //
 // A lookup's row is the chain G_0[i_0] G_1[i_1] ... G_{n-1}[i_{n-1}]
 // (tt_ndim n = 2..4). With m_t = q_0 * ... * q_t, the running state before
@@ -28,8 +28,8 @@
 // reason. Float32 throughout, on the CUDA cores. Bound: each slab element
 // read from L2 feeds only kRowBlock multiply-adds, ~3 FLOP a byte at the
 // headline shape: such a pass runs far from the CUDA cores' 67 TFLOP/s,
-// which is why tt_ndim 2 and 3 take the pivot passes (root PERF.md for the
-// times of both).
+// which is why every config the pivot passes can stage takes them (root
+// PERF.md for the times of both).
 
 #pragma once
 
@@ -53,6 +53,8 @@ struct Chain {
   const float* g[kMaxDim];   // core t, row i: [r_t, q_t r_{t+1}] floats
   const float* gt[kMaxDim];  // transposed: [q_t r_{t+1}, r_t] (t >= 1; may be null)
   const int* idx;            // [ndim, nnz] core rows of every lookup
+  int src[kMaxDim];  // the row of idx that holds core t's rows; -1: core t is
+                     // a per-lookup buffer, read at the lookup's id (sub_chain)
 };
 
 // The chain of a C entry point's arguments: q[0..ndim), the inner ranks
@@ -74,8 +76,54 @@ inline Chain make_chain(int ndim, int nnz, const int* q, const int* rin,
     c.rows[t] = rows[t];
     c.g[t] = static_cast<const float*>(g[t]);
     c.gt[t] = gt ? static_cast<const float*>(gt[t]) : nullptr;
+    c.src[t] = t;
   }
   return c;
+}
+
+// Cores t0 .. t1 of c as a chain of their own, for the pivot passes of a
+// tt_ndim-4 chain (tt_fwd.cu, tt_bwd.cu). Where t0 > 0 its core 0 is the
+// per-lookup buffer z of z_{t0-1} ([m_{t0-1}, r_{t0}] floats a lookup, at
+// the lookup's id), with q_0 = m_{t0-1}; where t1 < ndim - 1 its last core
+// is core t1 with its q_{t1} r_{t1+1} columns as its q, so that its row is
+// z_{t1}. The head (0, 1) and the tail (2, 3) of a tt_ndim-4 chain are
+// tt_ndim-2 and tt_ndim-3 chains whose rows are z_1 and the lookup's row.
+inline Chain sub_chain(const Chain& c, int t0, int t1, const float* z) {
+  Chain s{};
+  s.nnz = c.nnz;
+  s.idx = c.idx;
+  s.r[0] = 1;
+  int n = 0;
+  if (t0 > 0) {
+    s.q[0] = c.m[t0 - 1];
+    s.r[1] = c.r[t0];
+    s.g[0] = z;
+    s.src[0] = -1;
+    n = 1;
+  }
+  for (int t = t0; t <= t1; ++t, ++n) {
+    s.q[n] = c.q[t];
+    s.r[n + 1] = c.r[t + 1];
+    s.g[n] = c.g[t];
+    s.rows[n] = c.rows[t];
+    s.src[n] = t;
+  }
+  if (t1 < c.ndim - 1) {
+    s.q[n - 1] *= c.r[t1 + 1];
+    s.r[n] = 1;
+  }
+  s.ndim = n;
+  int m = 1;
+  for (int t = 0; t < n; ++t) {
+    m *= s.q[t];
+    s.m[t] = m;
+  }
+  return s;
+}
+
+// The row of core t that lookup lk reads (a sub-chain's buffer core: lk).
+__device__ __forceinline__ int core_row(const Chain& c, int t, int lk) {
+  return c.src[t] < 0 ? lk : c.idx[static_cast<size_t>(c.src[t]) * c.nnz + lk];
 }
 
 // The chunk's core rows, per core, staged by the caller in shared memory.

@@ -18,19 +18,23 @@ segment (``tt_kernel.core_orders``).
 
 On a CUDA tensor :func:`tt_bwd` launches the hand-written kernels of
 ``csrc/tt_bwd.cu`` on one of two paths (:func:`bwd_path` with ``card``:
-the library's ``fbtt_tt_bwd_path``), or raises. The pivot pass (tt_ndim 2
-and 3, where the middle core's slab stages in shared memory) runs over
-core 1's sorted order in even shares, one CTA each, stages each span's
-slab ``G_1[j]`` once and runs the span's three products with it as 3xTF32
-tensor-core GEMMs (float32 accuracy); the end cores' per-lookup slabs go
-through a scratch buffer and are added per 32-row chunk of their own
-core's order. The chain pass (tt_ndim 4, and configs the pivot pass
-cannot stage) runs each lookup's chain once per core. Both write one
+the library's ``fbtt_tt_bwd_path``), or raises. The pivot path (tt_ndim 2
+and 3 where the middle core's slab stages, tt_ndim 4 where both its
+passes do) runs over core 1's sorted order in even shares, one CTA each,
+stages each span's slab ``G_1[j]`` once and runs the span's three
+products with it as 3xTF32 tensor-core GEMMs (float32 accuracy); the end
+cores' per-lookup slabs go through a scratch buffer and are added per
+32-row chunk of their own core's order. At tt_ndim 4 the forward's head
+pass first writes ``z_1`` by lookup, a pass over core 2's order takes it
+(``dG_2`` in tiles, ``dz_1`` by lookup, the last core's slabs), and the
+pass over core 1's order takes its ``dz_1`` from there. The chain pass
+(configs the pivot path cannot stage, e.g. tt_ndim 4 with ranks not
+multiples of 16) runs each lookup's chain once per core. Both write one
 partial gradient tile per (chunk of a core's order, span), added per core
 row in chunk order: no float atomics, bitwise repeatable. One count in
-``tt_bwd.launches`` per call. On a CPU tensor it runs :func:`tt_bwd_plain`, which ignores the schedule;
-:func:`tt_bwd_pivot_plain` follows the pivot pass's schedule step by step
-(for the tests).
+``tt_bwd.launches`` per call. On a CPU tensor it runs
+:func:`tt_bwd_plain`, which ignores the schedule; :func:`tt_bwd_pivot_plain`
+follows the pivot path's schedule step by step (for the tests).
 """
 
 from __future__ import annotations
@@ -52,7 +56,9 @@ from fbtt_embedding_tpu_torch.ops.kernels.tt_fwd import (
     check_device,
     check_int32,
     check_lookups,
+    fwd_pivot_chunk,
     live_inputs,
+    pivot_passes,
     pivot_sub,
     state_floats,
 )
@@ -75,7 +81,10 @@ _RED_FLOATS = _WARPS * 128
 
 
 def _tiles_per_warp(q, r) -> int:
-    """16 x 8 tiles of dG_1 per warp of the pivot pass (a power of two)."""
+    """16 x 8 tiles of dG_1 per warp of the pivot pass (a power of two); at
+    tt_ndim 4 the most of its two passes'."""
+    if len(q) == 4:
+        return max(_tiles_per_warp(*pq) for pq in pivot_passes(q, r))
     tiles = (r[1] // 16) * (q[1] * r[2] // 8)
     tpw = 1
     while tpw * _WARPS < tiles:
@@ -90,8 +99,16 @@ def pivot_chunk(q, r) -> int:
     tt_ndim 2 or 3, ``r_1`` a multiple of 16 and ``q_1 r_2`` of 8 (the
     tensor cores' tiles), D and at tt_ndim 3 ``r_2`` multiples of 4, and the
     pivot slab within the warps' registers (a warp's tiles in one row of
-    tiles) and shared memory."""
+    tiles) and shared memory; at tt_ndim 4 the same of both passes
+    (``tt_fwd.pivot_passes``: the tail over core 2's order, the head over
+    core 1's), at the least of their sub-chunks, and the forward's rule of
+    the head (whose pass writes ``z_1``)."""
     ndim = len(q)
+    if ndim == 4:
+        head, tail = pivot_passes(q, r)
+        if not fwd_pivot_chunk(*head):
+            return 0
+        return min(pivot_chunk(*head), pivot_chunk(*tail))
     if ndim not in (2, 3):
         return 0
     m0, rk, w, d = q[0], r[1], q[1] * r[2], math.prod(q)
@@ -155,11 +172,13 @@ def bwd_chunk(q, r) -> Optional[int]:
 
 def core_chunks(pivot: bool, ndim: int, seg: int, sub: int):
     """Rows of each core's sorted order per chunk of its partial tiles
-    (tile ``c + j`` is chunk ``c``'s sum of span ``j``): on the pivot pass
-    ``sub`` for core 1 and END_CHUNK for the end cores, else ``seg``."""
+    (tile ``c + j`` is chunk ``c``'s sum of span ``j``): on the pivot path
+    ``sub`` for the pivot cores (core 1, and core 2 at tt_ndim 4) and
+    END_CHUNK for the end cores, else ``seg``."""
     if not pivot:
         return [seg] * ndim
-    return [sub if t == 1 else END_CHUNK for t in range(ndim)]
+    return [sub if t == 1 or 1 < t < ndim - 1 else END_CHUNK
+            for t in range(ndim)]
 
 
 def partial_floats(pivot: bool, nza: int, rows, tiles, seg: int,
@@ -206,36 +225,39 @@ def tt_bwd_plain(gk, idx, rowv, weights, dout, orders, runs, first, cnt, *,
 
 def tt_bwd_pivot_plain(gk, idx, rowv, weights, dout, orders, runs, first,
                        cnt, *, seg, lc=None, sub=None):
-    """Plain PyTorch model of the pivot pass's schedule (tt_ndim 2 and 3),
-    step by step, for the tests: core 1's order is cut into chunks of
-    ``sub`` rows (default ``seg // 2``); chunk ``c`` takes each span ``j``
-    that meets it in sub-chunks of ``lc`` lookups and writes the sum of
-    ``z_0^T dz_1`` as partial tile ``c + j``; the end cores' per-lookup
-    slabs (dz_0, and ``z_1^T dz_2`` at tt_ndim 3) are summed per span in
-    each chunk of END_CHUNK rows of their own core's order, into tile ``c +
-    j`` of that core; each core row's tiles are then added in chunk order.
-    Dead lookups (the sentinel span) are never visited. Raises
-    AssertionError where a tile is written twice, or a tile the reduction
-    reads, or a slab an end core reads, was never written."""
+    """Plain PyTorch model of the pivot path's schedule, step by step, for
+    the tests: core 1's order is cut into chunks of ``sub`` rows (default
+    ``seg // 2``); chunk ``c`` takes each span ``j`` that meets it in
+    sub-chunks of ``lc`` lookups and writes the sum of ``z_0^T dz_1`` as
+    partial tile ``c + j``; the end cores' per-lookup slabs (dz_0, and the
+    last core's ``z^T dz`` at tt_ndim 3 and 4) are summed per span in each
+    chunk of END_CHUNK rows of their own core's order, into tile ``c + j``
+    of that core; each core row's tiles are then added in chunk order. At
+    tt_ndim 4 the forward's head pass first writes ``z_1`` by lookup; a
+    pass over core 2's order (chunks of ``sub`` rows) takes it, adds
+    ``z_1^T dz_2`` into core 2's tiles and writes ``dz_1`` by lookup and
+    the last core's slabs; the pass over core 1's order then takes its
+    ``dz_1`` from there. Dead lookups (the sentinel span) are never
+    visited. Raises AssertionError where a tile or a buffer row is written
+    twice, or a tile the reduction reads, a slab an end core reads, or a
+    buffer row a pass reads, was never written."""
     del first, cnt  # the chain pass's span tables
     q, r = chain_dims(gk)
     ndim, nnz, nza = len(q), idx.shape[1], orders.shape[1]
-    if ndim not in (2, 3):
-        raise ValueError(f"the pivot pass takes tt_ndim 2 and 3, got {ndim}")
     lc = lc or pivot_chunk(q, r) or PIVOT_CHUNK_MAX
     chunks = core_chunks(True, ndim, seg, sub or max(1, seg // 2))
     rows = [int(g.shape[0]) for g in gk]
     tiles = [r[t] * q[t] * r[t + 1] for t in range(ndim)]
-    m0, rk, w = q[0], r[1], q[1] * r[2]
     wts = (weights.float() if weights is not None
            else torch.ones(nnz, dtype=torch.float32, device=idx.device))
     dout = dout.float()
     idx_l, row_l = idx.long(), rowv.long()
     orders_l, runs_l = orders.long(), runs.long()
     nan = float("nan")
-    scratch = {0: torch.full((nnz, m0 * rk), nan)}
-    if ndim == 3:
-        scratch[2] = torch.full((nnz, r[2] * q[2]), nan)
+    last = ndim - 1
+    scratch = {0: torch.full((nnz, q[0] * r[1]), nan)}
+    if ndim > 2:
+        scratch[last] = torch.full((nnz, tiles[last]), nan)
     part = {t: {} for t in range(ndim)}
 
     def put(t, slot, tile):
@@ -252,28 +274,73 @@ def tt_bwd_pivot_plain(gk, idx, rowv, weights, dout, orders, runs, first,
                 if en > st:
                     yield c, j, st, en
 
-    for c, j, st, en in pieces(1):
-        g = gk[1][j].reshape(rk, w).float()
-        acc = torch.zeros((rk, w), dtype=torch.float32)
-        for cb in range(st, en, lc):
-            lk = orders_l[1][cb:min(cb + lc, en)]
-            n = lk.numel()
-            z0 = gk[0][idx_l[0, lk]].reshape(n * m0, rk).float()
-            rowcot = wts[lk, None] * dout[row_l[lk]]
-            if ndim == 3:
-                dz2 = rowcot.reshape(n, q[0] * q[1], q[2])
-                g2 = gk[2][idx_l[2, lk]].reshape(n, r[2], q[2]).float()
-                dz1 = torch.bmm(dz2, g2.transpose(1, 2))
-            else:
-                dz1 = rowcot
-            dz1 = dz1.reshape(n * m0, w)
-            acc = acc + z0.T @ dz1
-            scratch[0][lk] = (dz1 @ g.T).reshape(n, m0 * rk)
-            if ndim == 3:
-                z1 = (z0 @ g).reshape(n, q[0] * q[1], r[2])
-                scratch[2][lk] = torch.bmm(z1.transpose(1, 2),
-                                           dz2).reshape(n, -1)
-        put(1, c + j, acc)
+    def gather(t, lk, shape):
+        return gk[t][idx_l[t, lk]].reshape(shape).float()
+
+    def by_lookup(buf, lk, shape):
+        got = buf[lk]
+        assert not torch.isnan(got).any(), "a buffer row read unwritten"
+        return got.reshape(shape)
+
+    def pivot_pass(t, m_in, z_in, dz_piv, dz_in_out):
+        """Core t's pass: for each piece, ``dG_t[j] += z_{t-1}^T dz_t`` over
+        its sub-chunks (``z_in(lk)``: ``[n m_in, r_t]``; ``dz_piv(lk, z)``:
+        ``[n m_in, q_t r_{t+1}]``, given ``z_t`` by items where a last core
+        follows), and ``dz_{t-1} = dz_t G_t[j]^T`` by lookup into
+        ``dz_in_out``."""
+        rk, w = r[t], q[t] * r[t + 1]
+        for c, j, st, en in pieces(t):
+            g = gk[t][j].reshape(rk, w).float()
+            acc = torch.zeros((rk, w), dtype=torch.float32)
+            for cb in range(st, en, lc):
+                lk = orders_l[t][cb:min(cb + lc, en)]
+                n = lk.numel()
+                z = z_in(lk)
+                dz = dz_piv(lk, z @ g).reshape(n * m_in, w)
+                acc = acc + z.T @ dz
+                out = (dz @ g.T).reshape(n, m_in * rk)
+                assert torch.isnan(dz_in_out[lk]).all(), \
+                    f"core {t}: a buffer row written twice"
+                dz_in_out[lk] = out
+            put(t, c + j, acc)
+
+    def through_last(lk, z):
+        """``dz`` before the last core from ``w * dout[b]``, and the last
+        core's slab ``z^T dz_last`` by lookup (``z``: the pivot's product,
+        ``[n m_{n-2}, ...]``)."""
+        n = lk.numel()
+        m = math.prod(q[:last])
+        dzl = (wts[lk, None] * dout[row_l[lk]]).reshape(n, m, q[last])
+        gl = gather(last, lk, (n, r[last], q[last]))
+        scratch[last][lk] = torch.bmm(z.reshape(n, m, r[last]).transpose(
+            1, 2), dzl).reshape(n, -1)
+        return torch.bmm(dzl, gl.transpose(1, 2))
+
+    m0 = q[0]
+
+    def z0_of(lk):
+        return gather(0, lk, (lk.numel() * m0, r[1]))
+
+    if ndim == 4:
+        m1, zf = q[0] * q[1], q[0] * q[1] * r[2]
+        z1buf = torch.full((nnz, zf), nan)
+        for c, j, st, en in pieces(1):  # the forward's head pass
+            lk = orders_l[1][st:en]
+            assert torch.isnan(z1buf[lk]).all(), "z_1 written twice"
+            z1buf[lk] = (z0_of(lk) @ gk[1][j].reshape(r[1], -1).float()
+                         ).reshape(lk.numel(), zf)
+        dz1buf = torch.full((nnz, zf), nan)
+        pivot_pass(2, m1, lambda lk: by_lookup(z1buf, lk,
+                                               (lk.numel() * m1, r[2])),
+                   through_last, dz1buf)
+        pivot_pass(1, m0, z0_of,
+                   lambda lk, z: by_lookup(dz1buf, lk, (lk.numel(), -1)),
+                   scratch[0])
+    elif ndim == 3:
+        pivot_pass(1, m0, z0_of, through_last, scratch[0])
+    else:
+        pivot_pass(1, m0, z0_of,
+                   lambda lk, z: wts[lk, None] * dout[row_l[lk]], scratch[0])
     for t in scratch:
         for c, j, st, en in pieces(t):
             slabs = scratch[t][orders_l[t][st:en]]
@@ -359,10 +426,12 @@ def _launch(gk, idx, rowv, weights, dout, orders, runs, first, cnt, seg,
     if pivot:
         gk = [_aligned(t) for t in gk]
         dout = _aligned(dout)
-        # the end cores' per-lookup slabs: core 0, then the last at tt_ndim 3
-        scratch = torch.empty(nnz * (tiles[0] + (tiles[2] if ndim == 3
-                                                 else 0)),
-                              dtype=torch.float32, device=dev)
+        # the end cores' per-lookup slabs: core 0, then the last at tt_ndim
+        # 3 and 4; at tt_ndim 4 then z_1 and dz_1 by lookup
+        per = tiles[0] + (tiles[-1] if ndim > 2 else 0)
+        if ndim == 4:
+            per += 2 * q[0] * q[1] * r[2]
+        scratch = torch.empty(nnz * per, dtype=torch.float32, device=dev)
         gts = []
     else:
         scratch = None

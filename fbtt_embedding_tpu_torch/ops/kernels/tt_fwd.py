@@ -15,24 +15,29 @@ float32 or None; ``order [nnz]`` and ``starts [tb + 1]`` int32, the
 lookups grouped by bag (``tt_kernel.bag_order``).
 
 On a CUDA tensor :func:`tt_fwd` launches the hand-written kernels of
-``csrc/tt_fwd.cu`` on one of two paths (:func:`fwd_path` with ``card``:
-the library's ``fbtt_tt_fwd_path``), or raises. The pivot pass (tt_ndim 2
-and 3, where core 1's slab stages in shared memory) runs over the live
-rows of core 1's sorted order (the keyword ``core1``: its order and span
-starts from ``tt_kernel.core1_order``, built by the wrapper where they are
-not given) in even shares, one CTA each; a CTA takes its rows in
-groups of a few spans, stages each span's slab ``G_1[j]`` and multiplies
-the span's gathered ``z_0`` rows by it as 3xTF32 tensor-core GEMMs
-(float32 accuracy), writes each lookup's weighted row to a scratch
-buffer, and a second kernel adds each bag's rows in ``order``. The chain pass (tt_ndim
-4, and configs the pivot pass cannot stage) runs one CTA per bag, which
-walks its lookups in chunks, runs their chains in shared memory and sums
-the rows. Either way each output row is written once, no atomics:
-bitwise repeatable. On a CPU tensor it runs :func:`tt_fwd_plain`, which
-derives the bags from ``rowv`` and ignores ``order`` / ``starts`` /
-``core1``; :func:`tt_fwd_pivot_plain` follows the pivot pass's schedule
-step by step (for the tests). Launches are counted in ``tt_fwd.launches``,
-one per call.
+``csrc/tt_fwd.cu`` (its pivot passes in ``csrc/tt_fwd_pivot.cuh``) on one
+of two paths (:func:`fwd_path` with ``card``: the library's
+``fbtt_tt_fwd_path``), or raises. The pivot path (wherever the middle
+cores' slabs stage in shared memory: tt_ndim 2 and 3, and tt_ndim 4 where
+both its passes do) runs over the live rows of core 1's sorted order (the
+keyword ``core1``: its order and span starts from
+``tt_kernel.core1_order``, built by the wrapper where they are not given)
+in even shares, one CTA each; a CTA takes its rows in groups of a few
+spans, stages each span's slab ``G_1[j]`` and multiplies the span's
+gathered ``z_0`` rows by it as 3xTF32 tensor-core GEMMs (float32
+accuracy), writes each lookup's weighted row to a scratch buffer, and a
+pool kernel adds each bag's rows in ``order``. At tt_ndim 4 that pass
+runs on the head (cores 0-1) and writes ``z_1`` by lookup; a second pass
+over core 2's order (``core1`` then holds cores 1 and 2) reads it, stages
+``G_2[j]`` and fuses the last core (:func:`pivot_passes`). The chain pass
+(configs the pivot path cannot stage, e.g. tt_ndim 4 with ``r_1`` not a
+multiple of 8) runs one CTA per bag, which walks its lookups in chunks,
+runs their chains in shared memory and sums the rows. Either way each
+output row is written once, no atomics: bitwise repeatable. On a CPU
+tensor it runs :func:`tt_fwd_plain`, which derives the bags from ``rowv``
+and ignores ``order`` / ``starts`` / ``core1``; :func:`tt_fwd_pivot_plain`
+follows the pivot path's schedule step by step (for the tests). Launches
+are counted in ``tt_fwd.launches``, one per call.
 """
 
 from __future__ import annotations
@@ -94,11 +99,11 @@ def chunk_for(per_lookup: int, fixed: int) -> Optional[int]:
     return 1 if (per_lookup + fixed) * 4 <= _SMEM_MAX else None
 
 
-# the pivot pass's rule in Python, for code that runs on the CPU (the
+# the pivot path's rule in Python, for code that runs on the CPU (the
 # library's fbtt_tt_fwd_path decides on the card): groups of at most
 # FWD_CHUNK_MAX lookups, the largest multiple of 4 whose shared memory is
 # within _FWD_SMEM_PREF, else 4 within _SMEM_MAX, and whose loop indices
-# stay below _INDEX_MAX (the constants of csrc/tt_fwd.cu)
+# stay below _INDEX_MAX (the constants of csrc/tt_fwd_pivot.cuh)
 FWD_CHUNK_MAX = 16
 _FWD_SMEM_PREF = 100 * 1024
 _FWD_SMEM_THREE = 72 * 1024  # a CTA's shared memory where three fit an SM
@@ -116,18 +121,48 @@ def _slab_cols(w):
 
 
 def fwd_pivot_slabs(q, r) -> int:
-    """Slabs (spans) a group of the pivot pass stages at most: 40 KB of
-    them, 1-8 (kSlabBudget and kSlabsMax of csrc/tt_fwd.cu)."""
+    """Slabs (spans) a group of one pivot pass (tt_ndim 2 or 3) stages at
+    most: 40 KB of them, 1-8 (kSlabBudget and kSlabsMax of
+    csrc/tt_fwd_pivot.cuh)."""
     gs = _slab_cols(q[1] * r[2])[1]
     return min(_SLABS_MAX, max(1, _SLAB_BUDGET // (4 * r[1] * gs)))
 
 
+def sub_dims(q, r, t0: int, t1: int):
+    """``(q, r)`` of cores ``t0 .. t1`` of a chain as a chain of their own
+    (``sub_chain`` of csrc/tt_chain.cuh): where ``t0 > 0`` its core 0 is a
+    per-lookup buffer of ``z_{t0-1}`` (``q_0 = m_{t0-1}``, rank
+    ``r_{t0}``); where ``t1`` is not the last core, core ``t1``'s ``q_{t1}
+    r_{t1+1}`` columns are its last q, so that its row is ``z_{t1}``."""
+    qs, rs = [], [1]
+    if t0 > 0:
+        qs.append(math.prod(q[:t0]))
+        rs.append(r[t0])
+    for t in range(t0, t1 + 1):
+        qs.append(q[t])
+        rs.append(r[t + 1])
+    if t1 < len(q) - 1:
+        qs[-1] *= r[t1 + 1]
+        rs[-1] = 1
+    return tuple(qs), tuple(rs)
+
+
+def pivot_passes(q, r):
+    """The chains the pivot paths of B4 and B5 run passes on, as ``(q, r)``
+    pairs: the chain itself at tt_ndim 2 and 3; at tt_ndim 4 its head
+    (cores 0-1, whose row is ``z_1``) and its tail (``z_1`` by lookup, then
+    cores 2-3)."""
+    if len(q) == 4:
+        return [sub_dims(q, r, 0, 1), sub_dims(q, r, 2, 3)]
+    return [(tuple(q), tuple(r))]
+
+
 def _fwd_pivot_fits(q, r):
-    """``fits(lc, limit)`` of the pivot pass for chain dims ``q`` and full
-    ranks ``r`` (a group of lc lookups within ``limit`` bytes of shared
-    memory and the fast division's range), or None where the pass does not
-    take the shapes (see :func:`fwd_pivot_chunk`); with ``limit`` None,
-    the group's bytes."""
+    """``fits(lc, limit)`` of one pivot pass for chain dims ``q`` and full
+    ranks ``r`` (tt_ndim 2 or 3; a group of lc lookups within ``limit``
+    bytes of shared memory and the fast division's range), or None where
+    the pass does not take the shapes (see :func:`fwd_pivot_chunk`); with
+    ``limit`` None, the group's bytes."""
     ndim = len(q)
     if ndim not in (2, 3):
         return None
@@ -164,7 +199,7 @@ def _fwd_pivot_fits(q, r):
 
 
 def fwd_pivot_chunk(q, r) -> int:
-    """Lookups per group of the forward's pivot pass for chain dims ``q``
+    """Lookups per group of the forward's pivot path for chain dims ``q``
     and full ranks ``r``, or 0 where it does not take them (the rule of
     the library's ``fbtt_tt_fwd_path``, for code that runs on the CPU):
     tt_ndim 2 or 3, ``r_1`` a multiple of 8 (the tensor cores' depth),
@@ -172,7 +207,12 @@ def fwd_pivot_chunk(q, r) -> int:
     rows), and a group's slabs ``[r_1, q_1 r_2]`` (columns padded to 8, rows
     to an odd number of 8-float blocks; up to 40 KB of them, 1-8) with its
     ``z_0`` rows (and at tt_ndim 3 its last-core slabs and ``z_1`` by
-    items) within shared memory and the kernel's fast division."""
+    items) within shared memory and the kernel's fast division; at tt_ndim
+    4 the same of both passes (:func:`pivot_passes`), at the least of their
+    chunks."""
+    if len(q) == 4:
+        lcs = [fwd_pivot_chunk(*pq) for pq in pivot_passes(q, r)]
+        return min(lcs)
     fits = _fwd_pivot_fits(q, r)
     if fits is None:
         return 0
@@ -185,7 +225,8 @@ def fwd_pivot_chunk(q, r) -> int:
 def fwd_pivot_ctas(q, r) -> int:
     """Pivot CTAs an SM holds at once (the library's rule): three at
     tt_ndim 2 where a group's shared memory is within _FWD_SMEM_THREE, else
-    two; 0 where the pivot pass does not take the shapes."""
+    two (at tt_ndim 4 the tail pass's, which the head's launch shares); 0
+    where the pivot path does not take the shapes."""
     lc = fwd_pivot_chunk(q, r)
     if not lc:
         return 0
@@ -296,76 +337,118 @@ def _core1_schedule(gk, idx, rowv):
     return core1_order(idx, rowv, [int(g.shape[0]) for g in gk])
 
 
-def tt_fwd_pivot_plain(gk, idx, rowv, weights, order, starts, *, core1=None,
-                       lc=None, sub=None, slabs=None):
-    """Plain PyTorch model of the pivot pass's schedule (tt_ndim 2 and 3),
-    step by step, for the tests: the live rows of core 1's order (``core1``,
-    as ``tt_kernel.core1_order`` builds it) are cut into even shares, one per
-    CTA (``ceil(nza / sub)`` of them, ``sub`` default 32); each share's rows
-    run in groups of up to ``lc``
-    lookups (default the kernel's) from up to ``slabs`` spans, each span's
-    piece taking whole 16-row tiles of the product; per piece ``z_0 =
-    G_0[i_0]``, ``z_1 = z_0 G_1[j]`` (tt_ndim 3: then each lookup's ``z_1``
-    by its ``G_2[i_2]``), and ``w * row`` into the lookup's scratch row;
-    then each bag adds its lookups' scratch rows in ``order`` from zero.
-    Dead lookups (the sentinel span) are never visited. Raises
-    AssertionError where a scratch row is written twice or a bag reads one
-    never written."""
-    q, r = chain_dims(gk)
-    ndim, nnz, d = len(q), idx.shape[1], math.prod(q)
-    if ndim not in (2, 3):
-        raise ValueError(f"the pivot pass takes tt_ndim 2 and 3, got {ndim}")
-    rows1 = int(gk[1].shape[0])
-    if core1 is None:
-        core1 = _core1_schedule(gk, idx, rowv)
-    ord1, runs1 = core1[0].long(), core1[1].long()
-    nza, nlive = ord1.shape[0], int(runs1[rows1])
-    lc = lc or fwd_pivot_chunk(q, r) or FWD_CHUNK_MAX
-    sub = sub or 32
-    slabs = slabs or fwd_pivot_slabs(q, r)
-    m0, rk, w = q[0], r[1], q[1] * r[2]
+def _pivot_groups(runs, rows_t, nza, lc, sub, slabs, m0):
+    """The groups of one forward pivot pass over a core's sorted order
+    (span starts ``runs``, ``rows_t`` rows), as the kernel forms them: the
+    live rows cut into even shares, one per CTA (``ceil(nza / sub)`` of
+    them), each share's rows in groups of up to ``lc`` lookups from up to
+    ``slabs`` spans, each span's piece taking whole 16-row tiles of the
+    product (``m0`` rows a lookup); yields each group's pieces ``(span j,
+    first row, lookups)``. Dead lookups (the sentinel span) are in none."""
+    nlive = int(runs[rows_t])
     rows_cap = -(-lc * m0 // 16) * 16
-    dev = idx.device
-    wts = (weights.float() if weights is not None
-           else torch.ones(nnz, dtype=torch.float32, device=dev))
-    idx_l = idx.long()
-    scratch = torch.full((nnz, d), float("nan"), device=dev)
-    written = torch.zeros(nnz, dtype=torch.bool, device=dev)
-    group = []  # (span, first row, lookups) of each piece
-
-    def flush():
-        for j, cb, n in group:
-            lk = ord1[cb:cb + n]
-            g = gk[1][j].reshape(rk, w).float()
-            z1 = gk[0][idx_l[0, lk]].reshape(n * m0, rk).float() @ g
-            if ndim == 3:
-                g2 = gk[2][idx_l[2, lk]].reshape(n, r[2], q[2]).float()
-                rows = torch.bmm(z1.reshape(n, m0 * q[1], r[2]), g2)
-            else:
-                rows = z1
-            assert not written[lk].any(), "a scratch row written twice"
-            written[lk] = True
-            scratch[lk] = wts[lk, None] * rows.reshape(n, d)
-        group.clear()
-
     ctas = -(-nza // sub)
     share = -(-nlive // ctas) if ctas else 0
     for lo in range(0, nlive, share or 1):
         hi = min(lo + share, nlive)
-        gn = gr = 0
-        for j in range(rows1):
-            cb, en = max(int(runs1[j]), lo), min(int(runs1[j + 1]), hi)
+        group, gn, gr = [], 0, 0
+        for j in range(rows_t):
+            cb, en = max(int(runs[j]), lo), min(int(runs[j + 1]), hi)
             while cb < en:
                 n = min(en - cb, lc - gn, (rows_cap - gr) // m0)
                 if n <= 0 or len(group) == slabs:
-                    flush()
-                    gn = gr = 0
+                    yield group
+                    group, gn, gr = [], 0, 0
                     continue
                 group.append((j, cb, n))
                 gn += n
                 gr += -(-n * m0 // 16) * 16
                 cb += n
-        flush()
+        if group:
+            yield group
+
+
+def tt_fwd_pivot_plain(gk, idx, rowv, weights, order, starts, *, core1=None,
+                       lc=None, sub=None, slabs=None):
+    """Plain PyTorch model of the pivot path's schedule, step by step, for
+    the tests: the live rows of core 1's order (``core1``, as
+    ``tt_kernel.core1_order`` builds it) are cut into even shares, one per
+    CTA (``ceil(nza / sub)`` of them, ``sub`` default 32); each share's rows
+    run in groups of up to ``lc`` lookups (default the kernel's) from up to
+    ``slabs`` spans (default each pass's), each span's piece taking whole
+    16-row tiles of the product (:func:`_pivot_groups`); per piece ``z_0 =
+    G_0[i_0]``, ``z_1 = z_0 G_1[j]`` (tt_ndim 3: then each lookup's ``z_1``
+    by its ``G_2[i_2]``), and ``w * row`` into the lookup's scratch row. At
+    tt_ndim 4 that pass (weight 1) writes ``z_1`` into a buffer by lookup,
+    and a second one over core 2's order (``core1``'s second row) takes
+    ``z_1`` from it: ``z_2 = z_1 G_2[j]``, then each lookup's ``z_2`` by its
+    ``G_3[i_3]``, and ``w * row``. Then each bag adds its lookups' scratch
+    rows in ``order`` from zero. Dead lookups (the sentinel span) are never
+    visited. Raises AssertionError where a scratch or buffer row is written
+    twice, or a bag or the second pass reads one never written."""
+    q, r = chain_dims(gk)
+    ndim, nnz, d = len(q), idx.shape[1], math.prod(q)
+    rows_all = [int(g.shape[0]) for g in gk]
+    if core1 is None:
+        core1 = _core1_schedule(gk, idx, rowv)
+    ords, runs = (x.long().reshape(-1, x.shape[-1]) for x in core1)
+    nza = ords.shape[1]
+    lc = lc or fwd_pivot_chunk(q, r) or FWD_CHUNK_MAX
+    sub = sub or 32
+    dev = idx.device
+    wts = (weights.float() if weights is not None
+           else torch.ones(nnz, dtype=torch.float32, device=dev))
+    idx_l = idx.long()
+
+    def gather(t, lk, shape):
+        return gk[t][idx_l[t, lk]].reshape(shape).float()
+
+    def run(k, m0, piece_rows, out, weighted):
+        """One pass over the order of core k + 1 (row k of core1): each
+        piece's lookups' rows (``piece_rows(j, lk)``) into ``out``."""
+        pq = pivot_passes(q, r)[k]
+        for group in _pivot_groups(runs[k], rows_all[k + 1], nza, lc, sub,
+                                   slabs or fwd_pivot_slabs(*pq), m0):
+            for j, cb, n in group:
+                lk = ords[k, cb:cb + n]
+                rows = piece_rows(j, lk).reshape(n, -1)
+                assert not written[k][lk].any(), "a row written twice"
+                written[k][lk] = True
+                out[lk] = (wts[lk, None] * rows) if weighted else rows
+
+    scratch = torch.full((nnz, d), float("nan"), device=dev)
+    written = [torch.zeros(nnz, dtype=torch.bool, device=dev)
+               for _ in range(2)]
+    m0, rk = q[0], r[1]
+
+    def head(j, lk):  # z_1 = z_0 G_1[j]; tt_ndim 3: the lookup's last core
+        n = lk.numel()
+        z1 = gather(0, lk, (n * m0, rk)) @ gk[1][j].reshape(
+            rk, q[1] * r[2]).float()
+        if ndim != 3:
+            return z1
+        return torch.bmm(z1.reshape(n, m0 * q[1], r[2]),
+                         gather(2, lk, (n, r[2], q[2])))
+
+    if ndim == 4:
+        zbuf = torch.full((nnz, q[0] * q[1] * r[2]), float("nan"),
+                          device=dev)
+        run(0, m0, head, zbuf, False)
+
+        def tail(j, lk):  # z_2 = z_1 G_2[j], then the lookup's last core
+            n = lk.numel()
+            assert written[0][lk].all(), "z_1 read before it was written"
+            m1 = q[0] * q[1]
+            z2 = zbuf[lk].reshape(n * m1, r[2]) @ gk[2][j].reshape(
+                r[2], q[2] * r[3]).float()
+            return torch.bmm(z2.reshape(n, m1 * q[2], r[3]),
+                             gather(3, lk, (n, r[3], q[3])))
+
+        run(1, q[0] * q[1], tail, scratch, True)
+        done = written[1]
+    else:
+        run(0, m0, head, scratch, True)
+        done = written[0]
     starts_l = starts.long()
     lens = starts_l[1:] - starts_l[:-1]
     out = torch.zeros((lens.shape[0], d), dtype=torch.float32, device=dev)
@@ -373,7 +456,7 @@ def tt_fwd_pivot_plain(gk, idx, rowv, weights, order, starts, *, core1=None,
     for i in range(int(lens.max()) if lens.numel() else 0):
         bags = torch.nonzero(lens > i).flatten()
         lk = order.long()[starts_l[bags] + i]
-        assert written[lk].all(), "a bag reads a scratch row never written"
+        assert done[lk].all(), "a bag reads a scratch row never written"
         out[bags] += scratch[lk]
     return out
 
@@ -418,10 +501,33 @@ def check_device(name, tensors):
         raise ValueError(f"{name} needs contiguous inputs")
 
 
+def _pivot_orders(core1, nnz, rows, ndim):
+    """``core1`` (``tt_kernel.core1_order``: an order ``[nza]`` or ``[k,
+    nza]`` and span starts ``[rstride]`` or ``[k, rstride]``) as 2-D int32
+    tensors of the pivot path's cores, core 1 and at tt_ndim 4 core 2;
+    raises ValueError on shapes the kernels cannot read."""
+    npiv = 2 if ndim == 4 else 1
+    ord1, runs1 = core1[0], core1[1]
+    if ord1.dim() == 1 and runs1.dim() == 1:
+        ord1, runs1 = ord1[None], runs1[None]
+    need = max(rows[1:npiv + 1]) + 2
+    if (ord1.dtype != torch.int32 or ord1.dim() != 2
+            or ord1.shape[0] < npiv or ord1.shape[1] < nnz
+            or runs1.dtype != torch.int32 or runs1.dim() != 2
+            or runs1.shape[0] < npiv or runs1.shape[1] < need):
+        raise ValueError(
+            f"tt_fwd: core1 must hold int32 [{npiv}, >= {nnz}] and "
+            f"[{npiv}, >= {need}] (the orders of cores 1 .. {npiv}; one core "
+            f"may be 1-D), got {ord1.dtype} {tuple(ord1.shape)}, "
+            f"{runs1.dtype} {tuple(runs1.shape)}")
+    return ord1, runs1
+
+
 def tt_fwd(gk, idx, rowv, weights, order, starts, *, core1=None):
-    """``out [tb, D]`` float32 — see the module docstring. ``core1``: core
-    1's sorted order and span starts from ``tt_kernel.core1_order`` (the
-    pivot pass reads them), built here where they are not given."""
+    """``out [tb, D]`` float32 — see the module docstring. ``core1``: the
+    pivot path's sorted orders and span starts from
+    ``tt_kernel.core1_order`` (core 1's, and at tt_ndim 4 core 2's too),
+    built here where they are not given."""
     q, r = check_lookups("tt_fwd", gk, idx, rowv, weights)
     nnz = idx.shape[1]
     check_int32("tt_fwd", "order", order, (nnz,))
@@ -442,27 +548,23 @@ def tt_fwd(gk, idx, rowv, weights, order, starts, *, core1=None):
     pivot = path[0] == "pivot"
     tb = starts.shape[0] - 1
     d = math.prod(q)
-    rows1 = int(gk[1].shape[0])
+    ndim = len(q)
+    rows = [int(g.shape[0]) for g in gk] + [0]
     out = torch.empty((tb, d), dtype=torch.float32, device=dev)
     ord1 = runs1 = scratch = None
-    nza = sub = 0
+    nza = sub = rstride = 0
     with torch.cuda.device(dev):
         if pivot:
             if core1 is None:
                 core1 = _core1_schedule(gk, idx, rowv)
-            ord1, runs1 = core1[0], core1[1]
-            nza = ord1.shape[0]
-            if (ord1.dtype != torch.int32 or ord1.dim() != 1 or nza < nnz
-                    or runs1.dtype != torch.int32 or runs1.dim() != 1
-                    or runs1.shape[0] < rows1 + 2):
-                raise ValueError(
-                    f"tt_fwd: core1 must hold int32 [>= {nnz}] and "
-                    f"[>= {rows1 + 2}], got {ord1.dtype} "
-                    f"{tuple(ord1.shape)}, {runs1.dtype} "
-                    f"{tuple(runs1.shape)}")
+            ord1, runs1 = _pivot_orders(core1, nnz, rows, ndim)
+            nza, rstride = ord1.shape[1], runs1.shape[1]
             check_device("tt_fwd", [idx, ord1, runs1])
             gk = [_aligned(t) for t in gk]
-            scratch = torch.empty(nnz * d, dtype=torch.float32, device=dev)
+            # w * row by lookup, and at tt_ndim 4 z_1 by lookup after it
+            zf = q[0] * q[1] * r[2] if ndim == 4 else 0
+            scratch = torch.empty(nnz * (d + zf), dtype=torch.float32,
+                                  device=dev)
             sub = pivot_sub(nza, path[2], _sm_count(dev.index or 0))
         g = [t.data_ptr() for t in gk] + [None] * (4 - len(gk))
         qa = list(q) + [1] * (4 - len(q))
@@ -475,8 +577,8 @@ def tt_fwd(gk, idx, rowv, weights, order, starts, *, core1=None):
             order.data_ptr(), starts.data_ptr(), out.data_ptr(),
             *(t.data_ptr() if t is not None else None
               for t in (ord1, runs1, scratch)),
-            len(gk), nnz, tb, nza, *qa, *ra, rows1, path[1],
-            state_floats(q, r), int(pivot), sub, stream)
+            len(gk), nnz, tb, nza, *qa, *ra, rows[1], rows[2], rstride,
+            path[1], state_floats(q, r), int(pivot), sub, stream)
     if err != 0:
         raise RuntimeError("tt_fwd launch failed: "
                            + lib.fbtt_error_string(err).decode())
@@ -494,7 +596,7 @@ def _lib():
     if lib.fbtt_tt_fwd.argtypes is None:
         p = ctypes.c_void_p
         i = ctypes.c_int
-        lib.fbtt_tt_fwd.argtypes = [p] * 12 + [i] * 16 + [p]
+        lib.fbtt_tt_fwd.argtypes = [p] * 12 + [i] * 18 + [p]
         lib.fbtt_tt_fwd.restype = ctypes.c_int
         lib.fbtt_tt_fwd_path.argtypes = [i] * 8 + [ctypes.POINTER(i)]
         lib.fbtt_tt_fwd_path.restype = ctypes.c_int

@@ -15,12 +15,13 @@ not carried over (the kernels take any nnz), nor are its multiple-of-8 and
 VMEM gates: :func:`generic_available` asks only that a lookup's chain fit
 the kernels' shared memory. The kernels' schedules are stable sorts on
 the device: lookups grouped by bag for the forward (:func:`bag_order`),
-sorted by core 1's row for its pivot pass (:func:`core1_order`) and, for
-the backward, sorted by each core's row into fixed segments
-(:func:`core_orders`). In a training step ``GenericLookup`` prepares the
+sorted by core 1's row (and at tt_ndim 4 by core 2's) for its pivot path
+(:func:`core1_order`) and, for the backward, sorted by each core's row
+into fixed segments (:func:`core_orders`). In a training step ``GenericLookup`` prepares the
 lookups once (:func:`forward_lookups`, :func:`backward_lookups`) and the
-backward takes the forward's core-1 order, so a step sorts once per core
-and once by bag.
+backward takes the forward's pivot orders (core 1's, and at tt_ndim 4
+core 2's: :func:`core1_order`), so a step sorts once per core and once by
+bag.
 """
 
 from __future__ import annotations
@@ -176,9 +177,17 @@ def core_order(key: torch.Tensor, rowv: torch.Tensor, rows_t: int,
 
 def core1_order(idx: torch.Tensor, rowv: torch.Tensor, rows: Sequence[int],
                 seg: int = SEG):
-    """Core 1's :func:`core_order` with :func:`core_orders`' stride, for
-    kernel B4's pivot pass and, in a training step, kernel B5."""
-    return core_order(idx[1], rowv, rows[1], max(rows) + 2, seg)
+    """The orders of kernel B4's pivot cores, for its pivot path and, in a
+    training step, kernel B5: core 1's :func:`core_order` with
+    :func:`core_orders`' stride (``order [nza]``, ``runs [rstride]``); at
+    tt_ndim 4 core 1's and core 2's, stacked (``[2, nza]``, ``[2,
+    rstride]``)."""
+    rstride = max(rows) + 2
+    if idx.shape[0] == 4:
+        per_core = [core_order(idx[t], rowv, rows[t], rstride, seg)
+                    for t in (1, 2)]
+        return tuple(torch.stack(x) for x in zip(*per_core))
+    return core_order(idx[1], rowv, rows[1], rstride, seg)
 
 
 def core_orders(idx: torch.Tensor, rowv: torch.Tensor, rows: Sequence[int],
@@ -186,11 +195,19 @@ def core_orders(idx: torch.Tensor, rowv: torch.Tensor, rows: Sequence[int],
     """The backward kernel's schedule: :func:`core_order` of every core t
     (sentinel row ``rows[t]``), stacked, and each core's segment spans:
     ``orders [ndim, nza]``, ``runs [ndim, max(rows) + 2]``, ``first``,
-    ``cnt [ndim, nseg]`` (:func:`segment_spans`). ``core1``: core 1's
-    order and runs from :func:`core1_order` (the forward's), taken in place
-    of a sort."""
+    ``cnt [ndim, nseg]`` (:func:`segment_spans`). ``core1``: the
+    forward's orders and runs from :func:`core1_order` (core 1's, and at
+    tt_ndim 4 core 2's), taken in place of their sorts."""
     rstride = max(rows) + 2
-    per_core = [core1 if t == 1 and core1 is not None
+    given = {}
+    if core1 is not None:
+        ord1, runs1 = core1
+        if ord1.dim() == 1:
+            given[1] = core1
+        else:
+            given = {1 + k: (ord1[k], runs1[k])
+                     for k in range(ord1.shape[0])}
+    per_core = [given[t] if t in given
                 else core_order(idx[t], rowv, rows[t], rstride, seg)
                 for t in range(idx.shape[0])]
     orders, runs = (torch.stack(x) for x in zip(*per_core))

@@ -129,8 +129,9 @@ class GenericLookup(torch.autograd.Function):
     (:func:`backward_lookups`); indices, weights and the live count get
     no gradient. The backward recomputes the chain (the reference's
     recompute strategy); of the forward it keeps the lookups as the
-    kernels take them (:func:`block_inputs`) and core 1's sorted order
-    (:func:`core1_order`), built once for both kernels.
+    kernels take them (:func:`block_inputs`) and B4's pivot orders (core
+    1's, and at tt_ndim 4 core 2's: :func:`core1_order`), built once for
+    both kernels.
 
     ``apply(cfg, idx_parts, rowidx, tableidx, weights, live, dead, *cores)``
     with ``cfg = (p, q, ranks, batch_size)`` and ``idx_parts`` a tuple of

@@ -10,8 +10,10 @@ kernels are checked and timed on the same inputs on one card:
 and on this one, in turns.
 
 For each case (the headline model at B=512, pooling 20, uniform and Zipf
-1.05 row ids; a tt_ndim-2 model, uniform and Zipf; a tt_ndim-4 model; a
-rank-64 model; two weighted tables; a live-count tail), with random cores
+1.05 row ids; a tt_ndim-2 model, uniform and Zipf; a tt_ndim-4 model; the
+billion-row tt_ndim-4 model, p=[125,200,200,200], q=[2,4,2,4], ranks 32,
+at B=512, pooling 20, uniform and Zipf; a rank-64 model; two weighted
+tables; a live-count tail), with random cores
 from seed 2, it runs ``tt_fwd`` and ``tt_bwd`` twice each on the card,
 holds them against ``tt_fwd_plain`` / ``tt_bwd_plain`` (forward rtol =
 atol = 1e-5, gradients rtol 1e-4, atol 1e-5), checks that each kernel's
@@ -19,8 +21,9 @@ two runs are bitwise equal, and times both kernels as device time per
 call (the summed durations of the call's kernels over 20 calls under
 ``torch.profiler``, ``chip_smoke.device_ms``, with the SM clock read in
 each window) and between CUDA events (``chip_smoke.cuda_ms``). B4 gets
-core 1's order as the step's forward builds it (``core1``, where the
-package's ``tt_fwd`` takes it), so its sort is not timed. It prints each
+its pivot orders as the step's forward builds them (``core1``: core 1's,
+and at tt_ndim 4 core 2's too, where the package's ``tt_fwd`` takes it),
+so their sorts are not timed. It prints each
 kernel's path where the package has a path query (``tt_fwd.fwd_path``,
 ``tt_bwd.bwd_path``; an older tree runs the chain pass) and the
 compiler's register report first. It runs WARM_S seconds of float32
@@ -54,6 +57,10 @@ CASES = [  # name, p, q, inner ranks, B, pooling, tables, zipf, weights, live
     ("ndim2 zipf1.05", [3300, 3300], [8, 8], [32], 512, 20, 1, True, False,
      None),
     ("ndim4", [60] * 4, [4] * 4, [32] * 3, 64, 8, 1, False, False, None),
+    ("ndim4 billion uniform", [125, 200, 200, 200], [2, 4, 2, 4], [32] * 3,
+     512, 20, 1, False, False, None),
+    ("ndim4 billion zipf1.05", [125, 200, 200, 200], [2, 4, 2, 4], [32] * 3,
+     512, 20, 1, True, False, None),
     ("rank64", [200, 220, 250], [4, 4, 4], [64, 64], 512, 20, 1, False,
      False, None),
     ("T=2 weighted", [200, 220, 250], [4, 4, 4], [32, 32], 128, 20, 2,
@@ -113,8 +120,11 @@ def main():
             zipf, weights, live)
         fargs = (gk, idx, rowv, wv, order, starts)
         bargs = (gk, idx, rowv, wv, dout, *sched)
-        fkw = ({"core1": tuple(x[1] for x in sched[:2])} if "core1" in
-               inspect.signature(fbt.tt_fwd).parameters else {})
+        # the pivot orders: core 1's, and at tt_ndim 4 core 2's too (an
+        # older tree's chain pass at tt_ndim 4 reads none)
+        fkw = ({"core1": tuple(x[1:3] if len(p) == 4 else x[1]
+                               for x in sched[:2])}
+               if "core1" in inspect.signature(fbt.tt_fwd).parameters else {})
         out_k = fbt.tt_fwd(*fargs, **fkw)
         out_2 = fbt.tt_fwd(*fargs, **fkw)
         g1 = fbt.tt_bwd(*bargs, seg=K.SEG)
@@ -146,8 +156,11 @@ def main():
                        inner=5) * 1e3
         b_ev = cuda_ms(lambda: fbt.tt_bwd(*bargs, seg=K.SEG), reps=10,
                        inner=5) * 1e3
-        fparts = {kernel_name(k): v * 1e3 for k, v in f_parts.items()}
-        parts = {kernel_name(k): v * 1e3 for k, v in b_parts.items()}
+        fparts, parts = {}, {}
+        for got, src in ((fparts, f_parts), (parts, b_parts)):
+            for k, v in src.items():  # a pivot pass per template instance
+                label = kernel_name(k, templates=True)
+                got[label] = got.get(label, 0.0) + v * 1e3
         out[name] = {"path": path[0], "tt_fwd_path": fpath[0],
                      "tt_bwd_path": path[0], "tt_fwd_us": f_us,
                      "tt_bwd_us": b_ms * 1e3, "tt_fwd_mhz": f_mhz,

@@ -5,12 +5,14 @@
   per-lookup slabs summed per chunk of their own order and then per row,
   dead lookups never visited), against ``tt_bwd_plain`` and against the
   Pallas kernel ``tt_backward_pallas`` in interpret mode, rtol = atol =
-  1e-5, on the tt_ndim-2 and -3 cases of ``test_torch_port_generic.py``
-  and a Zipf batch with a hot row, at the kernel's segment and sub-chunk
-  and at small ones that cut every span;
-- the path query ``bwd_path``: the pivot pass at tt_ndim 2 and 3, the chain
-  pass at tt_ndim 4 and where the pivot slab does not stage, neither where
-  one lookup does not fit.
+  1e-5, on the tt_ndim-2 and -3 cases of ``test_torch_port_generic.py``,
+  a Zipf batch with a hot row, and tt_ndim-4 cases (ranks 16: uniform,
+  Zipf, weights, two tables, a live-count tail; ``z_1`` by lookup, core
+  2's pass writing ``dz_1`` by lookup, then core 1's), at the kernel's
+  segment and sub-chunk and at small ones that cut every span;
+- the path query ``bwd_path``: the pivot path where the middle cores'
+  slabs stage (at tt_ndim 4 both passes), the chain pass where they do not,
+  neither where one lookup does not fit.
 """
 
 import jax.numpy as jnp
@@ -43,6 +45,16 @@ CASES = [
     dict(p=[20, 22, 25], q=[4, 4, 4], ranks=[8, 8], b=16, L=2, weights=True,
          live=21),
     dict(p=[20, 22, 25], q=[4, 4, 4], ranks=[8, 8], b=16, L=8, zipf=True),
+    # tt_ndim 4 at ranks 16, which the pivot rule takes
+    dict(p=[5, 6, 7, 8], q=[2, 4, 2, 4], ranks=[16, 16, 16], b=16, L=3),
+    dict(p=[5, 6, 7, 8], q=[2, 4, 2, 4], ranks=[16, 16, 16], b=16, L=8,
+         zipf=True),
+    dict(p=[8, 9, 10, 11], q=[2, 2, 2, 2], ranks=[16, 16, 16], b=8, L=3,
+         weights=True),
+    dict(p=[4, 5, 6, 7], q=[2, 2, 2, 2], ranks=[16, 16, 16], b=8, L=2, T=2,
+         weights=True),
+    dict(p=[5, 6, 7, 8], q=[2, 4, 2, 4], ranks=[16, 16, 16], b=16, L=3,
+         weights=True, live=29),
 ]
 # (segment, pivot chunk, sub-chunk): the kernel's sub-chunk, and small
 # chunks and sub-chunks that cut every span
@@ -126,7 +138,16 @@ def test_pivot_schedule_matches_plain_and_pallas(case, schedule):
 def test_pivot_schedule_dead_lookups_add_nothing():
     """A batch whose lookups are all dead gets zero gradients, and the
     model never reads their (unwritten) slabs."""
-    p, q, ranks = [20, 22, 25], [4, 4, 4], [8, 8]
+    _dead_batch_grads_are_zero([20, 22, 25], [4, 4, 4], [8, 8])
+
+
+def test_pivot_schedule_dead_lookups_add_nothing_tt_ndim_4():
+    """The same at tt_ndim 4: no pass visits a dead lookup, and no z_1 or
+    dz_1 row is read."""
+    _dead_batch_grads_are_zero([5, 6, 7, 8], [2, 4, 2, 4], [16, 16, 16])
+
+
+def _dead_batch_grads_are_zero(p, q, ranks):
     rfull, D, cores, ids, rowidx, _, w, _, d_out = make_case(
         p, q, ranks, 8, 2, weights=True)
     gk = tkernel._kernel_cores([torch.as_tensor(c) for c in cores], p, q,
@@ -149,10 +170,14 @@ def test_pivot_schedule_dead_lookups_add_nothing():
     ([4, 4, 4], [64, 64], "pivot"),           # rank 64: 64 KB slab
     ([2, 4, 2], [16, 8], "pivot"),            # q_0 not a multiple of 4
     ([2, 4, 2], [12, 8], "chain"),            # r_1 not a multiple of 16
-    ([4, 4, 4, 4], [32, 32, 32], "chain"),    # tt_ndim 4
+    ([4, 4, 4, 4], [32, 32, 32], "pivot"),    # tt_ndim 4: two passes
     ([4, 8, 4], [64, 64], "chain"),           # a 128 KB slab: not staged
     ([4, 4, 4], [30, 30], "chain"),           # ranks not multiples of 4
     ([4, 4, 4], [256, 256], None),            # one lookup does not fit
+    ([2, 4, 2, 4], [32, 32, 32], "pivot"),    # the billion-row model
+    ([2, 2, 2, 2], [16, 16, 16], "pivot"),    # tt_ndim 4, ranks 16
+    ([2, 2, 2, 2], [8, 8, 8], "chain"),       # tt_ndim 4, ranks not of 16
+    ([4, 4, 4, 4], [32, 32, 10], "chain"),    # the tail's r_3 not of 4
 ])
 def test_bwd_path_choice(q, ranks, want):
     r = tkernel.full_ranks(q, ranks)
@@ -180,6 +205,9 @@ def test_partial_floats():
         (2 + n) * t for n, t in zip(rows, tiles))
     assert tbwd.partial_floats(True, 128, rows, tiles, 64, 40) == (
         (4 + 5) * 8 + (4 + 7) * 64 + (4 + 9) * 128)
+    # tt_ndim 4: both middle cores take tiles by chunks of `sub` rows
+    assert tbwd.core_chunks(True, 4, 64, 40) == [tbwd.END_CHUNK, 40, 40,
+                                                 tbwd.END_CHUNK]
 
 
 def test_pivot_sub_fills_one_wave():
@@ -193,4 +221,5 @@ def test_pivot_sub_fills_one_wave():
     assert sub(10240, [4, 4, 4], r) == 39
     assert sub(10240, [4, 4, 4], [1, 64, 64, 1]) == 78
     assert sub(10240, [8, 8], [1, 32, 1]) == 39
+    assert sub(10240, [2, 4, 2, 4], [1, 32, 32, 32, 1]) == 39
     assert sub(64, [4, 4, 4], r) == 1

@@ -7,11 +7,14 @@
   bag's rows added in bag order; dead lookups never visited), against
   ``tt_fwd_plain`` and against the Pallas kernel ``tt_forward_pallas`` in
   interpret mode, rtol = atol = 1e-5, on the tt_ndim-2 and -3 cases of
-  ``test_torch_port_generic.py`` and a Zipf batch with a hot row, at the
-  kernel's groups and at small groups and shares that cut every span;
-- the path query ``fwd_path``: the pivot pass at tt_ndim 2 and 3 where
-  core 1's slab stages, the chain pass at tt_ndim 4 and where it does not,
-  neither where one lookup does not fit;
+  ``test_torch_port_generic.py``, a Zipf batch with a hot row, and
+  tt_ndim-4 cases (ranks 16: uniform, Zipf, weights, two tables, a
+  live-count tail; the head pass's ``z_1`` by lookup, then the tail pass
+  over core 2's order), at the kernel's groups and at small groups and
+  shares that cut every span;
+- the path query ``fwd_path``: the pivot path where the middle cores'
+  slabs stage (at tt_ndim 4 both passes), the chain pass where they do
+  not, neither where one lookup does not fit;
 - core 1's sorted order (``core1_order``, the one-core ``core_order``)
   against ``core_orders``' row for core 1, and the backward taking the
   forward's: the same gradients, and the ``impl="pallas"`` step sorting
@@ -56,6 +59,19 @@ CASES = [
          live=21),
     dict(p=[20, 22, 25], q=[4, 4, 4], ranks=[8, 8], b=16, L=8, zipf=True),
 ]
+# tt_ndim 4 at ranks 16 (B5's pivot rule takes them too)
+CASES4 = [
+    dict(p=[5, 6, 7, 8], q=[2, 4, 2, 4], ranks=[16, 16, 16], b=16, L=3),
+    dict(p=[5, 6, 7, 8], q=[2, 4, 2, 4], ranks=[16, 16, 16], b=16, L=8,
+         zipf=True),
+    dict(p=[8, 9, 10, 11], q=[2, 2, 2, 2], ranks=[16, 16, 16], b=8, L=3,
+         weights=True),
+    dict(p=[4, 5, 6, 7], q=[2, 2, 2, 2], ranks=[16, 16, 16], b=8, L=2, T=2,
+         weights=True),
+    dict(p=[5, 6, 7, 8], q=[2, 4, 2, 4], ranks=[16, 16, 16], b=16, L=3,
+         weights=True, live=29),
+]
+CASES += CASES4
 # (group, rows per CTA, slabs): the kernel's, and small groups and shares
 # that cut every span, one span a group
 SCHEDULES = [(None, None, None), (3, 5, 1)]
@@ -157,10 +173,27 @@ def test_pivot_schedule_dead_lookups_add_nothing():
 
 
 def test_pivot_schedule_rejects_tt_ndim_4():
+    """The schedule rejects what chain_dims rejects: tt_ndim 4 runs its two
+    passes and matches the plain forward; tt_ndim 5 raises ValueError."""
     p, q, rfull, T, b, D, raw, args = _kernel_args(
         dict(p=[8, 9, 10, 11], q=[2, 2, 2, 2], ranks=[8, 8, 8], b=16, L=2))
-    with pytest.raises(ValueError):
-        tt_fwd_pivot_plain(*args)
+    np.testing.assert_allclose(tt_fwd_pivot_plain(*args).numpy(),
+                               tt_fwd_plain(*args).numpy(), **TOL)
+    gk, idx = args[0], args[1]
+    with pytest.raises(ValueError, match="tt_ndim 2-4"):
+        tt_fwd_pivot_plain(list(gk) + [gk[-1]], torch.cat([idx, idx[:1]]),
+                           *args[2:])
+
+
+def test_pivot_schedule_dead_lookups_add_nothing_tt_ndim_4():
+    """At tt_ndim 4 a batch of dead lookups pools exact zeros: neither pass
+    visits them, and no z_1 row is read."""
+    p, q, rfull, T, b, D, raw, args = _kernel_args(
+        dict(p=[5, 6, 7, 8], q=[2, 4, 2, 4], ranks=[16, 16, 16], b=8, L=2,
+             weights=True, live=0))
+    assert bool((args[2] < 0).all())
+    got = tt_fwd_pivot_plain(*args, lc=4)
+    assert got.shape == (b, D) and bool((got == 0).all())
 
 
 @pytest.mark.parametrize("q, ranks, want", [
@@ -171,9 +204,13 @@ def test_pivot_schedule_rejects_tt_ndim_4():
     ([2, 4, 2], [8, 8], "pivot"),             # q_0 not a multiple of 4
     ([4, 4, 4], [12, 8], "chain"),            # r_1 not a multiple of 8
     ([4, 3, 4], [8, 5], "chain"),             # q_1 r_2 not a multiple of 4
-    ([4, 4, 4, 4], [32, 32, 32], "chain"),    # tt_ndim 4
+    ([4, 4, 4, 4], [32, 32, 32], "pivot"),    # tt_ndim 4: two passes
     ([4, 8, 4], [128, 128], "chain"),         # a 514 KB slab: not staged
     ([256, 256], [64], None),                 # one lookup does not fit
+    ([2, 4, 2, 4], [32, 32, 32], "pivot"),    # the billion-row model
+    ([2, 2, 2, 2], [8, 8, 8], "pivot"),       # tt_ndim 4, ranks 8
+    ([4, 4, 4, 4], [12, 8, 8], "chain"),      # the head's r_1 not of 8
+    ([4, 4, 3, 3], [8, 8, 5], "chain"),       # the tail's q_2 r_3 not of 4
 ])
 def test_fwd_path_choice(q, ranks, want):
     r = tkernel.full_ranks(q, ranks)
@@ -232,7 +269,7 @@ def test_core_order_matches_core_orders():
         rowv >= 0).flatten().tolist()
 
 
-@pytest.mark.parametrize("case", [CASES[1], CASES[3], CASES[4]])
+@pytest.mark.parametrize("case", [CASES[1], CASES[3], CASES[4], CASES4[2]])
 def test_backward_takes_the_forward_core1(case):
     """Forward and backward on lookups prepared once, with core 1's order
     built once for both, give what tt_forward_kernel and
@@ -257,11 +294,13 @@ def test_backward_takes_the_forward_core1(case):
 @pytest.mark.parametrize("q, ranks, sorts", [
     ([4, 4, 4], [8, 8], 4),   # by bag, then cores 0, 1, 2
     ([8, 8], [8], 3),         # by bag, then cores 0, 1
+    ([2, 4, 2, 4], [16, 16, 16], 5),  # by bag, then cores 0-3 (1, 2 shared)
 ])
 def test_pallas_step_sorts_once_per_core(q, ranks, sorts, monkeypatch):
-    """The impl="pallas" step's backward takes the forward's core-1 order:
-    one stable sort by bag and one per core."""
-    p = [20, 22, 25][:len(q)]
+    """The impl="pallas" step's backward takes the forward's pivot orders
+    (core 1's; at tt_ndim 4 cores 1 and 2): one stable sort by bag and one
+    per core."""
+    p = [20, 22, 25, 9][:len(q)]
     rfull = [1] + ranks + [1]
     E, D, b, L = int(np.prod(p)), int(np.prod(q)), 8, 3
     rng = np.random.default_rng(5)

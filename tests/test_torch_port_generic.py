@@ -12,6 +12,10 @@
   its entry points expose no ``interpret``), rtol = atol = 2e-4;
 - three SGD and three Adagrad steps of ``make_fused_train_step(impl=
   "pallas")`` against JAX's ``impl="xla"`` step, rtol 1e-4, atol 1e-5;
+- a small tt_ndim-4 model of the billion-row model's widths (q = [2, 4,
+  2, 4], ranks 16: B4's and B5's pivot rules take it): three SGD steps of
+  the ``impl="pallas"`` step without and with LFU counting (a hashed
+  table, uniform and Zipf ids), then its serve, against JAX's, rtol 1e-4;
 - the dense-mode exports and ``tt_{sgd,adagrad}_backward`` against their
   JAX counterparts;
 - the errors: tt_ndim 5, bad dtypes and shapes;
@@ -38,6 +42,7 @@ from fbtt_embedding_tpu.models.tt_embedding import (
 from fbtt_embedding_tpu.models.tt_embedding import (
     make_serving_fn as j_make_serving_fn,
 )
+from fbtt_embedding_tpu.ops import cache as jcache
 from fbtt_embedding_tpu.ops import fused_optim as joptim
 from fbtt_embedding_tpu.ops import lookup as jlookup
 from fbtt_embedding_tpu.ops.indexing import decompose_indices as j_decompose
@@ -68,6 +73,8 @@ from fbtt_embedding_tpu_torch import (
     tt_grads_from_row_cotangents,
     tt_sgd_backward,
 )
+from fbtt_embedding_tpu_torch.ops.kernels import tt_bwd as tbwd
+from fbtt_embedding_tpu_torch.ops.kernels import tt_fwd as tfwd
 from fbtt_embedding_tpu_torch.ops.kernels import tt_kernel as tkernel
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -382,6 +389,65 @@ def test_train_step_pallas_matches_jax(case, optimizer):
                          + list(jparams.optimizer_state)):
             np.testing.assert_allclose(a.numpy(), np.asarray(b_), rtol=1e-4,
                                        atol=1e-5)
+
+
+# the billion-row model's widths at a small E (q = [2, 4, 2, 4], D = 64)
+NDIM4 = dict(p=[5, 6, 7, 8], q=[2, 4, 2, 4], ranks=[16, 16, 16], b=16, L=4)
+
+
+@pytest.mark.parametrize("counting", [False, True])
+@pytest.mark.parametrize("zipf", [False, True])
+def test_tt_ndim4_pallas_step_and_serve_match_jax(counting, zipf):
+    """The tt_ndim-4 impl="pallas" step (fused SGD, with and without LFU
+    counting into a hashed table) and serve against JAX's, rtol 1e-4: on
+    the CPU the kernels' plain versions run, on the path the card's pivot
+    rules give B4 and B5 at these widths."""
+    p, q, b, L = NDIM4["p"], NDIM4["q"], NDIM4["b"], NDIM4["L"]
+    rfull = [1] + NDIM4["ranks"] + [1]
+    assert tfwd.fwd_path(q, rfull)[0] == tbwd.bwd_path(q, rfull)[0] == "pivot"
+    E, D, nnz = int(np.prod(p)), int(np.prod(q)), b * L
+    rng = np.random.default_rng(23)
+    cores = init_tt_cores(rng, "uniform", 1, E, D, p, q, rfull)
+    jstate = tstate = None
+    if counting:  # 256 slots for 1680 ids: a hashed table
+        jstate = jcache.make_cache_state(256, 32, D)
+    jparams = JParams(tuple(jnp.asarray(c) for c in cores), (), jstate)
+    params = params_from_jax(cores, device="cpu", cache=jstate)
+    kw = dict(use_cache=counting)
+    jstep = j_make_step(p, q, rfull, 1, b, impl="xla", **kw)
+    tstep = make_fused_train_step(p, q, rfull, 1, b, impl="pallas",
+                                  device="cpu", **kw)
+    offs = np.arange(0, nnz + 1, L, dtype=np.int32)
+    for _ in range(3):
+        idx = ((rng.zipf(1.05, size=nnz) - 1) % E if zipf
+               else rng.integers(0, E, size=nnz)).astype(np.int32)
+        d_out = rng.normal(size=(1, b, D)).astype(np.float32)
+        jout, jparams = jstep(jparams, jnp.asarray(idx), jnp.asarray(offs),
+                              jnp.asarray(d_out),
+                              (jnp.float32(LR), jnp.float32(EPS)))
+        out, params = tstep(params, idx, offs, d_out, (LR, EPS))
+        np.testing.assert_allclose(out.numpy(), np.asarray(jout), rtol=1e-4,
+                                   atol=1e-5)
+        for a, c in zip(params.tt_cores, jparams.tt_cores):
+            np.testing.assert_allclose(a.numpy(), np.asarray(c), rtol=1e-4,
+                                       atol=1e-5)
+        if counting:
+            tstate = params.cache
+            for f in ("keys", "freq", "slots"):
+                np.testing.assert_array_equal(
+                    getattr(tstate, f).numpy(),
+                    np.asarray(getattr(jparams.cache, f)), err_msg=f)
+    if counting:  # counted (ids past MAX_PROBES of their hash are not)
+        assert 0 < int(tstate.freq.sum()) <= 3 * nnz
+    serve = make_serving_fn(p, q, rfull, 1, b, impl="pallas", device="cpu")
+    jserve = j_make_serving_fn(p, q, rfull, num_tables=1, batch_size=b,
+                               probe_cache=False, impl="xla")
+    got = serve(params_from_jax([c.numpy() for c in params.tt_cores],
+                                device="cpu"), idx, offs)
+    want = jserve(JParams(jparams.tt_cores, (), None), jnp.asarray(idx),
+                  jnp.asarray(offs))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                               atol=1e-5)
 
 
 def _dense_inputs(case):

@@ -516,8 +516,11 @@ def device_ms(fn, n=20):
             mhz = sm_clock_mhz()
             torch.cuda.synchronize()
             pad()
+        # device work only: the program's spans come back as device-side
+        # annotations too
         cuda = [ev for ev in prof.events()
-                if ev.device_type == DeviceType.CUDA]
+                if ev.device_type == DeviceType.CUDA
+                and not getattr(ev, "is_user_annotation", False)]
         spins = sorted((ev.time_range for ev in cuda
                         if "spin_kernel" in ev.name), key=lambda r: r.start)
         per, count = {}, {}
@@ -988,11 +991,10 @@ def generic4_phase(fbt, card, wrappers):
     import torch
 
     def zero_counts():
-        for fn in wrappers.values():
-            fn.launches = 0
+        zero_launches()
 
     def counts():
-        return {name: fn.launches for name, fn in wrappers.items()}
+        return {name: kernel_launches(name) for name in wrappers}
 
     def clone(prm):
         return fbt.TTEmbeddingParams(
@@ -1130,11 +1132,10 @@ def folded_phase(fbt, card, wrappers, params, serve, cache, cserve,
     b1 = {**dict.fromkeys(wrappers, 0), "seg_transform": 1}
 
     def zero_counts():
-        for fn in wrappers.values():
-            fn.launches = 0
+        zero_launches()
 
     def counts():
-        return {name: fn.launches for name, fn in wrappers.items()}
+        return {name: kernel_launches(name) for name in wrappers}
 
     def held(label, out, ref, tol, b=B, what="plain f32"):
         if out.shape != (1, b, D) or not torch.isfinite(out).all():
@@ -1355,6 +1356,21 @@ def folded_phase(fbt, card, wrappers, params, serve, cache, cserve,
     return launches[None], launches["int8"]
 
 
+def kernel_launches(name):
+    """Kernel ``name``'s launches so far: the counter
+    ``launches.<name>`` of ``fbtt_embedding_tpu_torch.utils.profiling``."""
+    from fbtt_embedding_tpu_torch.utils import profiling
+
+    return profiling.counter(f"launches.{name}")
+
+
+def zero_launches():
+    """Zero the kernels' launch counters (``profiling.reset``)."""
+    from fbtt_embedding_tpu_torch.utils import profiling
+
+    profiling.reset()
+
+
 def launch_text(c):
     """Nonzero launch counts as ``B1 n B2 n ...``."""
     names = ("B1", "B2", "B3", "B4", "B5", "B6")
@@ -1375,14 +1391,13 @@ def module_call(fbt, wrappers, launches, m, r, bt, fwd_want, bwd_want,
     from fbtt_embedding_tpu_torch.ops.cache import CacheState
 
     def counts():
-        return {name: fn.launches for name, fn in wrappers.items()}
+        return {name: kernel_launches(name) for name in wrappers}
 
     idx, offs, d_out = bt
     old = {k: v.clone() for k, v in m.state_dict().items()}
     r.load_state_dict(old)
     r.warmup = m.warmup
-    for fn in wrappers.values():
-        fn.launches = 0
+    zero_launches()
     with plain_watch() as plains:
         out = m(idx, offs)
         torch.cuda.synchronize()
@@ -1451,11 +1466,10 @@ def module_phase(fbt, card, wrappers, request, fused_step):
     from fbtt_embedding_tpu_torch.ops.kernels import tt_flat
 
     def zero_counts():
-        for fn in wrappers.values():
-            fn.launches = 0
+        zero_launches()
 
     def counts():
-        return {name: fn.launches for name, fn in wrappers.items()}
+        return {name: kernel_launches(name) for name in wrappers}
 
     def want(**kw):
         return want_launches(wrappers, **kw)
@@ -1770,11 +1784,10 @@ def native_wide_phase(fbt, card, wrappers, request, cores, cache,
     import torch
 
     def zero_counts():
-        for fn in wrappers.values():
-            fn.launches = 0
+        zero_launches()
 
     def counts():
-        return {name: fn.launches for name, fn in wrappers.items()}
+        return {name: kernel_launches(name) for name in wrappers}
 
     def want(**kw):
         return want_launches(wrappers, **kw)
@@ -2228,11 +2241,10 @@ def dlrm_tools_phase(fbt, card, wrappers):
     )
 
     def zero_counts():
-        for fn in wrappers.values():
-            fn.launches = 0
+        zero_launches()
 
     def counts():
-        return {name: fn.launches for name, fn in wrappers.items()}
+        return {name: kernel_launches(name) for name in wrappers}
 
     def want(**kw):
         return want_launches(wrappers, **kw)
@@ -2587,11 +2599,10 @@ def knob_phase(fbt, card, wrappers, cores, train_batch, plain_steps):
     t_phase = time.perf_counter()
 
     def zero_counts():
-        for fn in wrappers.values():
-            fn.launches = 0
+        zero_launches()
 
     def counts():
-        return {name: fn.launches for name, fn in wrappers.items()}
+        return {name: kernel_launches(name) for name in wrappers}
 
     def fresh(cache):
         return fbt.TTEmbeddingParams(
@@ -2864,8 +2875,11 @@ def world_device_ms(fn, n=10, pad=WORLD_PAD_CALLS):
             for _ in range(pad):
                 fn()
             torch.cuda.synchronize()
+        # device work only: the program's spans come back as device-side
+        # annotations too
         cuda = [ev for ev in prof.events()
-                if ev.device_type == DeviceType.CUDA]
+                if ev.device_type == DeviceType.CUDA
+                and not getattr(ev, "is_user_annotation", False)]
         spins = sorted((ev.time_range for ev in cuda
                         if "spin_kernel" in ev.name), key=lambda r: r.start)
         flag = torch.tensor([int(len(spins) == 2)], device="cuda")
@@ -2964,11 +2978,10 @@ def multi_child(spec):
                 "tt_fwd": tt_fwd, "tt_bwd": tt_bwd}
 
     def zero_counts():
-        for fn in wrappers.values():
-            fn.launches = 0
+        zero_launches()
 
     def counts():
-        return {name: fn.launches for name, fn in wrappers.items()}
+        return {name: kernel_launches(name) for name in wrappers}
 
     fbt.initialize_distributed(init, world, rank, backend=backend,
                                device="cuda", timeout_s=300)
@@ -3675,11 +3688,10 @@ def main():
                 "tt_fwd": tt_fwd, "tt_bwd": tt_bwd}
 
     def zero_counts():
-        for fn in wrappers.values():
-            fn.launches = 0
+        zero_launches()
 
     def counts():
-        return {name: fn.launches for name, fn in wrappers.items()}
+        return {name: kernel_launches(name) for name in wrappers}
 
     # 1. device
     card = card_line()
@@ -4052,13 +4064,13 @@ def main():
     outs = []
     zero_counts()
     for b, _, idx, offs in requests:
-        before = seg_transform.launches
+        before = kernel_launches("seg_transform")
         out = (serve if b == B else serve_big)(params, idx, offs)
         outs.append(out)
         want = 2 if b == B else 1
-        if seg_transform.launches - before != want:
-            fail(f"B={b}: {seg_transform.launches - before} kernel launches,"
-                 f" expected {want}")
+        got = kernel_launches("seg_transform") - before
+        if got != want:
+            fail(f"B={b}: {got} kernel launches, expected {want}")
     torch.cuda.synchronize()
     serve_launches = counts()
     for (b, zipf, idx, offs), out in zip(requests, outs):
@@ -4131,9 +4143,9 @@ def main():
     zero_counts()
     couts = []
     for idx, offs in creqs:
-        before = seg_transform.launches
+        before = kernel_launches("seg_transform")
         couts.append(cserve(cprm, idx, offs))
-        if seg_transform.launches - before != 2:
+        if kernel_launches("seg_transform") - before != 2:
             fail("cached serve: B1 not twice per request")
     torch.cuda.synchronize()
     cserve_launches = counts()

@@ -39,8 +39,9 @@ with ``csr_step_adapter``, the table-owned step
 ``pad_csr_to_fixed``);
 the tooling: ``utils.checkpoint`` (``save`` / ``restore``, npz files in
 the JAX package's leaf order), ``utils.guard`` (``finite_flag``,
-``assert_finite``, ``guard_step``), ``utils.profiling`` (``trace``,
-``tt_flops``, ``slope_time``, ``speed_of_light``) and the benchmark CLI
+``assert_finite``, ``guard_step``), ``utils.profiling`` (``trace``, the
+layer spans and counters read by ``span_totals``, ``tt_flops``,
+``slope_time``, ``speed_of_light``) and the benchmark CLI
 ``python -m fbtt_embedding_tpu_torch.benchmark``. Also the
 dense-mode functions (``tt_forward``, ``tt_dense_backward``,
 ``tt_sgd_backward``, ...), ``tt_embedding_forward``, ``tt_matrix_to_full``

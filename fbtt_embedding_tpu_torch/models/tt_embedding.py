@@ -69,7 +69,7 @@ from fbtt_embedding_tpu_torch.ops.lookup import (
     staging_dtype,
     unpad_flat_output,
 )
-from fbtt_embedding_tpu_torch.utils import knobs
+from fbtt_embedding_tpu_torch.utils import knobs, profiling
 from fbtt_embedding_tpu_torch.utils.decompose import tt_decompose
 from fbtt_embedding_tpu_torch.utils.init import init_tt_cores
 from fbtt_embedding_tpu_torch.utils.shapes import suggested_tt_shapes
@@ -182,6 +182,7 @@ def _native_semantics(optim_semantics: str) -> bool:
     return optim_semantics == "native"
 
 
+@profiling.annotated("fbtt.pool")
 def _pool_cached_rows(cached_rows, rowidx, tableidx, num_tables, bs):
     """Pool per-lookup cached rows into ``[T, B, D]``: a float32 one-hot
     product up to ``_POOL_ONEHOT_MAX_TB`` pooled rows, as the flat
@@ -209,12 +210,37 @@ def _cached_pool(out, cache, locations, weights, rowidx, tbl, num_tables,
     lookup's weight in one float32 factor."""
     if locations is None:
         return out
-    loc = locations.clamp(min=0).long()
-    cached_w = _masked_weights(locations >= 0, weights)
-    if scale is not None:
-        cached_w = scale[loc] * cached_w
-    rows = cache.weight[loc] * cached_w[:, None]
-    return out + _pool_cached_rows(rows, rowidx, tbl, num_tables, bs)
+    with profiling.annotate("fbtt.cache"):
+        loc = locations.clamp(min=0).long()
+        cached_w = _masked_weights(locations >= 0, weights)
+        if scale is not None:
+            cached_w = scale[loc] * cached_w
+        rows = cache.weight[loc] * cached_w[:, None]
+        return out + _pool_cached_rows(rows, rowidx, tbl, num_tables, bs)
+
+
+def _count_lookups(nnz: int, locations=None, plan=None) -> None:
+    """While spans are on (``profiling.enabled``), the counters
+    ``lookups`` (``nnz``) and, where the call probed the cache
+    (``locations``), ``cache_hits``: the probed lookups less those the TT
+    path serves, read off the flat ``plan`` where the caller holds one (one
+    device operation), else counted from ``locations``."""
+    if not profiling.enabled():
+        return
+    profiling.count("lookups", nnz)
+    if locations is not None:
+        live = (tt_flat.live_lookups(plan) if plan is not None
+                else (locations < 0).sum())
+        profiling.count("cache_hits", nnz, less=live)
+
+
+def _probe(cache: Optional[CacheState], keys):
+    """Each lookup's cache row (-1: not cached) where there is a cache,
+    else None."""
+    if cache is None:
+        return None
+    with profiling.annotate("fbtt.cache"):
+        return cache_ops.cache_lookup(cache, keys)
 
 
 def make_serving_fn(
@@ -251,6 +277,7 @@ def make_serving_fn(
     ndim = len(tt_p_shapes)
     device = torch.device(device)
 
+    @profiling.annotated("fbtt.serve")
     def serve(params: TTEmbeddingParams, indices, offsets, weights=None, *,
               bs: int = batch_size):
         cache = params.cache if probe_cache else None
@@ -267,8 +294,8 @@ def make_serving_fn(
             nnz = indices.shape[0]
         rowidx, tableidx = rowidx_from_offsets(offsets, nnz, num_tables, bs)
         tbl = tableidx if num_tables > 1 else None
-        locations = (cache_ops.cache_lookup(cache, keys)
-                     if cache is not None else None)
+        locations = _probe(cache, keys)
+        _count_lookups(nnz, locations)
         dead, w_p = None, weights
         if locations is not None:
             if impl in ("auto", "pallas_sorted") and flat_servable(
@@ -427,6 +454,7 @@ def make_folded_serving_fn(
         return FoldedServingParams(setup=setup, cache=cache,
                                    cache_scale=cache_scale)
 
+    @profiling.annotated("fbtt.serve")
     def serve(fp: FoldedServingParams, indices, offsets, weights=None, *,
               bs: Optional[int] = None):
         if fp.setup is None:
@@ -450,12 +478,12 @@ def make_folded_serving_fn(
         rowidx, tableidx = rowidx_from_offsets(offsets, nnz, num_tables,
                                                bcall)
         tbl = tableidx if num_tables > 1 else None
-        locations = (cache_ops.cache_lookup(cache, keys)
-                     if cache is not None else None)
+        locations = _probe(cache, keys)
         dead = locations >= 0 if locations is not None else None
         plan, nza = tt_flat._build_plan(
             indices, rowidx, tbl, weights, None, list(p), num_tables, b_eff,
             dead_mask=dead, idx_parts=parts, seg=tt_flat.SEG, pair=pair)
+        _count_lookups(nnz, locations, plan)
         out, _ = tt_flat.flat_lookup_forward(
             None, p, use_q, use_r, b_eff, plan, nza, compute_dtype=cdt,
             seg=tt_flat.SEG, setup=fp.setup, num_tables=num_tables)
@@ -667,6 +695,7 @@ def make_fused_train_step(
     ndim = len(tt_p_shapes)
     device = torch.device(device)
 
+    @profiling.annotated("fbtt.step")
     def step(params: TTEmbeddingParams, indices, offsets, d_output, lr_eps,
              weights=None, *, bs: int = batch_size, count: bool = True):
         if isinstance(indices, (tuple, list)) and (use_cache or probe_cache):
@@ -687,6 +716,7 @@ def make_fused_train_step(
         tbl = tableidx if num_tables > 1 else None
         locations = _count_and_probe(cache, keys, use_cache and count,
                                      probe_cache, count_interval)
+        _count_lookups(nnz, locations)
         output, grads = _forward_backward(
             params.tt_cores, shapes, num_tables, bs, impl, precision, device,
             locations, indices, parts, rowidx, tbl, weights, d_output)
@@ -731,11 +761,12 @@ def _count_and_probe(cache: Optional[CacheState], keys, count: bool,
     """LFU counting of ``keys`` (flat row ids, or wide key rows for a wide
     cache) where ``count`` (in place; each id adds ``scale``), then each
     lookup's cache row (-1 = not cached) where ``probe``, else None."""
-    if cache is None:
+    if cache is None or not (count or probe):
         return None
-    if count:
-        cache_ops.update_cache_state(cache, keys, scale=scale)
-    return cache_ops.cache_lookup(cache, keys) if probe else None
+    with profiling.annotate("fbtt.cache"):
+        if count:
+            cache_ops.update_cache_state(cache, keys, scale=scale)
+        return cache_ops.cache_lookup(cache, keys) if probe else None
 
 
 def _tt_path_inputs(locations, impl: str, shapes, num_tables: int, bs: int,
@@ -802,6 +833,7 @@ def _forward_backward(cores, shapes, num_tables: int, bs: int, impl: str,
     return out.detach(), grads
 
 
+@profiling.annotated("fbtt.optim")
 def _update_cores(optimizer: OptimType, cores, optimizer_state, grads, lr,
                   eps, native: bool = False, hparams: Optional[dict] = None):
     """The fused update of the cores, in place; ``(cores, state)``. The
@@ -815,6 +847,7 @@ def _update_cores(optimizer: OptimType, cores, optimizer_state, grads, lr,
     return adagrad_step(cores, optimizer_state, grads, lr, eps)
 
 
+@profiling.annotated("fbtt.cache")
 def _update_cache_rows(optimizer: OptimType, cache: CacheState, d_output,
                        locations, rowidx, lr, eps, weights):
     """The cache-served lookups' rows, in place, by the reference's update

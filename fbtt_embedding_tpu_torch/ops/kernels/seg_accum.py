@@ -26,7 +26,7 @@ On a CUDA tensor :func:`seg_accum` launches the hand-written kernels of
 ``csrc/seg_accum.cu`` (segment-parallel partial gradient tiles, added per
 span in segment order: no float atomics, bitwise repeatable) or raises. On
 a CPU tensor it runs :func:`seg_accum_plain`, the same contract in plain
-PyTorch. Launches are counted in ``seg_accum.launches``.
+PyTorch. Launches are counted in ``profiling``'s ``launches.seg_accum``.
 
 Widths the kernels take, after folding (``kx = bw_x/mm``, ``ky =
 bw_y/mm``; every dense width a multiple of 8 up to 2048): ``kx`` a
@@ -46,6 +46,8 @@ import ctypes
 from typing import Optional
 
 import torch
+
+from fbtt_embedding_tpu_torch.utils import profiling
 
 _DTYPES = (torch.float32, torch.bfloat16)
 # the CUDA-core path stages slabs in 64 KB float chunks of at least 8 rows
@@ -230,11 +232,9 @@ def seg_accum(runs, first, cnt, x, y, table, *, blocks, bw_x, bw_y, p_rows,
     if err != 0:
         raise RuntimeError("seg_accum launch failed: "
                            + lib.fbtt_error_string(err).decode())
-    seg_accum.launches += 1
+    profiling.count("launches.seg_accum")
     return diag_block_sum(acc, mm // fold), z
 
-
-seg_accum.launches = 0
 
 
 def _lib():

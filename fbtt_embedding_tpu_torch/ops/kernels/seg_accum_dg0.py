@@ -19,9 +19,9 @@ On a CUDA tensor :func:`seg_accum_dg0` launches the hand-written kernels of
 a fixed order: no float atomics, bitwise repeatable) or raises. On a CPU
 tensor it runs :func:`seg_accum_dg0_plain`: B3's plain version and the
 float32 one-hot product of the port's ``_dg0``. Launches are counted in
-``seg_accum_dg0.launches`` (one per call, whatever the kernel's own launch
-count). :func:`seg_accum_dg0_sched_plain` models the kernels' schedule in
-plain PyTorch, for the tests.
+``profiling``'s ``launches.seg_accum_dg0`` (one per call, whatever the
+kernel's own launch count). :func:`seg_accum_dg0_sched_plain` models the
+kernels' schedule in plain PyTorch, for the tests.
 
 The kernel's first pass takes one of three paths (:func:`dg0_path`, the
 rule of the library's ``fbtt_seg_accum_dg0_path``): in bfloat16 with
@@ -47,6 +47,7 @@ from fbtt_embedding_tpu_torch.ops.kernels.seg_accum import (
     seg_accum_plain,
     span_of_rows,
 )
+from fbtt_embedding_tpu_torch.utils import profiling
 
 # what each value of the library's path query means
 PATH_NAMES = {2: "tensor cores, dz0 over y", 1: "tensor cores, dz0 tile",
@@ -247,11 +248,9 @@ def seg_accum_dg0(runs, first, cnt, x, y, i0c, table, *, blocks, bw_x, bw_y,
     if err != 0:
         raise RuntimeError("seg_accum_dg0 launch failed: "
                            + lib.fbtt_error_string(err).decode())
-    seg_accum_dg0.launches += 1
+    profiling.count("launches.seg_accum_dg0")
     return acc, dg0
 
-
-seg_accum_dg0.launches = 0
 
 
 def _lib():

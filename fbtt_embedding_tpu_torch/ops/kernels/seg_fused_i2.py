@@ -22,7 +22,7 @@ On a CUDA tensor :func:`seg_fused_i2` launches the hand-written kernels of
 product fused in; the widths it takes are ``seg_accum``'s, without the
 tensor-core path) or raises. On a CPU tensor it runs
 :func:`seg_fused_i2_plain`. Launches are counted in
-``seg_fused_i2.launches``.
+``profiling``'s ``launches.seg_fused_i2``.
 """
 
 from __future__ import annotations
@@ -40,6 +40,7 @@ from fbtt_embedding_tpu_torch.ops.kernels.seg_accum import (
     span_of_rows,
     span_outer_sum,
 )
+from fbtt_embedding_tpu_torch.utils import profiling
 
 
 def seg_fused_i2_plain(runs, first, cnt, x, y, table, *, blocks, bw_x, bw_y,
@@ -101,11 +102,9 @@ def seg_fused_i2(runs, first, cnt, x, y, table, *, blocks, bw_x, bw_y,
     if err != 0:
         raise RuntimeError("seg_fused_i2 launch failed: "
                            + lib.fbtt_error_string(err).decode())
-    seg_fused_i2.launches += 1
+    profiling.count("launches.seg_fused_i2")
     return diag_block_sum(acc, mm // fold), z, rows
 
-
-seg_fused_i2.launches = 0
 
 
 def _lib():

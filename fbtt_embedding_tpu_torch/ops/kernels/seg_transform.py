@@ -21,11 +21,11 @@ as unfolded. Widths that are not multiples of ``mm`` raise.
 On a CUDA tensor :func:`seg_transform` launches the hand-written kernels of
 ``csrc/seg_transform.cu`` or raises; on a CPU tensor it runs
 :func:`seg_transform_plain`, the same contract in plain PyTorch. Launches
-are counted in ``seg_transform.launches``. The pass is memory-bound on the
-H100 (x read once, y written once; the headline first-core pass moves ~13
-MB in bfloat16, ~4 us at 3.35 TB/s, and does ~25 FLOP per byte, above the
-CUDA cores' ridge). Paths, after folding (``kx = bw_in/mm``, ``ky =
-bw_out/mm``; every dense width a multiple of 8):
+are counted in ``profiling``'s ``launches.seg_transform``. The pass is
+memory-bound on the H100 (x read once, y written once; the headline
+first-core pass moves ~13 MB in bfloat16, ~4 us at 3.35 TB/s, and does ~25
+FLOP per byte, above the CUDA cores' ridge). Paths, after folding (``kx =
+bw_in/mm``, ``ky = bw_out/mm``; every dense width a multiple of 8):
 
 - tensor cores (bfloat16 x and table; ``kx`` a multiple of 16, ``ky`` a
   multiple of 8 above 8): one CTA per 32-row chunk of a segment runs
@@ -56,6 +56,7 @@ from fbtt_embedding_tpu_torch.ops.kernels.seg_accum import (
     folded_slabs,
     span_of_rows,
 )
+from fbtt_embedding_tpu_torch.utils import profiling
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -155,11 +156,9 @@ def seg_transform(runs, first, cnt, x, table, *, blocks, bw_in, bw_out,
         raise RuntimeError(
             "seg_transform launch failed: "
             + lib.fbtt_error_string(err).decode())
-    seg_transform.launches += 1
+    profiling.count("launches.seg_transform")
     return y
 
-
-seg_transform.launches = 0
 
 
 def _lib():

@@ -32,7 +32,7 @@ pass over core 1's order takes its ``dz_1`` from there. The chain pass
 multiples of 16) runs each lookup's chain once per core. Both write one
 partial gradient tile per (chunk of a core's order, span), added per core
 row in chunk order: no float atomics, bitwise repeatable. One count in
-``tt_bwd.launches`` per call. On a CPU tensor it runs
+``profiling``'s ``launches.tt_bwd`` per call. On a CPU tensor it runs
 :func:`tt_bwd_plain`, which ignores the schedule; :func:`tt_bwd_pivot_plain`
 follows the pivot path's schedule step by step (for the tests).
 """
@@ -62,6 +62,7 @@ from fbtt_embedding_tpu_torch.ops.kernels.tt_fwd import (
     pivot_sub,
     state_floats,
 )
+from fbtt_embedding_tpu_torch.utils import profiling
 
 
 # the pivot pass's rule in Python, for code that runs on the CPU (the
@@ -396,7 +397,7 @@ def tt_bwd(gk, idx, rowv, weights, dout, orders, runs, first, cnt, *, seg):
         stream = torch.cuda.current_stream(dev).cuda_stream
         grads = _launch(gk, idx, rowv, weights, dout, orders, runs, first,
                         cnt, seg, stream)
-    tt_bwd.launches += 1
+    profiling.count("launches.tt_bwd")
     return grads
 
 
@@ -457,8 +458,6 @@ def _launch(gk, idx, rowv, weights, dout, orders, runs, first, cnt, seg,
     return tuple(t.reshape(rows[i], tiles[i]) for i, t in enumerate(
         flat.split([rows[i] * tiles[i] for i in range(ndim)])))
 
-
-tt_bwd.launches = 0
 
 
 def _lib():

@@ -91,7 +91,7 @@ from fbtt_embedding_tpu_torch.ops.kernels.tt_kernel import (
     kernel_core_layouts,
     segment_spans,
 )
-from fbtt_embedding_tpu_torch.utils import knobs
+from fbtt_embedding_tpu_torch.utils import knobs, profiling
 
 SEG = 64  # lookups per segment: one CTA of the transform kernel each
 # empty spans appended to every span table (and zero slabs to every pass
@@ -210,6 +210,14 @@ def _span_table(key_sorted: torch.Tensor, p_rows: int, nseg: int, seg=SEG):
     return (runs,) + segment_spans(runs, nseg, seg)
 
 
+def live_lookups(plan: FlatPlan) -> torch.Tensor:
+    """The plan's live lookups (real and not dead) as a 0-d int32 device
+    tensor, a view: the start of the last pass's sentinel span, into which
+    dead and pad lookups sort."""
+    runs = plan.runs[-1]
+    return runs[runs.shape[0] - 1 - SPAN_BLOCK]
+
+
 def _invert_perm(perm: torch.Tensor) -> torch.Tensor:
     """Inverse permutation by one scatter."""
     inv = torch.empty_like(perm)
@@ -231,6 +239,7 @@ def _pad(a: torch.Tensor, n: int, value) -> torch.Tensor:
                                     device=a.device)])
 
 
+@profiling.annotated("fbtt.plan")
 def _build_plan(indices, rowidx, tableidx, weights, live_count, tt_p_shapes,
                 num_tables, batch_size, dead_mask=None, idx_parts=None,
                 seg=SEG, pair=False):
@@ -377,6 +386,7 @@ def _extract_bd_grad(dgbd: torch.Tensor, mm: int, r_t: int, w_t: int):
     return diag_block_sum(dgbd, mm)
 
 
+@profiling.annotated("fbtt.pool")
 def _pool_flat(rows: torch.Tensor, plan: FlatPlan, tb: int, dt):
     """Pool per-lookup rows (last sort space) into float32 ``[tb, d]``: a
     one-hot product for small batches, the deterministic ``segment_sum``
@@ -494,6 +504,7 @@ def _z0(plan: FlatPlan, g0f: torch.Tensor, tp0: int) -> torch.Tensor:
     return g0f[_i0c(plan, tp0).long()]
 
 
+@profiling.annotated("fbtt.pool")
 def _row_cotangents(d_output, plan: FlatPlan, tb: int, d: int, dt):
     """Per-lookup cotangents in the last sort space, ``[nza, D]`` in the
     staging dtype and weighted; pad rows gather an appended zero row."""
@@ -597,20 +608,20 @@ def flat_lookup_forward(cores, tt_p_shapes, tt_q_shapes, tt_ranks,
     tb = t * batch_size
     d = int(np.prod(q))
     dt = compute_dtype
-    if setup is None:
-        g0f, gk, tables, widths = _flat_setup(cores, p, q, r, dt)
-        g01f = None
-    else:
-        (g0f, g01f, tables), gk = setup, None
-        widths = _bd_widths(list(q), list(r))
-
-    stages = _pass_inputs(plan, g0f, gk, tables, widths, p, q, r, t, dt,
-                          seg, g01f=g01f)
-    mm, bw_in, bw_out = widths[-1]
-    state = seg_transform(
-        plan.runs[-1], plan.first[-1], plan.cnt[-1], stages[-1], tables[-1],
-        blocks=q[0], bw_in=bw_in, bw_out=bw_out, p_rows=t * p[-1], seg=seg,
-        out_dtype=dt, mm=mm)
+    with profiling.annotate("fbtt.fwd"):
+        if setup is None:
+            g0f, gk, tables, widths = _flat_setup(cores, p, q, r, dt)
+            g01f = None
+        else:
+            (g0f, g01f, tables), gk = setup, None
+            widths = _bd_widths(list(q), list(r))
+        stages = _pass_inputs(plan, g0f, gk, tables, widths, p, q, r, t, dt,
+                              seg, g01f=g01f)
+        mm, bw_in, bw_out = widths[-1]
+        state = seg_transform(
+            plan.runs[-1], plan.first[-1], plan.cnt[-1], stages[-1],
+            tables[-1], blocks=q[0], bw_in=bw_in, bw_out=bw_out,
+            p_rows=t * p[-1], seg=seg, out_dtype=dt, mm=mm)
     out = _pool_flat(state, plan, tb, dt)
     return out.reshape(t, batch_size, d), tuple(stages)
 
@@ -627,13 +638,13 @@ def flat_lookup_backward(cores, tt_p_shapes, tt_q_shapes, tt_ranks,
     t = cores[0].shape[0]
     d = int(np.prod(q))
     dt = compute_dtype
-    g0f, _, tables, widths = _flat_setup(cores, p, q, r, dt)
-
-    dz = _row_cotangents(d_output, plan, t * batch_size, d, dt)
-    dgs = [None] * ndim
-    _grad_passes(plan, stages, dz, ndim - 1, g0f, tables, widths, p, q, r, t,
-                 dt, seg, dgs)
-    return grads_to_module_layout(dgs, p, q, r, t)
+    with profiling.annotate("fbtt.bwd"):
+        g0f, _, tables, widths = _flat_setup(cores, p, q, r, dt)
+        dz = _row_cotangents(d_output, plan, t * batch_size, d, dt)
+        dgs = [None] * ndim
+        _grad_passes(plan, stages, dz, ndim - 1, g0f, tables, widths, p, q,
+                     r, t, dt, seg, dgs)
+        return grads_to_module_layout(dgs, p, q, r, t)
 
 
 def _lookup_plan(indices, rowidx, tableidx, weights, live, p, q, r,
@@ -721,21 +732,26 @@ def flat_train_apply(cores, tt_p_shapes, tt_q_shapes, tt_ranks, batch_size,
         indices if idx_parts is None else idx_parts, rowidx, tableidx,
         weights, dead_mask, p, q, r, t, batch_size, dt, True,
         idx_parts is not None)
-    g0f, gk, tables, widths = _flat_setup(cores, p, q, r, dt)
-    stages = _pass_inputs(plan, g0f, gk, tables, widths, p, q, r, t, dt, seg)
+    with profiling.annotate("fbtt.fwd"):
+        g0f, gk, tables, widths = _flat_setup(cores, p, q, r, dt)
+        stages = _pass_inputs(plan, g0f, gk, tables, widths, p, q, r, t, dt,
+                              seg)
 
-    dz = _row_cotangents(d_output, plan, tb, d, dt)
-    li = ndim - 1
-    mm, bw_in, bw_out = widths[li - 1]
-    dgs = [None] * ndim
-    dgs[li], dz, rows = seg_fused_i2(
-        plan.runs[li - 1], plan.first[li - 1], plan.cnt[li - 1],
-        stages[li - 1], dz, tables[li - 1], blocks=q[0], bw_x=bw_in,
-        bw_y=bw_out, p_rows=t * p[li], seg=seg, mm=mm)
-    out = _pool_flat(rows, plan, tb, dt).reshape(t, batch_size, d)
+    # the last pass (B2) is forward and backward at once: a backward span,
+    # the pooling of its rows a pool span inside it
+    with profiling.annotate("fbtt.bwd"):
+        dz = _row_cotangents(d_output, plan, tb, d, dt)
+        li = ndim - 1
+        mm, bw_in, bw_out = widths[li - 1]
+        dgs = [None] * ndim
+        dgs[li], dz, rows = seg_fused_i2(
+            plan.runs[li - 1], plan.first[li - 1], plan.cnt[li - 1],
+            stages[li - 1], dz, tables[li - 1], blocks=q[0], bw_x=bw_in,
+            bw_y=bw_out, p_rows=t * p[li], seg=seg, mm=mm)
+        out = _pool_flat(rows, plan, tb, dt).reshape(t, batch_size, d)
 
-    if li > 1:
-        dz = dz[plan.perm_bwd[li - 2].long()]  # s_li -> s_li-1
-    _grad_passes(plan, stages, dz, li - 1, g0f, tables, widths, p, q, r, t,
-                 dt, seg, dgs)
-    return out, grads_to_module_layout(dgs, p, q, r, t)
+        if li > 1:
+            dz = dz[plan.perm_bwd[li - 2].long()]  # s_li -> s_li-1
+        _grad_passes(plan, stages, dz, li - 1, g0f, tables, widths, p, q, r,
+                     t, dt, seg, dgs)
+        return out, grads_to_module_layout(dgs, p, q, r, t)

@@ -37,7 +37,7 @@ output row is written once, no atomics: bitwise repeatable. On a CPU
 tensor it runs :func:`tt_fwd_plain`, which derives the bags from ``rowv``
 and ignores ``order`` / ``starts`` / ``core1``; :func:`tt_fwd_pivot_plain`
 follows the pivot path's schedule step by step (for the tests). Launches
-are counted in ``tt_fwd.launches``, one per call.
+are counted in ``profiling``'s ``launches.tt_fwd``, one per call.
 """
 
 from __future__ import annotations
@@ -48,6 +48,8 @@ import math
 from typing import Optional, Sequence, Tuple
 
 import torch
+
+from fbtt_embedding_tpu_torch.utils import profiling
 
 # the kernel picks its chunk of lookups within this much shared memory and
 # takes one lookup at a time up to _SMEM_MAX (B2 and B3's limit)
@@ -582,11 +584,9 @@ def tt_fwd(gk, idx, rowv, weights, order, starts, *, core1=None):
     if err != 0:
         raise RuntimeError("tt_fwd launch failed: "
                            + lib.fbtt_error_string(err).decode())
-    tt_fwd.launches += 1
+    profiling.count("launches.tt_fwd")
     return out
 
-
-tt_fwd.launches = 0
 
 
 def _lib():

@@ -33,6 +33,7 @@ import torch
 
 from fbtt_embedding_tpu_torch.ops.kernels.tt_bwd import bwd_chunk, tt_bwd
 from fbtt_embedding_tpu_torch.ops.kernels.tt_fwd import fwd_chunk, tt_fwd
+from fbtt_embedding_tpu_torch.utils import profiling
 
 SEG = 64  # lookups per segment of the backward kernel: one CTA each
 _I32_MAX = 2 ** 31 - 1
@@ -143,6 +144,7 @@ def key_dtype(top: int) -> torch.dtype:
     return torch.int16 if top < 2 ** 15 else torch.int32
 
 
+@profiling.annotated("fbtt.plan")
 def bag_order(rowv: torch.Tensor, tb: int):
     """``(order, starts)`` int32: the lookups grouped by pooled row, each
     bag in lookup order (one stable sort; dead lookups last, in no bag),
@@ -175,6 +177,7 @@ def core_order(key: torch.Tensor, rowv: torch.Tensor, rows_t: int,
     return order.to(torch.int32), runs
 
 
+@profiling.annotated("fbtt.plan")
 def core1_order(idx: torch.Tensor, rowv: torch.Tensor, rows: Sequence[int],
                 seg: int = SEG):
     """The orders of kernel B4's pivot cores, for its pivot path and, in a
@@ -190,6 +193,7 @@ def core1_order(idx: torch.Tensor, rowv: torch.Tensor, rows: Sequence[int],
     return core_order(idx[1], rowv, rows[1], rstride, seg)
 
 
+@profiling.annotated("fbtt.plan")
 def core_orders(idx: torch.Tensor, rowv: torch.Tensor, rows: Sequence[int],
                 seg: int = SEG, core1=None):
     """The backward kernel's schedule: :func:`core_order` of every core t
@@ -219,6 +223,7 @@ def _kernel_cores(tt_cores, p, q, r):
                  for g in kernel_core_layouts(tt_cores, p, q, r))
 
 
+@profiling.annotated("fbtt.fwd")
 def forward_lookups(tt_cores: Sequence[torch.Tensor], tt_p_shapes,
                     tt_q_shapes, tt_ranks, batch_size: int, lookups,
                     core1=None) -> torch.Tensor:
@@ -235,6 +240,7 @@ def forward_lookups(tt_cores: Sequence[torch.Tensor], tt_p_shapes,
     return out.reshape(t, batch_size, math.prod(q))
 
 
+@profiling.annotated("fbtt.bwd")
 def backward_lookups(tt_cores: Sequence[torch.Tensor], tt_p_shapes,
                      tt_q_shapes, tt_ranks, batch_size: int, lookups,
                      d_output: torch.Tensor,

@@ -171,7 +171,9 @@ def _rank(args) -> None:
     kernels = {}
     ops = 0
     for ev in prof.events():
-        if ev.device_type == DeviceType.CUDA:
+        # device work only, not the program's spans' device-side annotations
+        if ev.device_type == DeviceType.CUDA and not getattr(
+                ev, "is_user_annotation", False):
             kernels[ev.name] = (kernels.get(ev.name, 0.0)
                                 + ev.time_range.elapsed_us() / 1e3 / n)
             ops += 1

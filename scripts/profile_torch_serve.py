@@ -15,7 +15,9 @@ the host-clock time per request without the profiler and under it, the
 device time per request summed over all kernels, the device busy share
 (device time over the host time without the profiler), the device
 operations (kernel launches and copies) per request, and the CUDA kernels
-and host operators ranked by time. ``--impl pallas`` profiles the generic
+and host operators ranked by time, then the device time under each of
+the program's layer spans (``fbtt.*``, ``profiling.kernels_by_span``)
+with its kernels. ``--impl pallas`` profiles the generic
 per-lookup serve (kernel B4, float32) in place of the flat pipeline;
 ``--folded`` the weight-folded serve (``make_folded_serving_fn``: the pair
 table gathered, B1 once; ``--quantize`` its int8 fold), the fold made once
@@ -100,8 +102,10 @@ def main():
             host.append((time.perf_counter() - t0) * 1e3)
     card = torch.cuda.get_device_name(0)
     events = prof.key_averages()
+    # device work only, not the program's spans' device-side annotations
     dev = [ev for ev in events
-           if ev.device_type == torch.autograd.DeviceType.CUDA]
+           if ev.device_type == torch.autograd.DeviceType.CUDA
+           and not getattr(ev, "is_user_annotation", False)]
     dev_ms = sum(ev.self_device_time_total for ev in dev) / 1e3 / args.iters
     launches = sum(ev.count for ev in dev) / args.iters
     host_ms, bare_ms = statistics.median(host), statistics.median(bare)
@@ -117,6 +121,10 @@ def main():
           f"(kernel launches and copies); package {Path(fbt.__file__).parent}")
     print(events.table(sort_by="self_device_time_total", row_limit=25))
     print(events.table(sort_by="self_cpu_time_total", row_limit=25))
+    if hasattr(fbt.profiling, "kernels_by_span"):  # older trees: none
+        print(fbt.profiling.by_span_text(
+            fbt.profiling.kernels_by_span(prof.events()), args.iters,
+            "request"))
     if args.trace:
         Path(args.trace).parent.mkdir(parents=True, exist_ok=True)
         prof.export_chrome_trace(args.trace)

@@ -17,7 +17,10 @@ over all kernels, the device busy
 share (device time over the host time without the profiler), the device
 operations per step
 (kernel launches and copies), and the CUDA kernels and host operators
-ranked by time. ``--count`` turns LFU counting on, as the reference
+ranked by time, then the device time under each of the program's
+layer spans (``fbtt.*``, ``profiling.kernels_by_span``) with its
+kernels: the layer that owns each kernel. ``--count`` turns LFU
+counting on, as the reference
 benchmark's step does (``use_cache``; a direct-mode cache with
 ``hashtbl_size`` = E and ``cache_size`` = E / 10). ``--impl pallas``
 profiles the generic per-lookup step (kernels B4 and B5, float32) in place
@@ -118,8 +121,10 @@ def main():
             host.append((time.perf_counter() - t0) * 1e3)
     card = torch.cuda.get_device_name(0)
     events = prof.key_averages()
+    # device work only, not the program's spans' device-side annotations
     dev = [ev for ev in events
-           if ev.device_type == torch.autograd.DeviceType.CUDA]
+           if ev.device_type == torch.autograd.DeviceType.CUDA
+           and not getattr(ev, "is_user_annotation", False)]
     dev_ms = sum(ev.self_device_time_total for ev in dev) / 1e3 / args.iters
     launches = sum(ev.count for ev in dev) / args.iters
     host_ms, bare_ms = statistics.median(host), statistics.median(bare)
@@ -137,6 +142,10 @@ def main():
     print(events.table(sort_by="self_device_time_total", row_limit=30,
                        max_name_column_width=110))
     print(events.table(sort_by="self_cpu_time_total", row_limit=25))
+    if hasattr(fbt.profiling, "kernels_by_span"):  # older trees: none
+        print(fbt.profiling.by_span_text(
+            fbt.profiling.kernels_by_span(prof.events()), args.iters,
+            "step"))
     if args.trace:
         Path(args.trace).parent.mkdir(parents=True, exist_ok=True)
         prof.export_chrome_trace(args.trace)

@@ -36,6 +36,7 @@ from fbtt_embedding_tpu_torch.ops.kernels.seg_accum_dg0 import (
 )
 from fbtt_embedding_tpu_torch.ops.lookup import pooled_tt_lookup as t_lookup
 from fbtt_embedding_tpu_torch.utils import knobs
+from fbtt_embedding_tpu_torch.utils import profiling as tprof
 from test_torch_port_flat import CASES, make_case
 from test_torch_port_train import _d_out, _j, _pass_inputs, _t
 
@@ -100,9 +101,9 @@ def test_seg_accum_dg0_plain_matches_pallas_kernel(shape):
     np.add.at(want, i0c[live], z.numpy()[live])
     np.testing.assert_allclose(dg0.numpy(), want, **TIGHT)
     # the wrapper takes the plain version on the CPU and launches nothing
-    before = seg_accum_dg0.launches
+    before = tprof.counter("launches.seg_accum_dg0")
     acc2, dg02 = seg_accum_dg0(*args, **kw)
-    assert seg_accum_dg0.launches == before
+    assert tprof.counter("launches.seg_accum_dg0") == before
     assert torch.equal(acc, acc2) and torch.equal(dg0, dg02)
 
 

@@ -24,6 +24,7 @@ from fbtt_embedding_tpu_torch.ops.kernels.seg_transform import (
     seg_transform_plain,
 )
 from fbtt_embedding_tpu_torch.ops.lookup import pooled_tt_lookup as t_lookup
+from fbtt_embedding_tpu_torch.utils import profiling as tprof
 from fbtt_embedding_tpu_torch.utils.init import init_tt_cores
 
 # the flat-pipeline cases of the JAX suite (tests/test_flat_pipeline.py)
@@ -174,10 +175,10 @@ def test_seg_transform_plain_matches_pallas_kernel(shape):
     dead = int(truns[p_rows])
     assert not got[dead:].any()  # sentinel rows are exact zeros
     # the wrapper takes the plain version on the CPU and launches nothing
-    before = seg_transform.launches
+    before = tprof.counter("launches.seg_transform")
     got2 = seg_transform(truns, tfirst, tcnt, torch.as_tensor(x),
                          torch.as_tensor(table), **kw)
-    assert seg_transform.launches == before
+    assert tprof.counter("launches.seg_transform") == before
     assert torch.equal(got, got2)
     bf = seg_transform(truns, tfirst, tcnt, torch.as_tensor(x),
                        torch.as_tensor(table), out_dtype=torch.bfloat16, **kw)
@@ -221,9 +222,9 @@ def test_seg_transform_plain_folds_block_diagonal_table(shape, mm):
     # the dense slab (mm = 1) and the wrapper on the CPU agree
     np.testing.assert_allclose(seg_transform_plain(*args, **kw).numpy(),
                                got.numpy(), rtol=1e-5, atol=1e-5)
-    before = seg_transform.launches
+    before = tprof.counter("launches.seg_transform")
     assert torch.equal(seg_transform(*args, mm=mm, **kw), got)
-    assert seg_transform.launches == before
+    assert tprof.counter("launches.seg_transform") == before
 
 
 def test_seg_transform_wrapper_raises_on_a_fold_that_does_not_divide():

@@ -76,6 +76,7 @@ from fbtt_embedding_tpu_torch import (
 from fbtt_embedding_tpu_torch.ops.kernels import tt_bwd as tbwd
 from fbtt_embedding_tpu_torch.ops.kernels import tt_fwd as tfwd
 from fbtt_embedding_tpu_torch.ops.kernels import tt_kernel as tkernel
+from fbtt_embedding_tpu_torch.utils import profiling as tprof
 
 ROOT = Path(__file__).resolve().parents[1]
 FWD_TOL = dict(rtol=1e-5, atol=1e-5)
@@ -169,13 +170,13 @@ def test_tt_fwd_plain_matches_pallas_kernel(case):
     np.testing.assert_allclose(got.reshape(T, b, D).numpy(),
                                np.asarray(want), **FWD_TOL)
     # the wrapper and the host driver take the plain version on the CPU
-    before = tt_fwd.launches
+    before = tprof.counter("launches.tt_fwd")
     assert torch.equal(tt_fwd(gk, idx, rowv, wv, order, starts), got)
     drv = tt_forward_kernel(
         [torch.as_tensor(c) for c in cores], p, q, rfull, b,
         decompose_indices(torch.as_tensor(idx_np), p), _t(rowidx),
         _t(tableidx), _t(w), _t(live))
-    assert tt_fwd.launches == before
+    assert tprof.counter("launches.tt_fwd") == before
     assert torch.equal(drv, got.reshape(T, b, D))
 
 
@@ -199,13 +200,13 @@ def test_tt_bwd_plain_matches_pallas_kernel(case):
     for a, b_ in zip(mod, want):
         assert a.dtype == torch.float32 and a.shape == b_.shape
         np.testing.assert_allclose(a.numpy(), np.asarray(b_), **GRAD_TOL)
-    before = tt_bwd.launches
+    before = tprof.counter("launches.tt_bwd")
     again = tt_bwd(gk, idx, rowv, wv, dout, *sched, seg=tkernel.SEG)
     drv = tt_backward_kernel(
         [torch.as_tensor(c) for c in cores], p, q, rfull, b,
         decompose_indices(torch.as_tensor(idx_np), p), _t(rowidx),
         torch.as_tensor(d_out), _t(tableidx), _t(w), _t(live))
-    assert tt_bwd.launches == before
+    assert tprof.counter("launches.tt_bwd") == before
     assert all(torch.equal(a, c) for a, c in zip(again, got))
     assert all(torch.equal(a, c) for a, c in zip(drv, mod))
 
@@ -340,14 +341,14 @@ def test_serve_pallas_matches_jax(case):
     params = params_from_jax(cores, device="cpu")
     serve = make_serving_fn(p, q, rfull, num_tables=T, batch_size=b,
                             impl="pallas", device="cpu")
-    before = tt_fwd.launches
+    before = tprof.counter("launches.tt_fwd")
     for idx, offs, _, w in batches[:2]:
         want = np.asarray(jserve(jparams, jnp.asarray(idx),
                                  jnp.asarray(offs), _j(w)))
         got = serve(params, idx, offs, w)
         assert got.device.type == "cpu" and got.shape == want.shape
         np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-4)
-    assert tt_fwd.launches == before
+    assert tprof.counter("launches.tt_fwd") == before
 
 
 STEP_CASES = [

@@ -63,6 +63,7 @@ from fbtt_embedding_tpu_torch.ops.kernels.seg_fused_i2 import (
     seg_fused_i2_plain,
 )
 from fbtt_embedding_tpu_torch.ops.lookup import pooled_tt_lookup as t_lookup
+from fbtt_embedding_tpu_torch.utils import profiling as tprof
 from test_torch_port_flat import CASES, KERNEL_SHAPES, make_case
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -148,9 +149,9 @@ def test_seg_accum_plain_matches_pallas_kernel(shape, z_dt):
                                np.asarray(want_z).astype(np.float32), **TIGHT)
     _assert_span_zeros(acc, [z], keys, p_rows)
     # the wrapper takes the plain version on the CPU and launches nothing
-    before = seg_accum.launches
+    before = tprof.counter("launches.seg_accum")
     acc2, z2 = seg_accum(*args, **kw)
-    assert seg_accum.launches == before
+    assert tprof.counter("launches.seg_accum") == before
     assert torch.equal(acc, acc2) and torch.equal(z, z2)
 
 
@@ -179,9 +180,9 @@ def test_seg_fused_i2_plain_matches_pallas_kernel(shape, dt):
                                    np.asarray(want).astype(np.float32),
                                    **TIGHT)
     _assert_span_zeros(acc, [z, rows], keys, p_rows)
-    before = seg_fused_i2.launches
+    before = tprof.counter("launches.seg_fused_i2")
     got = seg_fused_i2(*args, **kw)
-    assert seg_fused_i2.launches == before
+    assert tprof.counter("launches.seg_fused_i2") == before
     assert all(torch.equal(a, b) for a, b in zip((acc, z, rows), got))
 
 
@@ -258,9 +259,9 @@ def test_seg_accum_plain_fold_matches_pallas_kernel(shape, mm):
     np.testing.assert_allclose(acc.numpy(), np.asarray(want_acc), **TIGHT)
     np.testing.assert_allclose(z.numpy(), np.asarray(want_z), **TIGHT)
     _assert_span_zeros(acc, [z], keys, p_rows)
-    before = seg_accum.launches
+    before = tprof.counter("launches.seg_accum")
     acc2, z2 = seg_accum(*args, **kw)
-    assert seg_accum.launches == before
+    assert tprof.counter("launches.seg_accum") == before
     assert torch.equal(acc, acc2) and torch.equal(z, z2)
 
 
@@ -295,9 +296,9 @@ def test_seg_fused_i2_plain_fold_matches_pallas_kernel(shape, mm, dt):
                                    np.asarray(want).astype(np.float32),
                                    **TIGHT)
     _assert_span_zeros(acc, [z, rows], keys, p_rows)
-    before = seg_fused_i2.launches
+    before = tprof.counter("launches.seg_fused_i2")
     got = seg_fused_i2(*args, **kw)
-    assert seg_fused_i2.launches == before
+    assert tprof.counter("launches.seg_fused_i2") == before
     assert all(torch.equal(a, b) for a, b in zip((acc, z, rows), got))
 
 

@@ -82,6 +82,22 @@ CUDA card and ``nvcc``). Phases, each printing its own lines:
    gradients by their cosine >= 0.99); then the pool's device time on
    those shapes, ``segment_sum`` against the parent's ``index_add_``, in
    turns;
+4d. bag_pool: the bag-order pool (``ops/kernels/bag_pool.py``) at the
+   benchmark's serve shape (4096 bags x 20, bf16 rows, ~54% of lookups
+   from a float32 or an int8 cache; weighted once) and training shape
+   (65536 x 20; with a weighted float32 cache once), at widths 36 (not a
+   multiple of 8) and 72 (two column blocks), on CSR offsets with empty
+   bags, bags of 0 to 40 lookups and a start past nnz (one table and two),
+   and on lookups in a random order (the grouping pass): twice, bitwise
+   equal, one launch a call, the kernel and its plain route each within
+   1e-5 of max|ref| of a float64 sum, then its time (CUDA events, device
+   time) beside its byte bound and the plain route's device time
+   (``check_pool_cases``, also ``scripts/check_pool_kernel.py``; the
+   cells' shapes go into the kernels' line); then one launch a request of
+   the bf16 and int8 folds at B=4096 and B=4093 (padded to 4096) and two
+   of ``make_serving_fn`` at B=4096, probing the populated cache (held
+   against the plain float32 serve on a CPU copy), one a fused step at
+   B=512 and at B=2048 (autograd), two a cached step, and no plain route;
 5. train: the same model trains with fused SGD: five steps of B=512 at
    pooling 20 (uniform and Zipf 1.05), one of B=1024 (pair mode) and one
    of B=2048 (nnz 40960: autograd through the flat lookup), then one
@@ -202,7 +218,7 @@ CUDA card and ``nvcc``). Phases, each printing its own lines:
    device ms, device operations and host ms, the device ms split into the
    lookup's forward + backward (``FBTT_PAIR`` unset, pair mode by nza,
    against "0", in turns; its
-   pair-table build, one-hot pool and one-hot dG0 product) and the MLPs
+   pair-table build, bag_pool and one-hot dG0 product) and the MLPs
    with the interaction;
 5e. multi: ``torch.distributed`` worlds on the one card, each rank a
    fresh process (``chip_smoke.py --multi-child ...``; the kernels and the
@@ -306,6 +322,7 @@ KERNELS = {
     "seg_accum_dg0": (CSRC + "seg_accum_dg0.cu", TT_FLAT + ":595"),
     "tt_fwd": (CSRC + "tt_fwd.cu", TT_KERNEL + ":274"),
     "tt_bwd": (CSRC + "tt_bwd.cu", TT_KERNEL + ":400"),
+    "bag_pool": (CSRC + "bag_pool.cu", TT_FLAT + ":1219 (_pool_flat, XLA)"),
 }
 # (q, inner ranks) on which B4's and B5's path rules are asked of the
 # library and of their Python copies: tests/test_torch_port_fwd.py's and
@@ -957,7 +974,7 @@ def plain_watch():
     pkg = "fbtt_embedding_tpu_torch.ops."
     targets = [(pkg + "kernels." + stem, stem + "_plain") for stem in (
         "seg_transform", "seg_fused_i2", "seg_accum", "seg_accum_dg0",
-        "tt_fwd", "tt_bwd")] + [(pkg + "lookup", "tt_forward")]
+        "tt_fwd", "tt_bwd", "bag_pool")] + [(pkg + "lookup", "tt_forward")]
     calls, saved = {}, []
     for mod_name, name in targets:
         mod = importlib.import_module(mod_name)
@@ -1033,7 +1050,7 @@ def generic4_phase(fbt, card, wrappers):
             paths["serve_generic_ndim4"][k] += got[k]
         ref = plain(params, idx, offs)
         label = "zipf1.05" if zipf else "uniform"
-        if got != {**zeros, "tt_fwd": 1} or plains:
+        if launches_differ(got, {**zeros, "tt_fwd": 1}) or plains:
             fail(f"tt_ndim-4 serve {label}: launches {got}, plain versions "
                  f"{plains}; expected tt_fwd 1 and nothing else")
         if out.shape != (1, B, D) or not torch.isfinite(out).all():
@@ -1071,7 +1088,8 @@ def generic4_phase(fbt, card, wrappers):
             ref_out, ref = pstep(clone(old), idx, offs, d_out, (LR, EPS))
             what = (f"tt_ndim-4 step impl='pallas' {'counting ' * counting}"
                     f"{'zipf1.05' if zipf else 'uniform'}")
-            if got != {**zeros, "tt_fwd": 1, "tt_bwd": 1} or plains:
+            if launches_differ(got, {**zeros, "tt_fwd": 1, "tt_bwd": 1}) \
+                    or plains:
                 fail(f"{what}: launches {got}, plain versions {plains}; "
                      "expected tt_fwd 1, tt_bwd 1 and nothing else")
             if out.shape != (1, B, D) or not torch.isfinite(out).all():
@@ -1225,7 +1243,7 @@ def folded_phase(fbt, card, wrappers, params, serve, cache, cserve,
                     before = counts()
                     outs.append(fserve(fp, idx, offs))
                     got = {k: v - before[k] for k, v in counts().items()}
-                    if got != b1:
+                    if launches_differ(got, b1):
                         fail(f"folded quantize={quant}: launches {got} in "
                              "one request, expected B1 once")
             torch.cuda.synchronize()
@@ -1320,7 +1338,7 @@ def folded_phase(fbt, card, wrappers, params, serve, cache, cserve,
     with plain_watch() as plains:
         mout = mserve(mfp, midx, moffs)
         torch.cuda.synchronize()
-    if plains or counts() != b1 or mfp.setup is None or mfp.cache is None:
+    if plains or launches_differ(counts(), b1) or mfp.setup is None or mfp.cache is None:
         fail(f"module freeze_for_serving: launches {counts()}, plain "
              f"versions {plains}, flat mode {mfp.setup is not None}")
     for k in wrappers:
@@ -1372,11 +1390,19 @@ def zero_launches():
 
 
 def launch_text(c):
-    """Nonzero launch counts as ``B1 n B2 n ...``."""
-    names = ("B1", "B2", "B3", "B4", "B5", "B6")
+    """Nonzero launch counts as ``B1 n B2 n ... pool n``."""
+    names = ("B1", "B2", "B3", "B4", "B5", "B6", "pool")
     return " ".join(f"{n} {c[k]}" for n, k in zip(names, (
         "seg_transform", "seg_fused_i2", "seg_accum", "tt_fwd", "tt_bwd",
-        "seg_accum_dg0")) if c[k])
+        "seg_accum_dg0", "bag_pool")) if c.get(k))
+
+
+def launches_differ(got, want):
+    """Whether launch counts ``got`` and ``want`` differ in B1-B6. Every
+    path reads ``bag_pool``'s launches too, for the kernels' line; phase 4d
+    holds them to one a pooled call."""
+    return any(got.get(k, 0) != want.get(k, 0) for k in KERNELS
+               if k != "bag_pool")
 
 
 def module_call(fbt, wrappers, launches, m, r, bt, fwd_want, bwd_want,
@@ -1409,7 +1435,7 @@ def module_call(fbt, wrappers, launches, m, r, bt, fwd_want, bwd_want,
         launches[k] += fwd[k] + bwd[k]
     if plains:
         fail(f"module {label}: plain versions ran on the card: {plains}")
-    if fwd != fwd_want or bwd != bwd_want:
+    if launches_differ(fwd, fwd_want) or launches_differ(bwd, bwd_want):
         fail(f"module {label}: launches forward {fwd}, backward {bwd}; "
              f"expected {fwd_want}, {bwd_want}")
     hit = m.cache_hit_rate()
@@ -1555,7 +1581,7 @@ def module_phase(fbt, card, wrappers, request, fused_step):
     got = counts()
     for k in wrappers:
         launches[k] += got[k]
-    if plains or got != want(B1=2, B3=2):
+    if plains or launches_differ(got, want(B1=2, B3=2)):
         fail(f"module EXACT_ADAGRAD bf16: launches {got}, plain {plains}")
     fstep = fbt.make_fused_train_step(P, Q, R, 1, B, optimizer=ada,
                                       use_cache=True, probe_cache=True,
@@ -1816,7 +1842,7 @@ def native_wide_phase(fbt, card, wrappers, request, cores, cache,
         got = counts()
         for k in wrappers:
             paths[path][k] += got[k]
-        if plains or got != expect:
+        if plains or launches_differ(got, expect):
             fail(f"{label}: launches {got} (expected {expect}), plain "
                  f"versions {plains}")
         ref_out, ref = pstep(clone_params(fbt, old), *batch, (LR, EPS))
@@ -2000,7 +2026,8 @@ def native_wide_phase(fbt, card, wrappers, request, cores, cache,
         got = counts()
         for k in wrappers:
             paths["train_wide_cache"][k] += got[k]
-        if plains or got != flat3 or not torch.isfinite(out).all():
+        if plains or launches_differ(got, flat3) \
+                or not torch.isfinite(out).all():
             fail(f"wide counting step {i}: launches {got}, plain versions "
                  f"{plains}, finite {bool(torch.isfinite(out).all())}")
     count_s = time.perf_counter() - t0
@@ -2149,7 +2176,8 @@ def native_wide_phase(fbt, card, wrappers, request, cores, cache,
               f"rate {hit:.4f}): launches {launch_text(got)}; max_abs_err "
               f"{err:.3e} vs the plain float32 serve, limit "
               f"{OUT_TOL * scale:.3e} ({OUT_TOL} x max|out| {scale:.3e})")
-        if plains or got != expect or not err <= OUT_TOL * scale:
+        if plains or launches_differ(got, expect) \
+                or not err <= OUT_TOL * scale:
             fail(f"wide serve {label}: launches {got} (expected {expect}), "
                  f"plain versions {plains}, or disagrees with the plain "
                  "serve")
@@ -2298,7 +2326,7 @@ def dlrm_tools_phase(fbt, card, wrappers):
         got = counts()
         for k in wrappers:
             paths[path][k] += got[k]
-        if plains or got != expect:
+        if plains or launches_differ(got, expect):
             fail(f"{label}: launches {got} (expected {expect}), plain "
                  f"versions {plains}")
         ref_loss, ref = pstep(ref, *batch)
@@ -2414,7 +2442,7 @@ def dlrm_tools_phase(fbt, card, wrappers):
     got = counts()
     for k in wrappers:
         paths["train_dlrm"][k] += got[k]
-    if got != want(B1=4, B3=8):
+    if launches_differ(got, want(B1=4, B3=8)):
         fail(f"guarded steps: launches {got}")
     gparams.tt_cores[1][3, 17, 5] = float("nan")
     if bool(guard.finite_flag(gparams)):
@@ -2439,7 +2467,7 @@ def dlrm_tools_phase(fbt, card, wrappers):
     torch.cuda.synchronize()
     got = counts()
     paths["dlrm_walkthrough"] = got
-    if plains or got != want(B1=43, B3=80):
+    if plains or launches_differ(got, want(B1=43, B3=80)):
         fail(f"walkthrough: launches {got}, plain versions {plains}")
     if not res["last_loss"] < res["first_loss"]:
         fail(f"walkthrough: loss did not fall ({res['first_loss']} -> "
@@ -2464,7 +2492,7 @@ def dlrm_tools_phase(fbt, card, wrappers):
         torch.cuda.synchronize()
         got = counts()
         paths[path] = got
-        if plains or got != expect:
+        if plains or launches_differ(got, expect):
             fail(f"benchmark {argv}: launches {got}, plain versions {plains}")
         base = (f", nn.EmbeddingBag(sparse) + SGD "
                 f"{res['baseline_us_per_nnz']:.4f} us/nnz"
@@ -2506,8 +2534,8 @@ def dlrm_tools_phase(fbt, card, wrappers):
     gk = kernel_core_layouts([c.detach() for c in cores], tp, qs, rs)
     pair_ms = device_ms(lambda: tt_flat._pair_table(
         gk, tp, qs, rs, nt, torch.bfloat16))[0]
-    # the two one-hot products of the lookup: the pool (T*B bags by nnz)
-    # and dG0 (nnz by T*p0), on this batch's plan
+    # the lookup's pool (bag_pool) and its one-hot dG0 product (nnz by
+    # T*p0), on this batch's plan
     nnz = batch[1].numel()
     pos = torch.arange(nnz, dtype=torch.int32, device="cuda")
     plan, nza = tt_flat._lookup_plan(
@@ -2517,7 +2545,7 @@ def dlrm_tools_phase(fbt, card, wrappers):
     rows = torch.randn(nza, d, device="cuda").to(torch.bfloat16)
     dz0 = torch.randn(nza, qs[0] * rs[1], device="cuda")
     pool_ms = device_ms(lambda: tt_flat._pool_flat(
-        rows, plan, nt * DLRM_B, torch.bfloat16))[0]
+        rows, plan, nt * DLRM_B))[0]
     dg0_ms = device_ms(lambda: tt_flat._dg0(plan, dz0, nt * tp[0], qs[0],
                                             rs[1]))[0]
     mlp = map_leaves(lambda t: t.detach().requires_grad_(),
@@ -2537,7 +2565,7 @@ def dlrm_tools_phase(fbt, card, wrappers):
           f"device ops, host {host:.3f} ms per step (busy share "
           f"{dev / host:.3f}); of the device time: the lookup forward + "
           f"backward {look:.4f} ms (its pair-table build {pair_ms:.4f}, "
-          f"one-hot pool {pool_ms:.4f}, one-hot dG0 {dg0_ms:.4f}), the "
+          f"bag_pool {pool_ms:.4f}, one-hot dG0 {dg0_ms:.4f}), the "
           f"MLPs and the interaction forward + backward with the loss "
           f"{dense_ms:.4f}, the rest (update, glue) "
           f"{dev - look - dense_ms:.4f} ({mhz_text(mhz)}) [{card}]")
@@ -2629,7 +2657,7 @@ def knob_phase(fbt, card, wrappers, cores, train_batch, plain_steps):
                 torch.cuda.synchronize()
                 runs.append((out, new, counts()))
         (out, new, got), (out2, new2, got2) = runs
-        if got != want or got2 != want:
+        if launches_differ(got, want) or launches_differ(got2, want):
             fail(f"{label}: launches {got} / {got2}, expected {want}")
         if not (torch.equal(out, out2) and all(
                 torch.equal(a, c) for a, c in zip(new.tt_cores,
@@ -2840,6 +2868,304 @@ def pool_phase(fbt, card, params):
           flush=True)
 
 
+
+# the bag-order pool's cases at the benchmark's cells: (name, tables, bags
+# a table, pooling, cache rows "f32" / "int8" / None, weighted, row width,
+# layout; bf16 rows at the table's width D, float32 rows else). Width 36
+# takes the kernel's path for widths that are not multiples of 8, width 72
+# two column blocks. Layouts: "fixed" (bags of `pooling`), "edges" (CSR
+# offsets through rowidx_from_offsets: bags of 0 to 2 x pooling lookups,
+# every seventh empty, one interior start past nnz) and "shuffled" (the
+# lookups in a random order: the kernel's grouping pass); two tables take
+# the plan's chain path and its table-major bag ids.
+POOL_CASES = (
+    ("serve cell, float32 cache", 1, 4096, 20, "f32", False, D, "fixed"),
+    ("serve cell, int8 cache", 1, 4096, 20, "int8", False, D, "fixed"),
+    ("serve cell, float32 cache, weighted", 1, 4096, 20, "f32", True, D,
+     "fixed"),
+    ("train cell", 1, 65536, 20, None, False, D, "fixed"),
+    ("train cell, float32 cache, weighted", 1, 65536, 20, "f32", True, D,
+     "fixed"),
+    ("width 36, int8 cache, weighted", 1, 4096, 20, "int8", True, 36,
+     "fixed"),
+    ("width 36, float32 rows", 1, 8192, 20, None, True, 36, "fixed"),
+    ("width 72, float32 rows and cache", 1, 4096, 20, "f32", True, 72,
+     "fixed"),
+    ("serve cell, edge offsets, float32 cache", 1, 4096, 20, "f32", True,
+     D, "edges"),
+    ("two tables, edge offsets, int8 cache", 2, 2052, 20, "int8", True, D,
+     "edges"),
+    ("serve cell, shuffled, float32 cache", 1, 4096, 20, "f32", True, D,
+     "shuffled"),
+    ("train cell, shuffled", 1, 65536, 20, None, False, D, "shuffled"),
+    ("two tables, shuffled, float32 cache", 2, 4100, 20, "f32", False, D,
+     "shuffled"),
+)
+# the cases whose readings go into the kernels' line: the cells' shapes
+POOL_TIMED = ("serve cell, float32 cache", "train cell")
+POOL_CACHED_SHARE = 0.54  # the serve cell's hit share (PERF.md section 4)
+
+
+def pool_case(rng, tables, bags, pooling, cache_kind, weighted, d=D,
+              layout="fixed"):
+    """``(plan, rows, cache)``: a pool's inputs on the card. A Zipf(1.05)
+    batch of ``tables`` x ``bags`` bags on the headline table (id = rank;
+    ``layout`` as ``POOL_CASES`` says), its flat plan (pair mode on one
+    table, the chain on two) with the hottest ~54% of lookups cache-served
+    and dead, the last pass's rows of width ``d`` (bf16 where ``d`` is the
+    table's, else float32; zero past the live span, as kernel B1 leaves
+    them), and the cache (E / 10 rows, float32 or int8 with scales; a
+    lookup of rank k reads row k)."""
+    import numpy as np
+    import torch
+
+    from fbtt_embedding_tpu_torch.ops.indexing import rowidx_from_offsets
+    from fbtt_embedding_tpu_torch.ops.kernels import tt_flat
+
+    tb = tables * bags
+    if layout == "edges":
+        lengths = rng.integers(0, 2 * pooling + 1, size=tb)
+        lengths[::7] = 0
+        offs = np.concatenate([[0], np.cumsum(lengths)])
+        offs[tb // 3] = offs[-1] + 5  # past nnz: dropped
+    else:
+        offs = np.arange(0, tb * pooling + 1, pooling)
+    nnz = int(offs[-1])
+    rowidx, tbl = rowidx_from_offsets(
+        torch.as_tensor(offs, device="cuda"), nnz, tables, bags)
+    if layout == "shuffled":
+        perm = torch.as_tensor(rng.permutation(nnz), device="cuda")
+        rowidx, tbl = rowidx[perm], tbl[perm]
+    ranks = np.minimum(rng.zipf(1.05, size=nnz) - 1, E - 1)
+    idx = torch.as_tensor(ranks.astype(np.int32), device="cuda")
+    w = (torch.as_tensor(rng.random(nnz).astype(np.float32), device="cuda")
+         if weighted else None)
+    cache = dead = None
+    if cache_kind is not None:
+        k = np.quantile(ranks, POOL_CACHED_SHARE)
+        loc = torch.as_tensor(np.where(ranks <= k, ranks, -1).astype(
+            np.int32), device="cuda")
+        crows = torch.randn(E // 10, d, device="cuda")
+        scale = None
+        if cache_kind == "int8":
+            crows, scale = tt_flat.quantize_rows_int8(crows)
+        cache, dead = tt_flat.CacheRows(crows, loc, scale), loc >= 0
+    plan, nza = tt_flat._build_plan(
+        idx, rowidx, tbl if tables > 1 else None, w, None, P, tables, bags,
+        dead_mask=dead, pair=tables == 1)
+    rows = torch.randn(nza, d, device="cuda")
+    if d == D:
+        rows = rows.to(torch.bfloat16)
+    rows[int(tt_flat.live_lookups(plan)):] = 0
+    return plan, rows, cache
+
+
+def pool_reference(plan, rows, bags, cache):
+    """The pool in float64, term by term from the contract
+    (``ops/kernels/bag_pool.py``)."""
+    import torch
+
+    from fbtt_embedding_tpu_torch.ops.kernels import tt_flat
+    from fbtt_embedding_tpu_torch.ops.kernels.bag_pool import (
+        _POOL_ONEHOT_MAX_TB,
+    )
+
+    n = plan.bag.shape[0]
+    f64 = torch.float64
+    w = (plan.w_lookup.double() if plan.w_lookup is not None
+         else torch.ones(n, dtype=f64, device="cuda"))
+    wr = (w.to(rows.dtype).double()
+          if bags <= _POOL_ONEHOT_MAX_TB else w)
+    slot = plan.slot_last[:n].long()
+    live = slot < tt_flat.live_lookups(plan)
+    term = rows[slot].double() * torch.where(live, wr, 0.0)[:, None]
+    if cache is not None:
+        hit = cache.locations >= 0
+        loc = cache.locations.clamp(min=0).long()
+        fc = w if cache.scale is None else cache.scale[loc].double() * w
+        term = torch.where(hit[:, None],
+                           cache.rows[loc].double() * fc[:, None], term)
+    return torch.zeros((bags, rows.shape[1]), dtype=f64,
+                       device="cuda").index_add_(
+        0, plan.bag.long(), term)
+
+
+def pool_bound_ms(plan, rows, bags, cache):
+    """The pool's least time: the bytes it must move at 3.35 TB/s, each
+    input read once (every lookup's id, slot, weight and cache location;
+    the live rows it pools, one per lookup, and the distinct cache rows
+    the hits read, with their scales) and the output written once."""
+    import torch
+
+    from fbtt_embedding_tpu_torch.ops.kernels import tt_flat
+
+    n = plan.bag.shape[0]
+    slot = plan.slot_last[:n]
+    hit = (cache.locations >= 0 if cache is not None
+           else slot.new_zeros(n, dtype=bool))
+    n_rows = int(((slot < tt_flat.live_lookups(plan)) & ~hit).sum())
+    n_hit = (int(torch.unique(cache.locations[hit]).numel())
+             if cache is not None else 0)
+    d = rows.shape[1]
+    per_lookup = 8 + 4 * (plan.w_lookup is not None) + 4 * (cache is not None)
+    nbytes = (n * per_lookup + n_rows * d * rows.element_size()
+              + bags * d * 4)
+    if cache is not None:
+        nbytes += n_hit * (d * cache.rows.element_size()
+                           + 4 * (cache.scale is not None))
+    return nbytes / HBM_BYTES_PER_S * 1e3, nbytes, n_rows, n_hit
+
+
+def check_pool_cases(card, cases=POOL_CASES, seed=21):
+    """The bag-order pool at each of ``cases``: the kernel (through
+    ``tt_flat._pool_flat``) twice, bitwise equal, one ``launches.bag_pool``
+    a call, against the plain route and against a float64 sum (max error
+    over max|ref|, each within 1e-5); then its time, CUDA events over
+    back-to-back calls and device time (``device_ms``), beside its bound
+    and the plain route's, and the plain route's device time. Returns the
+    readings by case name (``kernel_times``' keys, with the bound, the
+    errors and the launches); a failure raises."""
+    import numpy as np
+    import torch
+
+    from fbtt_embedding_tpu_torch.ops.kernels import tt_flat
+    from fbtt_embedding_tpu_torch.ops.kernels.bag_pool import bag_pool_plain
+
+    rng = np.random.default_rng(seed)
+    out = {}
+    for name, tables, b, pooling, cache_kind, weighted, d, layout in cases:
+        plan, rows, cache = pool_case(rng, tables, b, pooling, cache_kind,
+                                      weighted, d, layout)
+        bags = tables * b
+
+        def kernel():
+            return tt_flat._pool_flat(rows, plan, bags, cache=cache)
+
+        def plain():
+            return bag_pool_plain(
+                plan.bag, bags, rows=rows, slot=plan.slot_last,
+                live=tt_flat.live_lookups(plan), weights=plan.w_lookup,
+                cache=cache)
+
+        before = kernel_launches("bag_pool")
+        got, again = kernel(), kernel()
+        launches = kernel_launches("bag_pool") - before
+        torch.cuda.synchronize()
+        ref = plain()
+        want = pool_reference(plan, rows, bags, cache)
+        scale = want.abs().max().item()
+        abs_err = (got.double() - want).abs().max().item()
+        err = abs_err / scale
+        perr = (ref.double() - want).abs().max().item() / scale
+        same = torch.equal(got, again)
+        bound, nbytes, n_rows, n_hit = pool_bound_ms(plan, rows, bags, cache)
+        t = kernel_times(kernel, plain, plain_reps=5, plain_inner=2)
+        ev, dev, pdev, mhz = (t["ms"], t["device_ms"], t["plain_device_ms"],
+                              t["sm_mhz"])
+        out[name] = dict(t, err=err, max_abs_err=abs_err, plain_err=perr,
+                         same=same, launches=launches, bound_ms=bound,
+                         bound_by="bytes", bytes=nbytes)
+        print(f"[bag_pool] {name} ({tables} x {b} bags, {layout}, pooling "
+              f"{pooling}, {n_rows} "
+              f"{str(rows.dtype)[6:]} rows, {n_hit} distinct cache rows, "
+              f"{nbytes / 1e6:.1f} MB): max err "
+              f"vs float64 {err:.2e} of max|ref| (plain route {perr:.2e}); "
+              f"two calls bitwise equal {same}; launches {launches} for 2 "
+              f"calls; kernel {ev * 1e3:.2f} us between events, "
+              f"{dev * 1e3:.2f} us on the device ({t['parts']}; "
+              f"{mhz_text(mhz)}), bound {bound * 1e3:.2f} us (bytes, "
+              f"{bound / dev:.1%} of it); plain route {pdev * 1e3:.2f} us "
+              f"on the device [{card}]", flush=True)
+        if not (same and launches == 2 and err <= 1e-5 and perr <= 1e-5):
+            fail(f"bag_pool: {name}")
+        del plan, rows, cache, got, again, ref, want
+    return out
+
+
+def bag_pool_phase(fbt, card, params, cache):
+    """Phase 4d of the docstring: the bag-order pool's cases
+    (``check_pool_cases``), then its launches on the main paths: one a
+    request of the folded serve (bf16 and int8; both sources in one pass)
+    at the serve cell's batch with the populated cache, and at B=4093,
+    whose plan pads to 4096 bags, two of ``make_serving_fn`` (the TT rows',
+    then the cache rows'), outputs held against the plain float32 serve on
+    a CPU copy (so no half of the reference runs the kernel); one a fused
+    training step at B=512 and at B=2048 (autograd), two a cached step
+    (the TT rows', the cache rows'), and no plain route. Returns
+    ``check_pool_cases``' readings."""
+    import numpy as np
+    import torch
+
+    from fbtt_embedding_tpu_torch.ops.cache import CacheState
+
+    t_phase = time.perf_counter()
+    readings = check_pool_cases(card)
+    rng = np.random.default_rng(22)
+    cprm = fbt.TTEmbeddingParams(params.tt_cores, (), cache)
+    cpu_prm = fbt.TTEmbeddingParams(
+        tuple(c.cpu() for c in params.tt_cores), (), CacheState(*(
+            t.cpu() for t in (cache.keys, cache.freq, cache.slots,
+                              cache.weight, cache.opt_state))))
+    for bb in (4096, 4093):
+        idx = torch.as_tensor(np.minimum(rng.zipf(1.05, size=bb * POOL) - 1,
+                                         E - 1), device="cuda")
+        offs = torch.arange(0, bb * POOL + 1, POOL, device="cuda")
+        ref = fbt.make_serving_fn(P, Q, R, 1, bb, impl="xla", device="cpu")(
+            cpu_prm, idx.cpu(), offs.cpu())
+        scale = ref.abs().max().item()
+        serves = [("make_serving_fn", None, 2, fbt.make_serving_fn(
+            P, Q, R, 1, bb, device="cuda"))]
+        for quant in (None, "int8"):
+            fold, serve = fbt.make_folded_serving_fn(P, Q, R, 1, bb,
+                                                     quantize=quant,
+                                                     device="cuda")
+            serves.append((f"folded {quant or 'bf16'}", fold(cprm), 1,
+                           serve))
+        if bb % 8:  # the padded plan: the folds alone
+            serves = serves[1:]
+        hit = (fbt.cache_lookup(cache, idx) >= 0).float().mean().item()
+        for name, fp, want, serve in serves:
+            with plain_watch() as plains:
+                before = kernel_launches("bag_pool")
+                out = serve(fp if fp is not None else cprm, idx, offs)
+                launches = kernel_launches("bag_pool") - before
+                torch.cuda.synchronize()
+            err = (out.cpu() - ref).abs().max().item()
+            tol = (3 if name.endswith("int8") else 1) * OUT_TOL * scale
+            print(f"[bag_pool] {name} B={bb} pooling {POOL} zipf1.05 with "
+                  f"the cache (hit rate {hit:.4f}): bag_pool launches "
+                  f"{launches} (want {want}), max_abs_err {err:.3e} vs "
+                  f"plain f32 on the CPU (limit {tol:.3e}); plain versions "
+                  f"{plains or 0}", flush=True)
+            if launches != want or plains or not err <= tol:
+                fail(f"bag_pool on the {name} serve, B={bb}")
+        del serves
+    del cpu_prm
+    for what, bt, cached, want in (("fused step", B, False, 1),
+                                   ("autograd step", 2048, False, 1),
+                                   ("cached step", B, True, 2)):
+        prm = fbt.TTEmbeddingParams(
+            tuple(c.clone() for c in params.tt_cores), (),
+            clone_cache(cache) if cached else None)
+        step = fbt.make_fused_train_step(P, Q, R, 1, bt, probe_cache=cached,
+                                         device="cuda")
+        bidx = torch.as_tensor(np.minimum(rng.zipf(1.05, size=bt * POOL) - 1,
+                                          E - 1), device="cuda")
+        boffs = torch.arange(0, bt * POOL + 1, POOL, device="cuda")
+        dout = torch.randn(1, bt, D, device="cuda")
+        with plain_watch() as plains:
+            before = kernel_launches("bag_pool")
+            step(prm, bidx, boffs, dout, (LR, EPS))
+            launches = kernel_launches("bag_pool") - before
+            torch.cuda.synchronize()
+        print(f"[bag_pool] {what} B={bt}: bag_pool launches {launches} "
+              f"(want {want}); plain versions {plains or 0}", flush=True)
+        if launches != want or plains:
+            fail(f"bag_pool launches on the {what}")
+    print(f"[bag_pool] phase took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return readings
+
 def world_device_ms(fn, n=10, pad=WORLD_PAD_CALLS):
     """Device ms per call of ``fn`` (run by every rank of a world the same
     number of times; it may hold collectives): the summed durations of the
@@ -2961,6 +3287,7 @@ def multi_child(spec):
     from fbtt_embedding_tpu_torch.ops.kernels.seg_transform import (
         seg_transform,
     )
+    from fbtt_embedding_tpu_torch.ops.kernels.bag_pool import bag_pool
     from fbtt_embedding_tpu_torch.ops.kernels.tt_bwd import tt_bwd
     from fbtt_embedding_tpu_torch.ops.kernels.tt_fwd import tt_fwd
     from fbtt_embedding_tpu_torch.parallel import host_local_slice
@@ -2975,7 +3302,7 @@ def multi_child(spec):
     torch.backends.cudnn.allow_tf32 = False
     wrappers = {"seg_transform": seg_transform, "seg_fused_i2": seg_fused_i2,
                 "seg_accum": seg_accum, "seg_accum_dg0": seg_accum_dg0,
-                "tt_fwd": tt_fwd, "tt_bwd": tt_bwd}
+                "tt_fwd": tt_fwd, "tt_bwd": tt_bwd, "bag_pool": bag_pool}
 
     def zero_counts():
         zero_launches()
@@ -3049,7 +3376,8 @@ def multi_child(spec):
         counts_equal = torch.equal(prm_a.cache.freq, ref.cache.freq)
         print(line + f"; LFU counts equal to one device's over the global "
               f"batch {counts_equal}", flush=True)
-        if plains or got != want or got["seg_accum"] == 0 or not same \
+        if plains or launches_differ(got, want) or got["seg_accum"] == 0 \
+                or not same \
                 or not counts_equal:
             fail(f"{tag}: the dp step's launches, repeatability or counts")
         del prm_b, out_b, ref
@@ -3301,7 +3629,8 @@ def multi_rest(fbt, tag, world, rank, mesh, cuda, zero_counts, counts, res,
         same = torch.equal(out_a, serve(fp, idx_l))
         line = held(tag, "output", out_a, twin()[:, mine], OUT_TOL, world)
         outs[label] = out_a
-        others = {k: v for k, v in got.items() if k != "seg_transform"}
+        others = {k: v for k, v in got.items()
+                  if k not in ("seg_transform", "bag_pool")}
         b1_ok = got["seg_transform"] == 1 if folded \
             else got["seg_transform"] >= 1
         if plains or any(others.values()) or not b1_ok or not same:
@@ -3674,6 +4003,7 @@ def main():
     )
     from fbtt_embedding_tpu_torch.ops.kernels import tt_bwd as tt_bwd_mod
     from fbtt_embedding_tpu_torch.ops.kernels import tt_fwd as tt_fwd_mod
+    from fbtt_embedding_tpu_torch.ops.kernels.bag_pool import bag_pool
     from fbtt_embedding_tpu_torch.ops.kernels.tt_bwd import tt_bwd, tt_bwd_plain
     from fbtt_embedding_tpu_torch.ops.kernels.tt_fwd import (
         chain_dims,
@@ -3685,7 +4015,7 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     wrappers = {"seg_transform": seg_transform, "seg_fused_i2": seg_fused_i2,
                 "seg_accum": seg_accum, "seg_accum_dg0": seg_accum_dg0,
-                "tt_fwd": tt_fwd, "tt_bwd": tt_bwd}
+                "tt_fwd": tt_fwd, "tt_bwd": tt_bwd, "bag_pool": bag_pool}
 
     def zero_counts():
         zero_launches()
@@ -4097,7 +4427,7 @@ def main():
         before = counts()
         gouts.append(gserve(params, idx, offs))
         got = {k: v - before[k] for k, v in counts().items()}
-        if got != {**dict.fromkeys(wrappers, 0), "tt_fwd": 1}:
+        if launches_differ(got, {"tt_fwd": 1}):
             fail(f"serve impl='pallas' B={b}: launches {got}, expected "
                  "tt_fwd 1 and nothing else")
     torch.cuda.synchronize()
@@ -4175,6 +4505,12 @@ def main():
     # 4c. pools above 4096 rows
     pool_phase(fbt, card, params)
 
+    phase_mark("4d bag_pool", t_start)
+    # 4d. the bag-order pool
+    pool_readings = bag_pool_phase(fbt, card, params, cache)
+    max_err["bag_pool"] = max(r["max_abs_err"]
+                              for r in pool_readings.values())
+
     phase_mark("5 train", t_start)
     # 5. train at full width
     def clone(prm):
@@ -4230,7 +4566,7 @@ def main():
             train_launches[k] += got[k]
         want = {**dict.fromkeys(wrappers, 0), **dict(zip(
             ("seg_transform", "seg_fused_i2", "seg_accum"), expect[path]))}
-        if got != want:
+        if launches_differ(got, want):
             fail(f"train B={b} ({path}): launches {got}, expected {want}")
         if out.shape != (1, b, D) or not torch.isfinite(out).all():
             fail(f"train B={b}: bad output {tuple(out.shape)}")
@@ -4278,7 +4614,7 @@ def main():
         ref_out, ref = pstep(clone(old), idx, offs, d_out, (LR, EPS))
         for k in wrappers:
             gtrain_launches[k] += got[k]
-        if got != per_step:
+        if launches_differ(got, per_step):
             fail(f"train impl='pallas' B={b}: launches {got}, expected "
                  f"{per_step}")
         if out.shape != (1, b, D) or not torch.isfinite(out).all():
@@ -4322,7 +4658,7 @@ def main():
         if cached:
             ref_prm.cache = clone_cache(old_cache)
         ref_out, ref = pstep(ref_prm, *batch, (LR, EPS))
-        if got != want:
+        if launches_differ(got, want):
             fail(f"{label}: launches {got}, expected {want}")
         b_ = batch[0].shape[0] // POOL
         if out.shape != (1, b_, D) or not torch.isfinite(out).all():
@@ -4446,7 +4782,7 @@ def main():
     dt = torch.bfloat16
     tcores = fbt.params_from_jax(cores, device="cuda").tt_cores
     g0f, _, tables, widths = tt_flat._flat_setup(tcores, P, Q, R, dt)
-    times = {}
+    times = {"bag_pool": [pool_readings[k] for k in POOL_TIMED]}
     for label, (ridx, roffs) in (("uniform", requests[0][2:4]),
                                  ("zipf1.05", requests[1][2:4])):
         rrow, _ = fbt.rowidx_from_offsets(roffs, ridx.shape[0], 1, B)

@@ -55,8 +55,8 @@ from fbtt_embedding_tpu_torch.ops.indexing import (
     wide_keyrows,
 )
 from fbtt_embedding_tpu_torch.ops.kernels import tt_flat
+from fbtt_embedding_tpu_torch.ops.kernels.bag_pool import CacheRows, bag_pool
 from fbtt_embedding_tpu_torch.ops.kernels.tt_flat import (
-    _POOL_ONEHOT_MAX_TB,
     flat_available,
     flat_train_apply,
 )
@@ -183,17 +183,15 @@ def _native_semantics(optim_semantics: str) -> bool:
 
 
 @profiling.annotated("fbtt.pool")
-def _pool_cached_rows(cached_rows, rowidx, tableidx, num_tables, bs):
-    """Pool per-lookup cached rows into ``[T, B, D]``: a float32 one-hot
-    product up to ``_POOL_ONEHOT_MAX_TB`` pooled rows, as the flat
-    pipeline pools, ``pool_rows`` above."""
-    tb = num_tables * bs
-    if tb <= _POOL_ONEHOT_MAX_TB:
-        seg = rowidx if tableidx is None else tableidx * bs + rowidx
-        iota = torch.arange(tb, dtype=seg.dtype, device=seg.device)
-        oh = (seg[None, :] == iota[:, None]).to(cached_rows.dtype)
-        return torch.matmul(oh, cached_rows).reshape(num_tables, bs, -1)
-    return pool_rows(cached_rows, rowidx, tableidx, num_tables, bs)
+def _pool_cached_rows(cached_rows, rowidx, tableidx, num_tables, bs,
+                      weights=None, cache: Optional[CacheRows] = None):
+    """Pool cache-served rows into ``[T, B, D]`` by ``bag_pool``, in bag
+    order: ``cached_rows``, one per lookup (already weighted), or
+    ``cache``, the cache's rows read at each lookup's location and
+    multiplied by its weight (``weights``, 1 where None) and scale."""
+    seg = rowidx if tableidx is None else tableidx * bs + rowidx
+    return bag_pool(seg, num_tables * bs, rows=cached_rows, weights=weights,
+                    cache=cache).reshape(num_tables, bs, -1)
 
 
 def _masked_weights(mask, weights):
@@ -211,12 +209,9 @@ def _cached_pool(out, cache, locations, weights, rowidx, tbl, num_tables,
     if locations is None:
         return out
     with profiling.annotate("fbtt.cache"):
-        loc = locations.clamp(min=0).long()
-        cached_w = _masked_weights(locations >= 0, weights)
-        if scale is not None:
-            cached_w = scale[loc] * cached_w
-        rows = cache.weight[loc] * cached_w[:, None]
-        return out + _pool_cached_rows(rows, rowidx, tbl, num_tables, bs)
+        return out + _pool_cached_rows(
+            None, rowidx, tbl, num_tables, bs, weights,
+            cache=CacheRows(cache.weight, locations, scale))
 
 
 def _count_lookups(nnz: int, locations=None, plan=None) -> None:
@@ -484,10 +479,16 @@ def make_folded_serving_fn(
             indices, rowidx, tbl, weights, None, list(p), num_tables, b_eff,
             dead_mask=dead, idx_parts=parts, seg=tt_flat.SEG, pair=pair)
         _count_lookups(nnz, locations, plan)
+        # unpadded widths: the cache's rows pool with the TT rows, one pass
+        one_pool = locations is not None and use_q == q
         out, _ = tt_flat.flat_lookup_forward(
             None, p, use_q, use_r, b_eff, plan, nza, compute_dtype=cdt,
-            seg=tt_flat.SEG, setup=fp.setup, num_tables=num_tables)
+            seg=tt_flat.SEG, setup=fp.setup, num_tables=num_tables,
+            cache=(CacheRows(cache.weight, locations, fp.cache_scale)
+                   if one_pool else None))
         out = unpad_flat_output(out, bcall, use_q, q[-1])
+        if one_pool:
+            return out
         return _cached_pool(out, cache, locations, weights, rowidx, tbl,
                             num_tables, bcall, scale=fp.cache_scale)
 

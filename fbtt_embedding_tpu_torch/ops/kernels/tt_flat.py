@@ -10,7 +10,7 @@ middle/last core)::
   Z1   = seg_transform(z0, G1)             [nza, q0*q1*r2]      (kernel B1)
   Z1'  = Z1[perm12]                        gather, s1 -> s2 order
   rows = seg_transform(Z1', G2bd)          [nza, D]   (kernel B1, folded by mm)
-  out  = onehot(rowidx_s2) @ rows          pooling, float32
+  out  = bag_pool(bag, rows[slot_s2])      pooling in bag order, float32
 
   backward (FlatLookup, the JAX package's make_flat_vjp):
   dr   = dout[rowidx_s2] * w               gather [nza, D]
@@ -51,13 +51,18 @@ core (and the middle core before it at tt_ndim 4) and the pool.
 scales (``quantize_rows_int8``), dequantized after the gather
 (``_dequant_gather``) and rounded to the staging dtype before B1.
 
+The pool (``bag_pool``) reads each lookup's row at its slot in the last
+sort space (``slot_last``) and sums every bag's rows in lookup order; the
+folded serve hands it the LFU cache's rows too, and both sources pool in
+one pass.
+
 Numerics: float32 master cores; intermediates staged in ``compute_dtype``
 (bfloat16 by default on the card, float32 on the CPU or when asked);
 products accumulate in float32, and pooling, core gradients and dz0 are
-float32. The one-hot products (pooling, dG0) are float32 ``torch.matmul``
-calls: nothing here turns TF32 on, so on the card they run in full float32
-as long as the caller leaves ``torch.backends.cuda.matmul.allow_tf32`` at
-its default (False).
+float32. The one-hot products (dG0; the pool's plain route) are float32
+``torch.matmul`` calls: nothing here turns TF32 on, so on the card they
+run in full float32 as long as the caller leaves
+``torch.backends.cuda.matmul.allow_tf32`` at its default (False).
 
 The segment length ``SEG`` is this port's choice for Hopper (one CTA of
 the kernel per segment); the TPU's seg/sb/spp grid policies and knobs are
@@ -67,14 +72,14 @@ not carried over. ``jax.lax.sort`` over several operands becomes a stable
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from fbtt_embedding_tpu_torch.ops.hot_scatter import segment_sum
 from fbtt_embedding_tpu_torch.ops.indexing import tt_strides
+from fbtt_embedding_tpu_torch.ops.kernels.bag_pool import CacheRows, bag_pool
 from fbtt_embedding_tpu_torch.ops.kernels.seg_accum import (
     diag_block_sum,
     seg_accum,
@@ -100,8 +105,6 @@ SPAN_BLOCK = 4
 # cap on the G0xG1 pair-product table (rebuilt per call from the cores,
 # or built once by a serving fold)
 _PAIR_TABLE_BYTES = 96 * 1024 * 1024
-# one-hot pooling up to this many pooled rows, segment_sum above
-_POOL_ONEHOT_MAX_TB = 4096
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -184,7 +187,9 @@ class FlatPlan:
     Pass t (1-based core index) lives in sort space ``s_t``; entry ``t-1``
     of ``runs``/``first``/``cnt`` is its span table. ``perm_fwd[t-1]``
     maps positions of ``s_{t+1}`` to positions of ``s_t``; ``perm_bwd`` is
-    the inverse chain."""
+    the inverse chain. ``slot_last`` maps each lookup (original order, pads
+    last) to its position in the last space; ``bag`` and ``w_lookup`` are
+    the pooled rows and weights in lookup order, ``[nnz]``."""
 
     i0_s1: torch.Tensor                 # [nza] first-core rows (combined)
     alive1: torch.Tensor                # [nza] bool, real and live, s1
@@ -195,6 +200,10 @@ class FlatPlan:
     perm_bwd: Tuple[torch.Tensor, ...]
     rowidx_last: torch.Tensor           # [nza] pooled rows, last space
     w_last: Optional[torch.Tensor]
+    # the pool's maps, dropped from a plan kept for the backward
+    slot_last: Optional[torch.Tensor]   # [nza] lookup -> last-space slot
+    bag: Optional[torch.Tensor]         # [nnz] pooled rows, lookup order
+    w_lookup: Optional[torch.Tensor]    # [nnz] weights, lookup order
     pair_s2: Optional[torch.Tensor] = None  # pair mode: (i0, i1) ids, s2
 
 
@@ -296,8 +305,8 @@ def _build_plan(indices, rowidx, tableidx, weights, live_count, tt_p_shapes,
     i0p = _pad(parts[0], nza, 0)
     rowp = _pad(rowc, nza, -1)
     posp = torch.arange(nza, dtype=i32, device=dev)
-    wp = (_pad(weights.to(torch.float32), nza, 0.0)
-          if weights is not None else None)
+    w32 = weights.to(torch.float32) if weights is not None else None
+    wp = _pad(w32, nza, 0.0) if weights is not None else None
 
     if pair and ndim == 3:
         # one sort fewer: sort by i2 first carrying pair ids, pooling
@@ -316,25 +325,26 @@ def _build_plan(indices, rowidx, tableidx, weights, live_count, tt_p_shapes,
             i0_s1=i0_s1, alive1=k1_s < sents[1],
             runs=(runs1, runs2), first=(first1, first2), cnt=(cnt1, cnt2),
             perm_fwd=(None,), perm_bwd=(perm_bwd0,),
-            rowidx_last=row_s, w_last=w_s, pair_s2=pair_s2,
+            rowidx_last=row_s, w_last=w_s, slot_last=slot2_of_orig,
+            bag=rowc, w_lookup=w32, pair_s2=pair_s2,
         ), nza
 
     # chain of stable sorts, one per middle/last core, each on the
     # original-order keys; each carries the previous space's orig -> slot
     # map (so the gap permutation falls out sorted) and the positions;
-    # the last carries the pooling arrays
+    # the last carries the pooling arrays and the positions, inverted once
+    # into the pool's lookup -> slot map
     runs_l, first_l, cnt_l, perm_fwd, perm_bwd = [], [], [], [], []
-    i0_s1 = alive1 = row_s = w_s = pair_s2 = None
+    i0_s1 = alive1 = row_s = w_s = pair_s2 = slot_last = None
     inv_prev = None  # orig position -> slot in the previous space
     for t in range(1, ndim):
         is_last = t == ndim - 1
         carry = [i0p if t == 1 else inv_prev]
-        if not is_last:
-            carry.append(posp)
-        else:
+        if is_last:
             carry.append(rowp)
             if wp is not None:
                 carry.append(wp)
+        carry.append(posp)
         if pair and t == 2:
             carry.append(pairp)
         res = _stable_sort(keys[t - 1], *carry)
@@ -351,6 +361,7 @@ def _build_plan(indices, rowidx, tableidx, weights, live_count, tt_p_shapes,
         if is_last:
             row_s = res[2]
             w_s = res[3] if wp is not None else None
+            slot_last = _invert_perm(res[-1])  # orig -> last slot
         else:
             inv_prev = _invert_perm(res[2])  # orig -> slot_t
         r_, f_, c_ = _span_table(k_s, sents[t], nseg, seg=seg)
@@ -362,7 +373,8 @@ def _build_plan(indices, rowidx, tableidx, weights, live_count, tt_p_shapes,
         i0_s1=i0_s1, alive1=alive1,
         runs=tuple(runs_l), first=tuple(first_l), cnt=tuple(cnt_l),
         perm_fwd=tuple(perm_fwd), perm_bwd=tuple(perm_bwd),
-        rowidx_last=row_s, w_last=w_s, pair_s2=pair_s2,
+        rowidx_last=row_s, w_last=w_s, slot_last=slot_last, bag=rowc,
+        w_lookup=w32, pair_s2=pair_s2,
     ), nza
 
 
@@ -387,26 +399,17 @@ def _extract_bd_grad(dgbd: torch.Tensor, mm: int, r_t: int, w_t: int):
 
 
 @profiling.annotated("fbtt.pool")
-def _pool_flat(rows: torch.Tensor, plan: FlatPlan, tb: int, dt):
-    """Pool per-lookup rows (last sort space) into float32 ``[tb, d]``: a
-    one-hot product for small batches, the deterministic ``segment_sum``
-    above ``_POOL_ONEHOT_MAX_TB`` (pad rows, ``rowidx_last`` -1, dropped).
-    The one-hot weights are rounded to the staging dtype and the product is
-    float32, as in the JAX package."""
-    if tb <= _POOL_ONEHOT_MAX_TB:
-        iota_b = torch.arange(tb, dtype=torch.int32, device=rows.device)
-        hit = plan.rowidx_last[None, :] == iota_b[:, None]
-        if plan.w_last is not None:
-            w = plan.w_last.to(dt).float()
-            oh = torch.where(hit, w[None, :],
-                             torch.zeros((), device=rows.device))
-        else:
-            oh = hit.float()
-        return torch.matmul(oh, rows.float())
-    rows_f = rows.float()
-    if plan.w_last is not None:
-        rows_f = rows_f * plan.w_last[:, None]
-    return segment_sum(rows_f, plan.rowidx_last, tb)
+def _pool_flat(rows: torch.Tensor, plan: FlatPlan, tb: int,
+               cache: Optional[CacheRows] = None):
+    """Pool per-lookup rows (last sort space) into float32 ``[tb, d]`` by
+    :func:`bag_pool`, in bag order: each lookup's row read at its slot,
+    dead and pad lookups skipped, the weights rounded to the staging dtype
+    up to ``_POOL_ONEHOT_MAX_TB`` bags, as the JAX package's one-hot
+    product rounds them. ``cache``: the cache-served lookups, pooled in the
+    same pass."""
+    return bag_pool(plan.bag, tb, rows=rows, slot=plan.slot_last,
+                    live=live_lookups(plan), weights=plan.w_lookup,
+                    cache=cache)
 
 
 def _flat_setup(cores, p, q, r, dt):
@@ -595,14 +598,16 @@ def _grad_passes(plan: FlatPlan, stages, dz, top, g0f, tables, widths, p, q,
 def flat_lookup_forward(cores, tt_p_shapes, tt_q_shapes, tt_ranks,
                         batch_size, plan: FlatPlan, nza,
                         compute_dtype=torch.float32, seg=SEG, setup=None,
-                        num_tables: Optional[int] = None):
+                        num_tables: Optional[int] = None,
+                        cache: Optional[CacheRows] = None):
     """Pooled forward -> (``[T, B, D]`` float32, staged states). The staged
     states (each pass's input, in its sort space; None for a pass that
     pair mode skipped) are what a backward would reuse.
 
     ``setup``: a :func:`make_serving_fold` triple. Then ``cores`` may be
     None (give ``num_tables``) and no weight-derived array is rebuilt: the
-    frozen-weight serve."""
+    frozen-weight serve. ``cache``: the cache-served lookups (the plan's
+    dead ones), whose rows the pool adds in the same pass."""
     p, q, r = tuple(tt_p_shapes), tuple(tt_q_shapes), tuple(tt_ranks)
     t = cores[0].shape[0] if cores is not None else num_tables
     tb = t * batch_size
@@ -622,7 +627,7 @@ def flat_lookup_forward(cores, tt_p_shapes, tt_q_shapes, tt_ranks,
             plan.runs[-1], plan.first[-1], plan.cnt[-1], stages[-1],
             tables[-1], blocks=q[0], bw_in=bw_in, bw_out=bw_out,
             p_rows=t * p[-1], seg=seg, out_dtype=dt, mm=mm)
-    out = _pool_flat(state, plan, tb, dt)
+    out = _pool_flat(state, plan, tb, cache=cache)
     return out.reshape(t, batch_size, d), tuple(stages)
 
 
@@ -682,7 +687,9 @@ class FlatLookup(torch.autograd.Function):
                                           nza, compute_dtype=cdt, seg=SEG)
         if any(ctx.needs_input_grad[6:]):
             ctx.save_for_backward(*cores)
-            ctx.cfg, ctx.plan, ctx.nza, ctx.stages = cfg, plan, nza, stages
+            # the backward reads none of the pool's maps: free them now
+            ctx.plan = replace(plan, slot_last=None, bag=None, w_lookup=None)
+            ctx.cfg, ctx.nza, ctx.stages = cfg, nza, stages
         return out
 
     @staticmethod
@@ -748,7 +755,7 @@ def flat_train_apply(cores, tt_p_shapes, tt_q_shapes, tt_ranks, batch_size,
             plan.runs[li - 1], plan.first[li - 1], plan.cnt[li - 1],
             stages[li - 1], dz, tables[li - 1], blocks=q[0], bw_x=bw_in,
             bw_y=bw_out, p_rows=t * p[li], seg=seg, mm=mm)
-        out = _pool_flat(rows, plan, tb, dt).reshape(t, batch_size, d)
+        out = _pool_flat(rows, plan, tb).reshape(t, batch_size, d)
 
         if li > 1:
             dz = dz[plan.perm_bwd[li - 2].long()]  # s_li -> s_li-1

@@ -1,7 +1,9 @@
 """PyTorch port vs the JAX package: the pools on both sides of 4096 rows.
 
-Up to ``_POOL_ONEHOT_MAX_TB`` = 4096 pooled rows the flat pipeline pools by
-a one-hot product; above it, and always in ``pool_rows``, by the
+On the CPU, up to ``bag_pool._POOL_ONEHOT_MAX_TB`` = 4096 pooled rows the
+flat pipeline pools by a one-hot product (``bag_pool``'s plain route; the
+card runs its kernel at every size); above it, and always in
+``pool_rows``, by the
 deterministic segment sum (``ops.hot_scatter.segment_sum``: a stable sort
 by bag, then each bag's rows added in order). On numpy-seeded inputs at
 narrow widths (p = [8, 9, 10], q = [2, 2, 4], ranks [8, 8], D = 16):
@@ -37,6 +39,7 @@ from fbtt_embedding_tpu_torch import (
     pool_rows,
 )
 from fbtt_embedding_tpu_torch.ops.hot_scatter import segment_sum
+from fbtt_embedding_tpu_torch.ops.kernels import bag_pool
 from fbtt_embedding_tpu_torch.ops.kernels import tt_flat as tflat
 
 P, Q, R = [8, 9, 10], [2, 2, 4], [1, 8, 8, 1]
@@ -47,7 +50,7 @@ LR = 0.05
 
 
 def test_threshold_is_4096():
-    assert tflat._POOL_ONEHOT_MAX_TB == 4096
+    assert bag_pool._POOL_ONEHOT_MAX_TB == 4096
 
 
 def test_segment_sum_drops_pads_and_matches_float64():

@@ -69,6 +69,7 @@ from fbtt_embedding_tpu_torch.ops.lookup import (
     staging_dtype,
     unpad_flat_output,
 )
+from fbtt_embedding_tpu_torch.utils import graphs as graphs_ops
 from fbtt_embedding_tpu_torch.utils import knobs, profiling
 from fbtt_embedding_tpu_torch.utils.decompose import tt_decompose
 from fbtt_embedding_tpu_torch.utils.init import init_tt_cores
@@ -388,6 +389,17 @@ def make_folded_serving_fn(
     fold again, or swap in the new cache with :func:`refold_cache` while
     the cores are unchanged.
 
+    On a CUDA ``device`` the serve replays CUDA graphs
+    (``utils.graphs.ShapeGraphs``): per request signature (``bs``, the
+    shapes and dtypes of ``indices``, ``offsets`` and ``weights``, and the
+    ``fp`` served), the first call runs eagerly, the second captures its
+    stages (the cache probe, the plan, the passes, the pool), each into a
+    graph, and replays them; later calls copy the request into the
+    graphs' inputs and replay, each stage inside its span. No capture is
+    made while spans are on. Up to ``MAX_GRAPHS`` (8) signatures are kept,
+    the least recently used dropped first, and an ``fp``'s graphs go with
+    it. The answer is a fresh tensor each call, bitwise the eager one.
+
     ``quantize="int8"`` stores the pair table and the cache's rows as
     per-row int8 with float32 scales (half and a quarter of their bytes),
     dequantized after each row gather; B1 and the staging dtype do not
@@ -449,9 +461,85 @@ def make_folded_serving_fn(
         return FoldedServingParams(setup=setup, cache=cache,
                                    cache_scale=cache_scale)
 
-    @profiling.annotated("fbtt.serve")
-    def serve(fp: FoldedServingParams, indices, offsets, weights=None, *,
-              bs: Optional[int] = None):
+    def stages(fp: FoldedServingParams, bcall: int):
+        """The serve's device work as stages ``[(span, fn(st))]`` in order,
+        each a function of the tensors in ``st`` (the request's
+        ``indices``, ``offsets``, ``weights``) that adds its outputs there,
+        its spans those of the helpers it calls; the glue joins the stage
+        it feeds. ``st["out"]`` is the answer."""
+        # the pooled rows T*b must be a multiple of 8: pad the batch, slice
+        b_eff = bcall
+        if (num_tables * b_eff) % 8 != 0:
+            b_eff = -(-b_eff // 8) * 8
+        cache = fp.cache if probe_cache else None
+        # unpadded widths: the cache's rows pool with the TT rows, one pass
+        one_pool = cache is not None and use_q == q
+
+        def inputs(st):
+            (st["idx"], st["parts"], st["nnz"],
+             st["keys"]) = _lookup_inputs(st["indices"], len(p), device)
+            st["loc"] = None
+
+        def probe(st):
+            inputs(st)
+            st["loc"] = _probe(cache, st["keys"])
+
+        def plan(st):
+            if "nnz" not in st:
+                inputs(st)
+            rowidx, tableidx = rowidx_from_offsets(
+                st["offsets"], st["nnz"], num_tables, bcall)
+            st["rowidx"] = rowidx
+            st["tbl"] = tableidx if num_tables > 1 else None
+            loc = st["loc"]
+            st["plan"], st["nza"] = tt_flat._build_plan(
+                st["idx"], rowidx, st["tbl"], st["weights"], None, list(p),
+                num_tables, b_eff,
+                dead_mask=loc >= 0 if loc is not None else None,
+                idx_parts=st["parts"], seg=tt_flat.SEG, pair=pair)
+
+        def fwd(st):
+            st["rows"], _ = tt_flat.flat_lookup_rows(
+                None, p, use_q, use_r, st["plan"], compute_dtype=cdt,
+                seg=tt_flat.SEG, setup=fp.setup, num_tables=num_tables)
+
+        def pool(st):
+            loc = st["loc"]
+            out = tt_flat._pool_flat(
+                st["rows"], st["plan"], num_tables * b_eff,
+                cache=(CacheRows(cache.weight, loc, fp.cache_scale)
+                       if one_pool else None))
+            out = unpad_flat_output(out.reshape(num_tables, b_eff, -1),
+                                    bcall, use_q, q[-1])
+            if not one_pool:
+                out = _cached_pool(out, cache, loc, st["weights"],
+                                   st["rowidx"], st["tbl"], num_tables,
+                                   bcall, scale=fp.cache_scale)
+            st["out"] = out
+
+        return ([("fbtt.cache", probe)] if cache is not None else []) + [
+            ("fbtt.plan", plan), ("fbtt.fwd", fwd), ("fbtt.pool", pool)]
+
+    def eager(fp: FoldedServingParams, bcall: int, req: dict):
+        st = dict(req)
+        for _, fn in stages(fp, bcall):
+            fn(st)
+        _count_lookups(st["nnz"], st["loc"], st["plan"])
+        return st["out"]
+
+    def capture(fp: FoldedServingParams, bcall: int, req: dict):
+        run = graphs_ops.capture_stages(stages(fp, bcall), req)
+
+        def replay(fp, bcall, req):
+            st = run(req)
+            _count_lookups(st["nnz"], st["loc"], st["plan"])
+            return st["out"].clone()  # never the graph's own buffer
+
+        return replay
+
+    graphs = graphs_ops.ShapeGraphs() if device.type == "cuda" else None
+
+    def request(fp: FoldedServingParams, indices, offsets, weights):
         if fp.setup is None:
             raise ValueError(
                 "FoldedServingParams.setup is None (a fallback-mode fold: "
@@ -459,40 +547,49 @@ def make_folded_serving_fn(
                 "folded) but this serve() was built for flat mode. Build "
                 "the (fold, serve) pair again with make_folded_serving_fn, "
                 "or serve with make_serving_fn.")
-        bcall = batch_size if bs is None else bs
-        # the pooled rows T*b must be a multiple of 8: pad the batch, slice
-        b_eff = bcall
-        if (num_tables * b_eff) % 8 != 0:
-            b_eff = -(-b_eff // 8) * 8
-        cache = fp.cache if probe_cache else None
-        indices, parts, nnz, keys = _lookup_inputs(indices, len(p), device)
-        offsets = torch.as_tensor(offsets, device=device)
+        if isinstance(indices, (tuple, list)):
+            indices = tuple(torch.as_tensor(p_, device=device)
+                            for p_ in indices)
+        else:
+            indices = torch.as_tensor(indices, device=device)
         if weights is not None:
             weights = torch.as_tensor(weights, device=device,
                                       dtype=torch.float32)
-        rowidx, tableidx = rowidx_from_offsets(offsets, nnz, num_tables,
-                                               bcall)
-        tbl = tableidx if num_tables > 1 else None
-        locations = _probe(cache, keys)
-        dead = locations >= 0 if locations is not None else None
-        plan, nza = tt_flat._build_plan(
-            indices, rowidx, tbl, weights, None, list(p), num_tables, b_eff,
-            dead_mask=dead, idx_parts=parts, seg=tt_flat.SEG, pair=pair)
-        _count_lookups(nnz, locations, plan)
-        # unpadded widths: the cache's rows pool with the TT rows, one pass
-        one_pool = locations is not None and use_q == q
-        out, _ = tt_flat.flat_lookup_forward(
-            None, p, use_q, use_r, b_eff, plan, nza, compute_dtype=cdt,
-            seg=tt_flat.SEG, setup=fp.setup, num_tables=num_tables,
-            cache=(CacheRows(cache.weight, locations, fp.cache_scale)
-                   if one_pool else None))
-        out = unpad_flat_output(out, bcall, use_q, q[-1])
-        if one_pool:
-            return out
-        return _cached_pool(out, cache, locations, weights, rowidx, tbl,
-                            num_tables, bcall, scale=fp.cache_scale)
+        return {"indices": indices,
+                "offsets": torch.as_tensor(offsets, device=device),
+                "weights": weights}
 
+    @profiling.annotated("fbtt.serve")
+    def serve(fp: FoldedServingParams, indices, offsets, weights=None, *,
+              bs: Optional[int] = None):
+        bcall = batch_size if bs is None else bs
+        req = request(fp, indices, offsets, weights)
+        if graphs is None:
+            return eager(fp, bcall, req)
+        signature = (bcall,) + tuple(
+            _signature(req[k]) for k in ("indices", "offsets", "weights"))
+        with torch.cuda.device(device):
+            return graphs(signature, fp, eager, capture, fp, bcall, req)
+
+    @profiling.annotated("fbtt.serve")
+    def serve_eager(fp: FoldedServingParams, indices, offsets, weights=None,
+                    *, bs: Optional[int] = None):
+        return eager(fp, batch_size if bs is None else bs,
+                     request(fp, indices, offsets, weights))
+
+    serve._eager = serve_eager   # the same serve, never graphed (tests)
+    serve._graphs = graphs
     return fold, serve
+
+
+def _signature(x):
+    """What of a request's tensor (or tuple of tensors, or None) its
+    launches depend on: shapes and dtypes."""
+    if x is None:
+        return None
+    if isinstance(x, tuple):
+        return tuple(_signature(t) for t in x)
+    return tuple(x.shape), x.dtype
 
 
 def refold_cache(fp: FoldedServingParams,

@@ -595,23 +595,14 @@ def _grad_passes(plan: FlatPlan, stages, dz, top, g0f, tables, widths, p, q,
         dgs[0] = _dg0(plan, dz, tp0, q[0], r[1])
 
 
-def flat_lookup_forward(cores, tt_p_shapes, tt_q_shapes, tt_ranks,
-                        batch_size, plan: FlatPlan, nza,
-                        compute_dtype=torch.float32, seg=SEG, setup=None,
-                        num_tables: Optional[int] = None,
-                        cache: Optional[CacheRows] = None):
-    """Pooled forward -> (``[T, B, D]`` float32, staged states). The staged
-    states (each pass's input, in its sort space; None for a pass that
-    pair mode skipped) are what a backward would reuse.
-
-    ``setup``: a :func:`make_serving_fold` triple. Then ``cores`` may be
-    None (give ``num_tables``) and no weight-derived array is rebuilt: the
-    frozen-weight serve. ``cache``: the cache-served lookups (the plan's
-    dead ones), whose rows the pool adds in the same pass."""
+def flat_lookup_rows(cores, tt_p_shapes, tt_q_shapes, tt_ranks,
+                     plan: FlatPlan, compute_dtype=torch.float32, seg=SEG,
+                     setup=None, num_tables: Optional[int] = None):
+    """The forward's passes, unpooled -> (the last pass's rows, ``[nza,
+    D]`` in the last sort space, staged states): every pass but the pool
+    (:func:`flat_lookup_forward`, whose arguments these are)."""
     p, q, r = tuple(tt_p_shapes), tuple(tt_q_shapes), tuple(tt_ranks)
     t = cores[0].shape[0] if cores is not None else num_tables
-    tb = t * batch_size
-    d = int(np.prod(q))
     dt = compute_dtype
     with profiling.annotate("fbtt.fwd"):
         if setup is None:
@@ -627,8 +618,28 @@ def flat_lookup_forward(cores, tt_p_shapes, tt_q_shapes, tt_ranks,
             plan.runs[-1], plan.first[-1], plan.cnt[-1], stages[-1],
             tables[-1], blocks=q[0], bw_in=bw_in, bw_out=bw_out,
             p_rows=t * p[-1], seg=seg, out_dtype=dt, mm=mm)
-    out = _pool_flat(state, plan, tb, cache=cache)
-    return out.reshape(t, batch_size, d), tuple(stages)
+    return state, tuple(stages)
+
+
+def flat_lookup_forward(cores, tt_p_shapes, tt_q_shapes, tt_ranks,
+                        batch_size, plan: FlatPlan, nza,
+                        compute_dtype=torch.float32, seg=SEG, setup=None,
+                        num_tables: Optional[int] = None,
+                        cache: Optional[CacheRows] = None):
+    """Pooled forward -> (``[T, B, D]`` float32, staged states). The staged
+    states (each pass's input, in its sort space; None for a pass that
+    pair mode skipped) are what a backward would reuse.
+
+    ``setup``: a :func:`make_serving_fold` triple. Then ``cores`` may be
+    None (give ``num_tables``) and no weight-derived array is rebuilt: the
+    frozen-weight serve. ``cache``: the cache-served lookups (the plan's
+    dead ones), whose rows the pool adds in the same pass."""
+    t = cores[0].shape[0] if cores is not None else num_tables
+    state, stages = flat_lookup_rows(
+        cores, tt_p_shapes, tt_q_shapes, tt_ranks, plan, compute_dtype,
+        seg, setup, num_tables)
+    out = _pool_flat(state, plan, t * batch_size, cache=cache)
+    return out.reshape(t, batch_size, int(np.prod(tt_q_shapes))), stages
 
 
 def flat_lookup_backward(cores, tt_p_shapes, tt_q_shapes, tt_ranks,

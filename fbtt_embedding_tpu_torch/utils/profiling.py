@@ -17,8 +17,12 @@ Counterpart of ``fbtt_embedding_tpu.utils.profiling``:
     adds a device operation; the record holds at most ``SPAN_CAP`` spans
     and counts the ones it drops.
   * :func:`count` and :func:`counter`: the program's counters, one
-    registry: the kernels' launches (``launches.<kernel>``, always on) and,
-    while spans are on, ``lookups`` and ``cache_hits``.
+    registry: the kernels' launches (``launches.<kernel>``, always on), the
+    folded serve's CUDA graphs (``serve_graph.captures``,
+    ``serve_graph.replays``, always on; ``utils.graphs``) and, while spans
+    are on, ``lookups``, ``cache_hits`` and
+    ``serve_graph.spanned_replays``. :func:`counted_apart` keeps a block's
+    counts out of the registry (a capture's launches).
   * :func:`span_totals`: the one readout (it synchronises once): per span
     name its count, host seconds and device seconds (the stream time
     between its events; None on the CPU), each in total and self (less
@@ -177,6 +181,24 @@ def counter(name: str) -> int:
     a device part."""
     acc = _REC.device_counts.get(name)
     return _REC.counts.get(name, 0) + (int(acc) if acc is not None else 0)
+
+
+@contextlib.contextmanager
+def counted_apart():
+    """Keep the host counts made inside the block apart: yields a dict
+    that holds them (``{name: n}``) at the block's end, when the counters
+    are back where they stood before it."""
+    rec = _REC
+    before = dict(rec.counts)
+    made: Dict[str, int] = {}
+    try:
+        yield made
+    finally:
+        for name, n in rec.counts.items():
+            if n != before.get(name, 0):
+                made[name] = n - before.get(name, 0)
+        rec.counts.clear()
+        rec.counts.update(before)
 
 
 def reset() -> None:

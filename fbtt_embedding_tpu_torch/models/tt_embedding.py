@@ -56,17 +56,15 @@ from fbtt_embedding_tpu_torch.ops.indexing import (
 )
 from fbtt_embedding_tpu_torch.ops.kernels import tt_flat
 from fbtt_embedding_tpu_torch.ops.kernels.bag_pool import CacheRows, bag_pool
-from fbtt_embedding_tpu_torch.ops.kernels.tt_flat import (
-    flat_available,
-    flat_train_apply,
-)
+from fbtt_embedding_tpu_torch.ops.kernels.tt_flat import flat_train_apply
 from fbtt_embedding_tpu_torch.ops.lookup import (
-    flat_pad_plan,
-    flat_servable,
+    masked_weights,
     pad_cores_for_flat,
     pool_rows,
     pooled_tt_lookup,
+    route,
     staging_dtype,
+    tt_path_inputs,
     unpad_flat_output,
 )
 from fbtt_embedding_tpu_torch.utils import graphs as graphs_ops
@@ -195,13 +193,6 @@ def _pool_cached_rows(cached_rows, rowidx, tableidx, num_tables, bs,
                     cache=cache).reshape(num_tables, bs, -1)
 
 
-def _masked_weights(mask, weights):
-    """Per-lookup float32 weights: ``weights`` (1 when None) where
-    ``mask``, 0 elsewhere."""
-    w = mask.to(torch.float32)
-    return w if weights is None else w * weights
-
-
 def _cached_pool(out, cache, locations, weights, rowidx, tbl, num_tables,
                  bs, scale=None):
     """``out`` plus the cache-served lookups' rows, pooled; ``scale``: the
@@ -259,8 +250,7 @@ def make_serving_fn(
     int32; ``offsets`` has ``T*bs + 1`` table-major entries. Inputs may be
     numpy arrays or tensors; they are moved to ``device``, where the
     params must already be. Forward only: no counting, no backward state.
-    ``impl`` as in ``pooled_tt_lookup``: "auto" takes the flat pipeline,
-    "pallas" the generic kernel B4.
+    ``impl`` as ``ops.lookup.route`` resolves it.
 
     ``probe_cache`` with a cache in the params: lookups the cache holds are
     served from its rows; on the flat pipeline they are dead lookups the
@@ -277,28 +267,22 @@ def make_serving_fn(
     def serve(params: TTEmbeddingParams, indices, offsets, weights=None, *,
               bs: int = batch_size):
         cache = params.cache if probe_cache else None
-        indices = torch.as_tensor(indices, device=device)
+        indices, parts, nnz, keys = _lookup_inputs(indices, ndim, device)
         offsets = torch.as_tensor(offsets, device=device)
         if weights is not None:
             weights = torch.as_tensor(weights, device=device,
                                       dtype=torch.float32)
-        parts, keys = None, indices
-        if indices.dim() == 2:
-            parts, keys, nnz = split_wide_keyrows(indices, ndim)
-            indices = None
-        else:
-            nnz = indices.shape[0]
         rowidx, tableidx = rowidx_from_offsets(offsets, nnz, num_tables, bs)
         tbl = tableidx if num_tables > 1 else None
         locations = _probe(cache, keys)
         _count_lookups(nnz, locations)
+        # the JAX serve's skip rule: the generic serve packs nothing
         dead, w_p = None, weights
         if locations is not None:
-            if impl in ("auto", "pallas_sorted") and flat_servable(
-                    *shapes, num_tables, bs):
+            if route(*shapes, num_tables, bs, impl).kind == "flat":
                 dead = locations >= 0
             else:
-                w_p = _masked_weights(locations < 0, weights)
+                w_p = masked_weights(locations < 0, weights)
         out = pooled_tt_lookup(
             params.tt_cores, *shapes, bs, indices, rowidx, tbl,
             weights=w_p, precision=precision, impl=impl, dead_mask=dead,
@@ -349,11 +333,12 @@ def _frozen_cache(cache: Optional[CacheState], quantized: bool):
                       cache.opt_state.new_zeros((0,))), scale
 
 
-def _frozen_params(params: TTEmbeddingParams) -> TTEmbeddingParams:
-    """A copy of the cores and the cache (the serve reads nothing else)."""
-    return TTEmbeddingParams(tuple(c.detach().clone()
-                                   for c in params.tt_cores), (),
-                             _frozen_cache(params.cache, False)[0])
+def _fallback_fold(params: TTEmbeddingParams) -> FoldedServingParams:
+    """A fallback-mode fold: a copy of the cores and the cache (the serve
+    reads nothing else)."""
+    return FoldedServingParams(params=TTEmbeddingParams(
+        tuple(c.detach().clone() for c in params.tt_cores), (),
+        _frozen_cache(params.cache, False)[0]))
 
 
 def make_folded_serving_fn(
@@ -405,46 +390,33 @@ def make_folded_serving_fn(
     dequantized after each row gather; B1 and the staging dtype do not
     change.
 
-    The JAX package's configuration fallback is kept: with ``impl`` other
-    than "auto" / "pallas_sorted", or a config the flat pipeline cannot
-    serve even padded, ``fold`` carries a copy of the params and ``serve``
-    is :func:`make_serving_fn` (a quantized fallback fold logs a warning
-    and is not quantized)."""
+    The JAX package's configuration fallback is kept: where
+    ``ops.lookup.route`` does not give ``impl`` the flat pipeline, ``fold``
+    carries a copy of the params and ``serve`` is :func:`make_serving_fn`
+    (a quantized fallback fold logs a warning and is not quantized)."""
     if quantize not in (None, "int8"):
         raise ValueError(
             f"quantize must be None or 'int8', got {quantize!r}")
     p, q = tuple(tt_p_shapes), tuple(tt_q_shapes)
     rfull = tuple(validate_tt_shapes(tt_p_shapes, tt_q_shapes, tt_ranks))
     device = torch.device(device)
-    use_flat = impl in ("auto", "pallas_sorted") and flat_servable(
-        p, q, rfull, num_tables, batch_size)
+    try:
+        rt = route(p, q, rfull, num_tables, batch_size, impl)
+    except ValueError:  # the fallback's serve raises it
+        rt = None
 
-    if not use_flat:
+    if rt is None or rt.kind != "flat":
         if quantize is not None:
             logger.warning(
                 "make_folded_serving_fn(quantize=%r): the flat pipeline does "
                 "not take this config or impl=%r; the fallback fold carries "
                 "the original (unquantized) parameters.", quantize, impl)
-        plain = make_serving_fn(p, q, rfull, num_tables, batch_size,
-                                probe_cache=probe_cache, precision=precision,
-                                impl=impl, device=device)
-
-        def fold_fallback(params: TTEmbeddingParams) -> FoldedServingParams:
-            return FoldedServingParams(params=_frozen_params(params))
-
-        def serve_fallback(fp: FoldedServingParams, indices, offsets,
-                           weights=None, *, bs: Optional[int] = None):
-            return plain(fp.params, indices, offsets, weights,
-                         bs=batch_size if bs is None else bs)
-
-        return fold_fallback, serve_fallback
+        return _fallback_serving(make_serving_fn(
+            p, q, rfull, num_tables, batch_size, probe_cache=probe_cache,
+            precision=precision, impl=impl, device=device), batch_size)
 
     cdt = staging_dtype(device, precision)
-    use_q, use_r = q, rfull
-    pad = None
-    if not flat_available(p, q, rfull, num_tables, batch_size):
-        pad = flat_pad_plan(p, q, rfull, batch_size)
-        use_q, use_r = q[:-1] + (pad[1],), tuple(pad[0])
+    use_q, use_r, pad = rt.q, rt.r, rt.pad
     itemsize = torch.empty((), dtype=cdt).element_size()
     pair = tt_flat.pair_structural_ok(num_tables, p, use_q, use_r, itemsize)
 
@@ -582,6 +554,18 @@ def make_folded_serving_fn(
     return fold, serve
 
 
+def _fallback_serving(plain, batch_size: int):
+    """The folded serves' fallback mode: ``(_fallback_fold, serve)``,
+    ``serve`` ``plain`` (:func:`make_serving_fn`) on the fold's copy."""
+
+    def serve(fp: FoldedServingParams, indices, offsets, weights=None, *,
+              bs: Optional[int] = None):
+        return plain(fp.params, indices, offsets, weights,
+                     bs=batch_size if bs is None else bs)
+
+    return _fallback_fold, serve
+
+
 def _signature(x):
     """What of a request's tensor (or tuple of tensors, or None) its
     launches depend on: shapes and dtypes."""
@@ -602,7 +586,7 @@ def refold_cache(fp: FoldedServingParams,
     also marks a fold frozen before the cache existed) quantizes the new
     cache's rows."""
     if fp.setup is None:
-        return FoldedServingParams(params=_frozen_params(params))
+        return _fallback_fold(params)
     quantized = fp.cache_scale is not None or isinstance(fp.setup[1], tuple)
     with torch.no_grad():
         cache, cache_scale = _frozen_cache(params.cache, quantized)
@@ -755,15 +739,12 @@ def make_fused_train_step(
     Inputs may be numpy arrays or tensors and go to ``device``, where the
     params must be.
 
-    At nnz <= 32768 (or as ``FBTT_FUSED_APPLY`` "0" / "1" says) on a
-    config the flat pipeline takes unpadded, the step runs
-    ``flat_train_apply`` (kernels B1, B2, B3 on the card, their plain
-    versions on the CPU); otherwise autograd through ``pooled_tt_lookup``:
-    the flat ``FlatLookup``, with ``impl="pallas"`` the generic
-    ``GenericLookup`` (kernel B4 forward, B5 backward, float32; it raises
-    on a config those kernels cannot take), or, with ``impl="xla"`` or a
-    config the flat path cannot take, the plain ``tt_rows`` chain.
-    ``precision="highest"`` stages the flat path in float32 on the card
+    The lookup takes the path ``ops.lookup.route`` gives ``impl``. On the
+    flat pipeline unpadded, at nnz <= 32768 (or as ``FBTT_FUSED_APPLY``
+    "0" / "1" says), the step runs ``flat_train_apply`` (kernels B1, B2, B3
+    on the card, their plain versions on the CPU); otherwise autograd
+    through ``pooled_tt_lookup`` (``FlatLookup``, ``GenericLookup``, or the
+    plain ``tt_rows`` chain). ``precision="highest"`` stages the flat path in float32 on the card
     (bfloat16 by default).
 
     The LFU cache (``params.cache``, single table; flat row ids, or wide
@@ -774,9 +755,8 @@ def make_fused_train_step(
     ``probe_cache`` the lookups the cache holds are served from its rows
     and updated there, by the optimizer's family under either semantics
     (SGD; ``EXACT_ADAGRAD`` with full ``[C, D]`` state; every other name
-    row-wise Adagrad with ``[C]`` state), while the TT path skips them:
-    dead lookups on the flat pipeline, packed after ``live_count`` with
-    ``impl="pallas"`` (flat row ids), weight 0 otherwise. A tuple of index
+    row-wise Adagrad with ``[C]`` state), while the TT path skips them
+    (``ops.lookup.tt_path_inputs``). A tuple of index
     parts with ``use_cache`` or ``probe_cache`` raises ValueError, as does
     a key layout the cache does not take (flat ids and a wide cache, wide
     rows and another).
@@ -831,29 +811,6 @@ def make_fused_train_step(
     return step
 
 
-def _live_first(locations, indices, rowidx, tbl, weights):
-    """Lookups repacked live (not cache-served) first, for the generic
-    kernels' ``live_count``: ``(indices, rowidx, tableidx, weights,
-    live_count [1])``, the cache-served lookups after the live ones with
-    weight 0."""
-    cached = locations >= 0
-    alive = ~cached
-    live_count = alive.to(torch.int32).sum()
-    tt_pos = torch.cumsum(alive.to(torch.int32), 0) - 1
-    c_pos = live_count + torch.cumsum(cached.to(torch.int32), 0) - 1
-    pos = torch.where(alive, tt_pos, c_pos).long()
-
-    def packed(a):
-        if a is None:
-            return None
-        out = torch.empty_like(a)
-        out[pos] = a
-        return out
-
-    return (packed(indices), packed(rowidx), packed(tbl),
-            packed(_masked_weights(alive, weights)), live_count.reshape(1))
-
-
 def _count_and_probe(cache: Optional[CacheState], keys, count: bool,
                      probe: bool, scale: int):
     """LFU counting of ``keys`` (flat row ids, or wide key rows for a wide
@@ -865,27 +822,6 @@ def _count_and_probe(cache: Optional[CacheState], keys, count: bool,
         if count:
             cache_ops.update_cache_state(cache, keys, scale=scale)
         return cache_ops.cache_lookup(cache, keys) if probe else None
-
-
-def _tt_path_inputs(locations, impl: str, shapes, num_tables: int, bs: int,
-                    indices, parts, rowidx, tbl, weights):
-    """The TT path's lookups: ``(indices, rowidx, tableidx, weights,
-    dead_mask, live_count)``. Without cache rows (``locations`` None) the
-    lookups as given. Else the TT path skips the cache-served lookups: the
-    flat pipeline sorts them into its dead span (``dead_mask``), the
-    generic kernels (``impl="pallas"``, flat row ids) skip the blocks past
-    ``live_count`` (live lookups packed first), the plain path weighs them
-    0."""
-    if locations is None:
-        return indices, rowidx, tbl, weights, None, None
-    if impl in ("auto", "pallas_sorted") and flat_servable(*shapes,
-                                                           num_tables, bs):
-        return indices, rowidx, tbl, weights, locations >= 0, None
-    if impl == "pallas" and parts is None:
-        *packed, live = _live_first(locations, indices, rowidx, tbl, weights)
-        return (*packed, None, live)
-    return (indices, rowidx, tbl, _masked_weights(locations < 0, weights),
-            None, None)
 
 
 def _fused_apply_gate(nnz: int) -> bool:
@@ -904,18 +840,16 @@ def _forward_backward(cores, shapes, num_tables: int, bs: int, impl: str,
     """The training step's TT lookup and its core gradients for
     ``d_output``, before any update: ``(output [T, bs, D] without the cache
     rows, grads)``. Where :func:`_fused_apply_gate` allows, on a config the
-    flat pipeline takes, ``flat_train_apply`` (B1, B2, B3 on the card);
-    else autograd through ``pooled_tt_lookup`` (``FlatLookup``, the generic
-    ``GenericLookup`` under ``impl="pallas"``, or the plain chain). The
-    cache-served lookups (``locations``) are skipped as
-    :func:`_tt_path_inputs` says."""
-    nnz = rowidx.shape[0]
-    indices_p, rowidx_p, tbl_p, w_p, dead, live = _tt_path_inputs(
-        locations, impl, shapes, num_tables, bs, indices, parts, rowidx,
-        tbl, weights)
-    if (impl in ("auto", "pallas_sorted")
-            and _fused_apply_gate(nnz)
-            and flat_available(*shapes, num_tables, bs)):
+    flat pipeline takes unpadded, ``flat_train_apply`` (B1, B2, B3 on the
+    card); else autograd through ``pooled_tt_lookup`` (``FlatLookup``, the
+    generic ``GenericLookup`` under ``impl="pallas"``, or the plain chain).
+    The cache-served lookups (``locations``) are skipped as
+    ``ops.lookup.tt_path_inputs`` says."""
+    rt = route(*shapes, num_tables, bs, impl)
+    indices_p, rowidx_p, tbl_p, w_p, dead, live = tt_path_inputs(
+        rt, locations, indices, parts, rowidx, tbl, weights)
+    if (rt.kind == "flat" and rt.pad is None
+            and _fused_apply_gate(rowidx.shape[0])):
         with torch.no_grad():  # the gradients come out explicitly
             return flat_train_apply(
                 cores, *shapes, bs, indices_p, rowidx_p, tbl_p, w_p, dead,
@@ -1363,7 +1297,6 @@ class TableBatchedTTEmbeddingBag(nn.Module):
         ``use_cache`` one pass (``wide_keyrows``) gives both the cache's key
         rows and the lookup's parts."""
         dev = self._device()
-        shapes = (self.tt_p_shapes, self.tt_q_shapes, self.tt_ranks)
         t = self.num_tables
         parts = None
         if self._big_e and self.use_cache:
@@ -1397,9 +1330,10 @@ class TableBatchedTTEmbeddingBag(nn.Module):
         locations = _count_and_probe(
             cache, keys, count, self.use_cache and not warm and t == 1,
             self.cache_count_interval)
-        ctx = dict(lookup=_tt_path_inputs(locations, self.impl, shapes, t,
-                                          bs, indices, parts, rowidx, tbl,
-                                          weights) + (parts,),
+        rt = route(self.tt_p_shapes, self.tt_q_shapes, self.tt_ranks, t, bs,
+                   self.impl)
+        ctx = dict(lookup=tt_path_inputs(rt, locations, indices, parts,
+                                         rowidx, tbl, weights) + (parts,),
                    rowidx=rowidx, tableidx=tbl, locations=locations,
                    weights=weights, batch_size=bs, graph=None)
         out = self._tt_lookup(ctx)

@@ -2,11 +2,12 @@
 
 Counterpart of ``fbtt_embedding_tpu.ops.lookup``: sum pooling, the
 odd-rank padding that lets any tt_ndim 2-4 config take the flat pipeline,
-the ``pooled_tt_lookup`` dispatch between the flat sorted-run pipeline
-(``ops/kernels/tt_flat.py``: kernel B1 forward, B3 backward), the generic
-per-lookup kernels (``impl="pallas"``, :class:`GenericLookup`: kernel B4
-forward, B5 backward) and the plain ``tt_rows`` path, all differentiable
-with respect to the cores; and the dense-mode exports (``tt_forward``,
+:func:`route`, which picks the TT path of a call (the flat sorted-run
+pipeline, ``ops/kernels/tt_flat.py``: kernel B1 forward, B3 backward; the
+generic per-lookup kernels, :class:`GenericLookup`: B4 forward, B5
+backward; or the plain ``tt_rows`` path) and :func:`tt_path_inputs`, how
+cache-served lookups skip it; ``pooled_tt_lookup``, differentiable with
+respect to the cores; and the dense-mode exports (``tt_forward``,
 ``tt_embedding_bag_forward``, ``tt_grads_from_row_cotangents``,
 ``tt_dense_backward``), torch autograd through ``tt_rows`` as the JAX
 package's are XLA autodiff.
@@ -14,8 +15,9 @@ package's are XLA autodiff.
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import List, Optional, Sequence
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -210,13 +212,8 @@ def pad_cores_for_flat(tt_cores, tt_p_shapes, tt_q_shapes, ranks, plan):
 def flat_servable(tt_p_shapes, tt_q_shapes, ranks, num_tables,
                   batch_size) -> bool:
     """Whether the flat pipeline takes this config, padded if need be."""
-    if flat_available(tt_p_shapes, tt_q_shapes, ranks, num_tables,
-                      batch_size):
-        return True
-    pad = flat_pad_plan(tt_p_shapes, tt_q_shapes, ranks, batch_size)
-    return pad is not None and flat_available(
-        tt_p_shapes, tuple(tt_q_shapes[:-1]) + (pad[1],), pad[0], num_tables,
-        pad[2])
+    return _route(tuple(tt_p_shapes), tuple(tt_q_shapes), tuple(ranks),
+                  num_tables, batch_size, "pallas_sorted") is not None
 
 
 def unpad_flat_output(out: torch.Tensor, batch_size: int, padded_q,
@@ -237,6 +234,111 @@ def staging_dtype(device: torch.device, precision: Optional[str]):
     if torch.device(device).type == "cpu" or precision == "highest":
         return torch.float32
     return torch.bfloat16
+
+
+class Route(NamedTuple):
+    """A lookup's TT path (:func:`route`): ``kind`` "flat", "generic" or
+    "plain"; the widths ``q``, full ranks ``r`` and batch ``b`` its
+    kernels run at, padded by ``pad`` (a :func:`flat_pad_plan`, or None)."""
+
+    kind: str
+    q: Tuple[int, ...]
+    r: Tuple[int, ...]
+    b: int
+    pad: Optional[tuple] = None
+
+
+@functools.lru_cache(maxsize=256)
+def _route(p, q, r, t: int, b: int, impl: str) -> Optional[Route]:
+    if impl == "pallas":
+        return (Route("generic", q, r, b)
+                if generic_available(p, q, r, t, b) else None)
+    if impl in ("auto", "pallas_sorted"):
+        if flat_available(p, q, r, t, b):
+            return Route("flat", q, r, b)
+        pad = flat_pad_plan(p, q, r, b)
+        qp = q[:-1] + (pad[1],) if pad is not None else q
+        if pad is not None and flat_available(p, qp, pad[0], t, pad[2]):
+            return Route("flat", qp, pad[0], pad[2], pad)
+        if impl == "pallas_sorted":
+            return None
+    return Route("plain", q, r, b)
+
+
+def route(tt_p_shapes, tt_q_shapes, tt_ranks, num_tables: int,
+          batch_size: int, impl: str) -> Route:
+    """Which TT path serves ``num_tables`` tables of ``batch_size`` bags
+    under ``impl`` (names as in the JAX package): "auto" and
+    "pallas_sorted" the flat sorted-run pipeline, zero-padding odd ranks,
+    the last q-dim and the batch to its width gates; where even padding
+    cannot serve the config, "auto" the plain path and "pallas_sorted" a
+    ValueError. "pallas" the generic kernels (float32), or a ValueError;
+    "xla" the plain ``tt_rows`` chain. Unlike the JAX package's, "auto"
+    never picks the generic kernels: the flat pipeline here has no span
+    cap or VMEM budget, so it takes every tt_ndim 2-4 config they would.
+    An unknown ``impl`` or invalid shapes raise ValueError too."""
+    ranks = validate_tt_shapes(tt_p_shapes, tt_q_shapes, tt_ranks)
+    if impl not in ("auto", "pallas_sorted", "pallas", "xla"):
+        raise ValueError(f"unknown impl {impl!r}")
+    rt = _route(tuple(tt_p_shapes), tuple(tt_q_shapes), tuple(ranks),
+                num_tables, batch_size, impl)
+    if rt is None:
+        raise ValueError(
+            ("impl='pallas': the generic kernels cannot serve this config "
+             if impl == "pallas" else "impl='pallas_sorted' cannot serve "
+             "this config even with rank/dim padding ")
+            + f"(p={tt_p_shapes}, q={tt_q_shapes}, ranks={ranks}, "
+            f"T={num_tables}, B={batch_size})")
+    return rt
+
+
+def masked_weights(mask, weights):
+    """Per-lookup float32 weights: ``weights`` (1 when None) where
+    ``mask``, 0 elsewhere."""
+    w = mask.to(torch.float32)
+    return w if weights is None else w * weights
+
+
+def _live_first(locations, indices, rowidx, tbl, weights):
+    """Lookups repacked live (not cache-served) first, for the generic
+    kernels' ``live_count``: ``(indices, rowidx, tableidx, weights, None,
+    live_count [1])``, the cache-served lookups after the live ones with
+    weight 0."""
+    cached = locations >= 0
+    alive = ~cached
+    live_count = alive.to(torch.int32).sum()
+    tt_pos = torch.cumsum(alive.to(torch.int32), 0) - 1
+    c_pos = live_count + torch.cumsum(cached.to(torch.int32), 0) - 1
+    pos = torch.where(alive, tt_pos, c_pos).long()
+
+    def packed(a):
+        if a is None:
+            return None
+        out = torch.empty_like(a)
+        out[pos] = a
+        return out
+
+    return (packed(indices), packed(rowidx), packed(tbl),
+            packed(masked_weights(alive, weights)), None,
+            live_count.reshape(1))
+
+
+def tt_path_inputs(rt: Route, locations, indices, parts, rowidx, tbl,
+                   weights):
+    """The lookups the TT path on route ``rt`` takes: ``(indices, rowidx,
+    tableidx, weights, dead_mask, live_count)``, the cache-served ones
+    (``locations >= 0``; None: no cache) skipped: the flat pipeline sorts
+    them into its dead span, the generic kernels (flat row ids) skip the
+    blocks past ``live_count`` (live lookups packed first), else weight
+    0."""
+    if locations is None:
+        return indices, rowidx, tbl, weights, None, None
+    if rt.kind == "flat":
+        return indices, rowidx, tbl, weights, locations >= 0, None
+    if rt.kind == "generic" and parts is None:
+        return _live_first(locations, indices, rowidx, tbl, weights)
+    return (indices, rowidx, tbl, masked_weights(locations < 0, weights),
+            None, None)
 
 
 def pooled_tt_lookup(
@@ -260,17 +362,8 @@ def pooled_tt_lookup(
     ``FlatLookup``, padding included; the generic path through
     ``GenericLookup``; the plain path through torch's own autograd).
 
-    ``impl``: "auto" and "pallas_sorted" take the flat sorted-run pipeline
-    (its kernel on a CUDA tensor, the kernel's plain version on a CPU
-    tensor), zero-padding odd ranks to its width gates; "pallas_sorted"
-    raises where even padding cannot serve the config, "auto" then takes
-    the plain path. "pallas" takes the generic per-lookup kernels (B4
-    forward, B5 backward; float32, any ranks) and raises where they
-    cannot serve the config. "xla" is the plain ``tt_rows``
-    gather-and-chain path (names as in the JAX package). Unlike the JAX
-    package's, this "auto" never picks the generic kernels: the flat
-    pipeline here has no span cap or VMEM budget, so it takes every
-    tt_ndim 2-4 config that the generic kernels would.
+    ``impl`` as :func:`route` resolves it: the flat pipeline's kernels on a
+    CUDA tensor, their plain versions on a CPU tensor.
 
     ``precision``: None stages the flat path's intermediates in bfloat16 on
     the card; "highest" stages them in float32 (the generic kernels always
@@ -280,54 +373,28 @@ def pooled_tt_lookup(
     ignores them (its caller zeroes such lookups' weights)."""
     ranks = validate_tt_shapes(tt_p_shapes, tt_q_shapes, tt_ranks)
     num_tables = tt_cores[0].shape[0]
-    if impl not in ("auto", "pallas_sorted", "pallas", "xla"):
-        raise ValueError(f"unknown impl {impl!r}")
-    if impl == "auto":
-        impl = ("pallas_sorted" if flat_servable(
-            tt_p_shapes, tt_q_shapes, ranks, num_tables, batch_size)
-            else "xla")
-    if impl == "xla":
+    rt = route(tt_p_shapes, tt_q_shapes, ranks, num_tables, batch_size, impl)
+    if rt.kind == "plain":
         return tt_forward(tt_cores, tt_p_shapes, tt_q_shapes, ranks,
                           batch_size, indices, rowidx, tableidx, weights,
                           idx_parts)
-    if impl == "pallas":
-        if not generic_available(tt_p_shapes, tt_q_shapes, ranks, num_tables,
-                                 batch_size):
-            raise ValueError(
-                "impl='pallas': the generic kernels cannot serve this config "
-                f"(p={tt_p_shapes}, q={tt_q_shapes}, ranks={ranks}, "
-                f"T={num_tables}, B={batch_size})")
+    if rt.kind == "generic":
         parts = tuple(idx_parts) if idx_parts is not None else tuple(
             decompose_indices(indices, tt_p_shapes))
-        cfg = (tuple(tt_p_shapes), tuple(tt_q_shapes), tuple(ranks),
-               batch_size)
+        cfg = (tuple(tt_p_shapes), rt.q, rt.r, batch_size)
         return GenericLookup.apply(cfg, parts, rowidx, tableidx, weights,
                                    live_count, dead_mask, *tt_cores)
 
-    cdt = staging_dtype(rowidx.device, precision)
-    aux = dead_mask if dead_mask is not None else live_count
-    use_q, use_r, use_b = tuple(tt_q_shapes), tuple(ranks), batch_size
-    pad = None
-    if not flat_available(tt_p_shapes, use_q, use_r, num_tables, batch_size):
-        if not flat_servable(tt_p_shapes, tt_q_shapes, ranks, num_tables,
-                             batch_size):
-            raise ValueError(
-                "impl='pallas_sorted' cannot serve this config even with "
-                f"rank/dim padding (p={tt_p_shapes}, q={tt_q_shapes}, "
-                f"ranks={ranks}, T={num_tables}, B={batch_size})")
-        pad = flat_pad_plan(tt_p_shapes, tt_q_shapes, ranks, batch_size)
-        cores_use = pad_cores_for_flat(tt_cores, tt_p_shapes, tt_q_shapes,
-                                       ranks, pad)
-        use_q = tuple(tt_q_shapes[:-1]) + (pad[1],)
-        use_r, use_b = tuple(pad[0]), pad[2]
-    else:
-        cores_use = tuple(tt_cores)
+    cores_use = tuple(tt_cores) if rt.pad is None else pad_cores_for_flat(
+        tt_cores, tt_p_shapes, tt_q_shapes, ranks, rt.pad)
     key_in = tuple(idx_parts) if idx_parts is not None else indices
     out = flat_forward(
-        cores_use, key_in, rowidx, tableidx, weights, aux, tt_p_shapes,
-        use_q, use_r, num_tables, use_b, compute_dtype=cdt,
+        cores_use, key_in, rowidx, tableidx, weights,
+        dead_mask if dead_mask is not None else live_count, tt_p_shapes,
+        rt.q, rt.r, num_tables, rt.b,
+        compute_dtype=staging_dtype(rowidx.device, precision),
         live_is_mask=dead_mask is not None,
         parts_mode=idx_parts is not None)
-    if pad is not None:
-        out = unpad_flat_output(out, batch_size, use_q, tt_q_shapes[-1])
+    if rt.pad is not None:
+        out = unpad_flat_output(out, batch_size, rt.q, tt_q_shapes[-1])
     return out

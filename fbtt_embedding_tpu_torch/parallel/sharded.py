@@ -52,12 +52,10 @@ from fbtt_embedding_tpu_torch.models.tt_embedding import (
     TTEmbeddingParams,
     _cached_pool,
     _count_and_probe,
+    _fallback_serving,
     _forward_backward,
-    _frozen_params,
-    _masked_weights,
     _native_semantics,
     _pool_cached_rows,
-    _tt_path_inputs,
     _update_cores,
     _SGD_OPTIMS,
     make_folded_serving_fn,
@@ -75,7 +73,12 @@ from fbtt_embedding_tpu_torch.ops.indexing import (
     pad_csr_to_fixed,
     split_wide_keyrows,
 )
-from fbtt_embedding_tpu_torch.ops.lookup import pooled_tt_lookup
+from fbtt_embedding_tpu_torch.ops.lookup import (
+    masked_weights,
+    pooled_tt_lookup,
+    route,
+    tt_path_inputs,
+)
 from fbtt_embedding_tpu_torch.parallel.collectives import (
     all_gather_cat,
     all_reduce_sum,
@@ -465,11 +468,11 @@ def _lookup_skipping(cores, shapes, num_tables: int, bs: int, flat, rowidx,
                      tbl, locations, precision):
     """The pooled TT lookup of every lookup the cache does not serve
     (``locations`` < 0), skipped as the single-device step skips them
-    (``_tt_path_inputs``: dead lookups on the flat pipeline, weight 0
-    elsewhere); differentiable with respect to ``cores``."""
-    flat, rowidx, tbl, w, dead, _ = _tt_path_inputs(
-        locations, "auto", shapes, num_tables, bs, flat, None, rowidx, tbl,
-        None)
+    (``ops.lookup.tt_path_inputs``: dead lookups on the flat pipeline,
+    weight 0 elsewhere); differentiable with respect to ``cores``."""
+    flat, rowidx, tbl, w, dead, _ = tt_path_inputs(
+        route(*shapes, num_tables, bs, "auto"), locations, flat, None,
+        rowidx, tbl, None)
     return pooled_tt_lookup(cores, *shapes, bs, flat, rowidx, tbl, weights=w,
                             precision=precision, dead_mask=dead)
 
@@ -685,16 +688,10 @@ def make_dp_serving_fn(
                 "make_dp_serving_fn(quantize=%r, folded=False): quantization "
                 "applies to the folded path only; each rank serves the "
                 "unquantized parameters.", quantize)
-        plain = make_serving_fn(tt_p_shapes, tt_q_shapes, tt_ranks,
-                                num_tables, bl, probe_cache=probe_cache,
-                                precision=precision, impl=impl,
-                                device=device)
-
-        def fold(params: TTEmbeddingParams) -> FoldedServingParams:
-            return FoldedServingParams(params=_frozen_params(params))
-
-        def serve_local(fp, indices, offsets, weights=None):
-            return plain(fp.params, indices, offsets, weights)
+        fold, serve_local = _fallback_serving(make_serving_fn(
+            tt_p_shapes, tt_q_shapes, tt_ranks, num_tables, bl,
+            probe_cache=probe_cache, precision=precision, impl=impl,
+            device=device), bl)
 
     def serve(fp: FoldedServingParams, indices, weights=None):
         indices = torch.as_tensor(indices, device=device)
@@ -978,7 +975,7 @@ def make_row_owned_fused_train_step(
             params.tt_cores, shapes, 1, bl, "auto", precision, device, loc,
             flat, None, rowidx, None, w, d_output)
         output = output + _pool_cached_rows(
-            rows * _masked_weights(loc >= 0, w)[:, None], rowidx, None, 1, bl)
+            rows * masked_weights(loc >= 0, w)[:, None], rowidx, None, 1, bl)
         if dp > 1:
             grads = all_reduce_sum(grads, group)
         new_cores, new_opt = _update_cores(optimizer, params.tt_cores,

@@ -34,7 +34,10 @@ CUDA card and ``nvcc``). Phases, each printing its own lines:
    and bfloat16, twice each and required bitwise equal, on the path B6's
    rule gives (the bfloat16 headline cases must take the tensor cores with
    dz0 over y; the headline's bfloat16 inputs also run on the dz0 tile and
-   the CUDA cores), and B6's path rule asked of the library and of its
+   the CUDA cores), then at the training cell's i1 pass (B=65536, pooling
+   20, Zipf(1.05) ids, tp0 200, bfloat16: twice bitwise, against the
+   plain version block by block, the largest difference within 1e-5 of
+   the largest element), and B6's path rule asked of the library and of its
    Python copy on DG0_RULE_SHAPES, which must agree; the generic
    forward (B4) and backward (B5) in float32 on the headline batch
    (uniform and Zipf 1.05), a tt_ndim-2 model (uniform and Zipf 1.05), a
@@ -103,8 +106,9 @@ CUDA card and ``nvcc``). Phases, each printing its own lines:
    of B=2048 (nnz 40960: autograd through the flat lookup), then one
    Adagrad step of B=512; each step's output and updated cores are held
    against the plain float32 step (``impl="xla", precision="highest"``)
-   run from the same params, with the launches of B1, B2 and B3 checked
-   per step, and TF32 checked off; then ``impl="pallas"`` (B4 forward, B5
+   run from the same params, with the launches of B1, B2, B3 and B6
+   checked per step (B6 takes the i1 pass's gradient from B3 on every
+   flat training path), and TF32 checked off; then ``impl="pallas"`` (B4 forward, B5
    backward, float32) takes two SGD steps of B=512 (uniform, Zipf), one of
    B=2048 and one Adagrad step of B=512, each held against the plain
    float32 step, with B4 and B5 once and B1-B3 never per step; then the
@@ -120,18 +124,19 @@ CUDA card and ``nvcc``). Phases, each printing its own lines:
    steps on the populated cache with ``probe_cache`` (held against the
    plain float32 step from the same params and cache, cores and cache
    rows; the cache-row update run twice and required bitwise equal), each
-   with B1, B2, B3 once; and with ``FBTT_DG0=fused`` steps of B=512,
+   with B1, B2, B6 once; and with ``FBTT_DG0=onehot`` steps of B=512,
    B=1024 (pair mode), B=2048 (autograd) and the cached B=512 step, with
-   B6 once and B3 off the i1 pass;
+   B3 back on the i1 pass and B6 never;
 5a. knobs: ``FBTT_PAIR`` and ``FBTT_FUSED_APPLY`` (``utils/knobs.py``,
    read at every call; ``describe()`` is printed after the device lines):
    the headline counting step (LFU counting on) under each setting of
    KNOB_RUNS, unset and each knob forced both ways at B=512 and B=2048,
    twice from the same state (outputs, cores and counts bitwise equal),
    held against the plain float32 step, with its launches of B1, B2 and
-   B3 checked (B=512: unset 1, 1, 1; ``FBTT_PAIR=1`` 0, 1, 1;
-   ``FBTT_FUSED_APPLY=0`` 2, 0, 2; B=2048: unset 1, 0, 2;
-   ``FBTT_FUSED_APPLY=1`` 0, 1, 1; ``FBTT_PAIR=0`` 2, 0, 2); then each
+   B3 and B6 checked (B=512: unset 1, 1, 0, 1; ``FBTT_DG0=onehot`` 1, 1,
+   1, 0; ``FBTT_PAIR=1`` 0, 1, 0, 1; ``FBTT_FUSED_APPLY=0`` 2, 0, 1, 1;
+   B=2048: unset 1, 0, 1, 1; ``FBTT_FUSED_APPLY=1`` 0, 1, 0, 1;
+   ``FBTT_PAIR=0`` 2, 0, 1, 1); then each
    gate on against off, in turns on, off, off, on (device ms, device
    operations, host ms): ``FBTT_PAIR`` on the counting step over
    KNOB_PAIR_BS and on the DLRM's lookup forward + backward (T=8,
@@ -142,7 +147,7 @@ CUDA card and ``nvcc``). Phases, each printing its own lines:
    0.1 E cached) takes four forward + SGD ``backward`` calls of B=512 at
    pooling 20 (uniform and Zipf 1.05; counts checked exactly against a
    ``torch.bincount``), ``cache_populate()``, then two calls that probe the
-   cache (each printing ``cache_hit_rate()``), one under ``FBTT_DG0=fused``
+   cache (each printing ``cache_hit_rate()``), one under ``FBTT_DG0=onehot``
    and one with ``impl="pallas"``; an ``EXACT_ADAGRAD`` module on the
    populated cache with float32 staging, and in bfloat16 beside the fused
    step on the same state and batch; a ``sparse=False`` module (the core
@@ -151,8 +156,8 @@ CUDA card and ``nvcc``). Phases, each printing its own lines:
    same state (``impl="xla", precision="highest"``): output, cores and
    cache at the step's limits (float32 ones with ``impl="pallas"`` or
    float32 staging), with the launches of the forward and of the backward
-   checked (B1 twice forward, B3 twice backward; B6 for B3's i1 pass under
-   ``FBTT_DG0=fused``; B4 and B5 once with ``impl="pallas"``) and no plain
+   checked (B1 twice forward, B3 and B6 once backward; B3 twice under
+   ``FBTT_DG0=onehot``; B4 and B5 once with ``impl="pallas"``) and no plain
    kernel version or plain lookup run. Then ``full_weight()`` (11M x 64,
    float32) against single-id bags of the forward on 512 sampled rows, an
    ``import_full_weight`` round trip on a 110k-row model, and host-clock
@@ -162,7 +167,7 @@ CUDA card and ``nvcc``). Phases, each printing its own lines:
    "native"``: EXACT_ROWWISE_ADAGRAD, ADAM, PARTIAL_ROWWISE_ADAM, LAMB,
    PARTIAL_ROWWISE_LAMB, LARS_SGD) on the headline model, three counting
    steps each (B=512, pooling 20, uniform and Zipf 1.05; direct-mode LFU
-   counting), B1, B2, B3 once a step: with float32 staging held against
+   counting), B1, B2, B6 once a step: with float32 staging held against
    the plain float32 step (output 1e-4 x max|out|, each core's update
    within 1e-3 of the plain one's largest element plus the float32
    spacing at the core's largest element, the store's rounding, which
@@ -172,13 +177,13 @@ CUDA card and ``nvcc``). Phases, each printing its own lines:
    against the plain one's (>= 0.99; the max relative error printed);
    native SGD and EXACT_ADAGRAD bitwise equal to the reference semantics;
    one native ADAM step with ``impl="pallas"`` (B4, B5) and one under
-   ``FBTT_DG0=fused`` (B6 for B3); one native LAMB step probing the
+   ``FBTT_DG0=onehot`` (B3 for B6); one native LAMB step probing the
    populated headline cache (its rows by row-wise Adagrad, held at 1e-6);
    (b) the wide-key cache on p=[1300, 1300, 1300] (E = 2.197e9, past
    2^31) at the headline widths, ``hashtbl_size`` 2^24, ``cache_size``
    2^20: Zipf(1.05) ranks spread over the ids, three in four at 2^31 or
    above, with pads of both forms; 20 counting steps of the fused SGD step
-   (B1, B2, B3 once each), each distinct valid id found within MAX_PROBES
+   (B1, B2, B6 once each), each distinct valid id found within MAX_PROBES
    of its hash with its key row and the host's count (``np.unique``), the
    parts equal to ``decompose_indices64`` and the pads counted nowhere;
    one batch counted into two copies of the state, bitwise equal; populate
@@ -197,9 +202,10 @@ CUDA card and ``nvcc``). Phases, each printing its own lines:
    full width (8 tables of E=1M, p=[100, 100, 100], q=[4, 4, 4], ranks
    [32, 32]; dense 13, bottom MLP [512, 256, 64], top MLP [512, 256, 1];
    pooling 8, B=512, approx-normal from seed 0): five SGD steps with bf16
-   staging (pair mode: B1 once forward, B3 twice backward), one with
-   float32 staging (B1 twice, B3 twice) and one under ``FBTT_DG0=fused``
-   (B1, B3 and B6 once), each held against the plain float32 step
+   staging (pair mode: B1 once forward, B3 and B6 once backward), one
+   with float32 staging (B1 twice, B3 and B6 once) and one under
+   ``FBTT_DG0=onehot`` (B1 once, B3 twice), each held against the plain
+   float32 step
    (``impl="xla", precision="highest"``) from the same params and batch:
    the loss and the pooled embeddings within 5e-3, the logits within
    DLRM_LOGIT_TOL of their largest, and each leaf's update by its cosine
@@ -210,15 +216,16 @@ CUDA card and ``nvcc``). Phases, each printing its own lines:
    ``save_npz`` / ``restore_npz`` into params from seed 99, the forward
    bitwise equal; ``guard_step(every=2)`` over four steps, and a NaN in core
    1 named by ``assert_finite``; ``examples.train_dlrm.main(["--steps",
-   "40"])`` (loss must fall; B1 43, B3 80); ``python -m
+   "40"])`` (loss must fall; B1 43, B3 40, B6 40); ``python -m
    fbtt_embedding_tpu_torch.benchmark`` in process at its defaults (the
-   reference headline, LFU counting on) with ``--run-baseline`` (B1, B2, B3
+   reference headline, LFU counting on) with ``--run-baseline`` (B1, B2, B6
    113 times each: 3 + 10 + 100 steps) and with ``--impl pallas`` (B4, B5
    113 each), its us/nnz beside ``speed_of_light``; then the DLRM step's
    device ms, device operations and host ms, the device ms split into the
    lookup's forward + backward (``FBTT_PAIR`` unset, pair mode by nza,
    against "0", in turns; its
-   pair-table build, bag_pool and one-hot dG0 product) and the MLPs
+   pair-table build and bag_pool; beside it the one-hot dG0 product that
+   B6 replaces) and the MLPs
    with the interaction;
 5e. multi: ``torch.distributed`` worlds on the one card, each rank a
    fresh process (``chip_smoke.py --multi-child ...``; the kernels and the
@@ -230,17 +237,17 @@ CUDA card and ``nvcc``). Phases, each printing its own lines:
    ``cache_size`` E / 10), global B=1024 at pooling 20, run twice from the
    same state (bitwise equal), the replicas' cores equal
    (``assert_replicas_agree``), the launches equal to one device's on the
-   rank's block (B1, B2, B3; pair mode at 1024 a rank: B2, B3) and no
+   rank's block (B1, B2, B6; pair mode at 1024 a rank: B2, B6) and no
    plain version, the gathered output and the cores held against the
    single-device step on the whole batch (``hold_step``'s limits), the
    counts equal to its counts; then ten Zipf(1.05) batches from the
    native ``PrefetchLoader`` through ``csr_step_adapter`` (its output
-   bitwise the fixed batch's; B2 and B3 once a step), the loader's
+   bitwise the fixed batch's; B2 and B6 once a step), the loader's
    batches/s alone and the step rate with it. On the world of 2 also the
    table-sharded DLRM at DLRM_KW on a ``(dp, mp) = (1, 2)`` mesh, twice
    (bitwise equal), held against the single-device DLRM step (loss at
    OUT_TOL, logits at DLRM_LOGIT_TOL, each leaf's update by its cosine),
-   B1 and B3 launched, and ``examples.train_dlrm --steps 40 --mesh 1,2``
+   B1 and B6 launched, and ``examples.train_dlrm --steps 40 --mesh 1,2``
    (the loss must fall). Then on both worlds, with the LFU cache counted
    on 20 Zipf(1.05) batches of B=512 and populated (``cache_size`` E / 10,
    a multiple of the ranks) and a Zipf(1.05) global batch of 1024: the
@@ -797,6 +804,123 @@ def i0_rows(rng, runs, p_rows, nza, tp0, zipf):
           else rng.integers(0, tp0, size=nza))
     i0[int(runs[p_rows]):] = tp0
     return torch.as_tensor(i0.astype(np.int32), device="cuda")
+
+
+# B6 at the e11m-train-b65536-zipf step's i1 pass: B=65536, pooling 20,
+# Zipf(1.05) ids over E = p0 * p1 * p2 (nza 1,310,720, nseg 20480, tp0 200)
+DG0_TRAIN = ("training cell i1, B=65536 pooling 20 zipf ids", 4, 32, 128,
+             220, 65536 * 20, 200)
+DG0_TRAIN_P = (200, 220, 250)
+
+
+def train_case(seed, nza, blocks, bw_x, bw_y, p_rows, tp0):
+    """B6's inputs at the training step's i1 pass, bfloat16: ids
+    Zipf(1.05) over E (``h100_bench.inputs.zipf``'s law, drawn by numpy),
+    sorted by i1 into span tables; x, y and the table random normal, scaled
+    as ``span_case`` scales them. Returns ``(runs, first, cnt, x, y, table,
+    i0c)``."""
+    import numpy as np
+    import torch
+
+    from fbtt_embedding_tpu_torch.ops.kernels.tt_flat import (
+        SEG,
+        SPAN_BLOCK,
+        _span_table,
+    )
+
+    p0, p1, p2 = DG0_TRAIN_P
+    assert p_rows == p1 and tp0 == p0
+    rng = np.random.default_rng(seed)
+    ids = rng.zipf(1.05, size=nza) % (p0 * p1 * p2)
+    i1 = (ids // p2) % p1
+    order = np.argsort(i1, kind="stable")
+    keys = torch.as_tensor(i1[order].astype(np.int32), device="cuda")
+    i0c = torch.as_tensor((ids[order] // (p1 * p2)).astype(np.int32),
+                          device="cuda")
+    runs, first, cnt = _span_table(keys, p_rows, nza // SEG)
+    hot = int(np.bincount(i1).max()) * blocks
+    sx = hot ** -0.25
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+
+    def draw(shape, scale):
+        return (torch.randn(shape, generator=g, device="cuda")
+                * scale).to(torch.bfloat16)
+
+    x = draw((nza, blocks * bw_x), sx)
+    y = draw((nza, blocks * bw_y), sx)
+    table = draw(((p_rows + SPAN_BLOCK) * bw_x, bw_y),
+                 1 / (sx * np.sqrt(max(bw_x, bw_y))))
+    table[p_rows * bw_x:] = 0
+    return runs, first, cnt, x, y, table, i0c
+
+
+def dg0_plain_by_rows(runs, first, cnt, x, y, i0c, table, rows=131072,
+                      **kw):
+    """``seg_accum_dg0_plain`` over blocks of ``rows`` sorted rows, the
+    blocks' acc and dG0 added: the plain version where its whole does not
+    fit the card (at the training cell's i1 pass its per-row slabs and
+    outer products take ~45 GB). Each block keeps the spans of ``runs``,
+    shifted to its first row."""
+    from fbtt_embedding_tpu_torch.ops.kernels.seg_accum_dg0 import (
+        seg_accum_dg0_plain,
+    )
+
+    acc = dg0 = None
+    for a in range(0, x.shape[0], rows):
+        b = min(a + rows, x.shape[0])
+        pa, pd = seg_accum_dg0_plain(runs - a, first, cnt, x[a:b], y[a:b],
+                                     i0c[a:b], table, **kw)
+        acc = pa if acc is None else acc + pa
+        dg0 = pd if dg0 is None else dg0 + pd
+    return acc, dg0
+
+
+def check_dg0_train(seg):
+    """B6 at the training cell's i1 pass (nseg 20480, row 0 keyed in
+    nearly every segment, so kernel 3 adds it over every chunk), bfloat16
+    on the rule's path, twice (bitwise equal), held against the plain
+    version block by block (:func:`dg0_plain_by_rows`): for acc and dG0
+    the largest difference within 1e-5 of the largest element (float32
+    sums of up to ~6e5 rows a dG0 row, added in another order). Returns
+    the largest absolute difference."""
+    import torch
+
+    from fbtt_embedding_tpu_torch.ops.kernels.seg_accum_dg0 import (
+        PATH_NAMES,
+        dg0_path,
+        seg_accum_dg0,
+    )
+
+    name, blocks, bw_x, bw_y, p_rows, nza, tp0 = DG0_TRAIN
+    runs, first, cnt, x, y, table, i0c = train_case(
+        27, nza, blocks, bw_x, bw_y, p_rows, tp0)
+    args = (runs, first, cnt, x, y, i0c, table)
+    kw = dict(blocks=blocks, bw_x=bw_x, bw_y=bw_y, p_rows=p_rows, tp0=tp0,
+              seg=seg)
+    got = seg_accum_dg0(*args, **kw)
+    again = seg_accum_dg0(*args, **kw)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        fail(f"seg_accum_dg0 {name}: two runs differ (not bitwise "
+             "repeatable)")
+    del again
+    want = dg0_plain_by_rows(*args, **kw)
+    errs, rel = [], []
+    for out, g, w in zip(("acc", "dG0"), got, want):
+        errs.append((g - w).abs().max().item())
+        rel.append(errs[-1] / w.abs().max().item())
+        if not rel[-1] <= 1e-5:
+            fail(f"seg_accum_dg0 {name} {out}: max |difference| "
+                 f"{rel[-1]:.3e} of the plain version's largest element, "
+                 "above 1e-5")
+    hot = int((i0c.view(-1, seg) == 0).any(1).sum())
+    path = PATH_NAMES[dg0_path(True, seg, blocks, bw_x, bw_y, card=True)]
+    print(f"[kernel] seg_accum_dg0 {name} bfloat16 (nseg {nza // seg}, tp0 "
+          f"{tp0}, row 0 in {hot} segments, {path}): max_abs_err acc, dG0 "
+          f"{errs[0]:.3e}, {errs[1]:.3e}, {rel[0]:.3e}, {rel[1]:.3e} of the "
+          "largest (<= 1e-5), bitwise repeatable, ok")
+    return max(errs)
 
 
 def generic_inputs(rng, p, q, ranks, b, pool, tables=1, zipf=False,
@@ -1522,10 +1646,10 @@ def module_phase(fbt, card, wrappers, request, fused_step):
 
     # warm-up: forward + sparse SGD backward, counting every id
     two = want(B1=2)
-    b3x2 = want(B3=2)
+    bwd_want = want(B3=1, B6=1)  # B6 takes the i1 pass
     warm = [batch(z) for z in (False, True, False, True)]
     for i, bt in enumerate(warm):
-        checked(mod, ref, bt, two, b3x2,
+        checked(mod, ref, bt, two, bwd_want,
                 f"TTEmbeddingBag SGD B={B} pooling {POOL} "
                 f"{'zipf1.05' if i % 2 else 'uniform'} warm-up call {i}")
     want_freq = torch.bincount(torch.cat([bt[0] for bt in warm]),
@@ -1542,7 +1666,7 @@ def module_phase(fbt, card, wrappers, request, fused_step):
     print(f"[module] cache_populate: {int((mod.cache.slots >= 0).sum())} "
           f"rows in {time.perf_counter() - t0:.2f} s, warmup {mod.warmup}")
     for i in range(2):
-        checked(mod, ref, batch(True), two, b3x2,
+        checked(mod, ref, batch(True), two, bwd_want,
                 f"TTEmbeddingBag SGD B={B} zipf1.05 probed call {i}")
 
     # EXACT_ADAGRAD on the populated cache (full [C, D] cache state), from
@@ -1559,7 +1683,7 @@ def module_phase(fbt, card, wrappers, request, fused_step):
     amod.load_state_dict(state)
     amod.warmup = False
     abt = batch(True)
-    checked(amod, aref, abt, two, b3x2,
+    checked(amod, aref, abt, two, bwd_want,
             f"TTEmbeddingBag EXACT_ADAGRAD precision='highest' B={B} "
             "zipf1.05 probed", (F32_OUT_TOL, F32_UPDATE_TOL))
     # (b) bfloat16 staging. Adagrad's first step divides each element by
@@ -1581,7 +1705,7 @@ def module_phase(fbt, card, wrappers, request, fused_step):
     got = counts()
     for k in wrappers:
         launches[k] += got[k]
-    if plains or launches_differ(got, want(B1=2, B3=2)):
+    if plains or launches_differ(got, want(B1=2, B3=1, B6=1)):
         fail(f"module EXACT_ADAGRAD bf16: launches {got}, plain {plains}")
     fstep = fbt.make_fused_train_step(P, Q, R, 1, B, optimizer=ada,
                                       use_cache=True, probe_cache=True,
@@ -1609,10 +1733,10 @@ def module_phase(fbt, card, wrappers, request, fused_step):
     print(line)
     del bmod, aref, state, fused_new
 
-    # FBTT_DG0=fused: B6 takes the i1 pass from B3
-    with knob({"FBTT_DG0": "fused"}):
-        checked(mod, ref, batch(True), two, want(B3=1, B6=1),
-                f"TTEmbeddingBag SGD B={B} zipf1.05 probed, FBTT_DG0=fused")
+    # FBTT_DG0=onehot: B3 takes the i1 pass back from B6
+    with knob({"FBTT_DG0": "onehot"}):
+        checked(mod, ref, batch(True), two, want(B3=2),
+                f"TTEmbeddingBag SGD B={B} zipf1.05 probed, FBTT_DG0=onehot")
 
     # impl="pallas": B4 forward, B5 backward, float32 (live lookups first)
     pmod = fbt.TTEmbeddingBag(E, D, R[1:-1], impl="pallas", **kw)
@@ -1628,7 +1752,7 @@ def module_phase(fbt, card, wrappers, request, fused_step):
     dref = fbt.TTEmbeddingBag(E, D, R[1:-1], sparse=False, **kw, **plain)
     dmod.load_state_dict(mod.state_dict())
     dmod.warmup = False
-    checked(dmod, dref, batch(True), two, b3x2,
+    checked(dmod, dref, batch(True), two, bwd_want,
             f"TTEmbeddingBag sparse=False B={B} zipf1.05 probed")
     del dmod, dref
 
@@ -1638,7 +1762,7 @@ def module_phase(fbt, card, wrappers, request, fused_step):
     tbt = batch(False, tables=2)
     nza = -(-tbt[0].shape[0] // tt_flat.SEG) * tt_flat.SEG
     pair = tt_flat._pair_gate(nza, 2, tuple(P), tuple(Q), tuple(R), 2)
-    checked(tmod, tref, tbt, want(B1=1 if pair else 2), b3x2,
+    checked(tmod, tref, tbt, want(B1=1 if pair else 2), bwd_want,
             f"TableBatchedTTEmbeddingBag T=2 SGD B={B} pooling {POOL} "
             f"uniform ({'pair mode' if pair else 'two-pass'})")
     del tmod, tref
@@ -1824,7 +1948,7 @@ def native_wide_phase(fbt, card, wrappers, request, cores, cache,
         "train_native", "train_wide_cache", "serve_wide_cache",
         "module_wide_cache")}
     plain = dict(impl="xla", precision="highest")
-    flat3 = want(B1=1, B2=1, B3=1)
+    flat3 = want(B1=1, B2=1, B6=1)
 
     def d_out(b=B):
         return torch.as_tensor(rng.standard_normal((1, b, D)),
@@ -1938,7 +2062,7 @@ def native_wide_phase(fbt, card, wrappers, request, cores, cache,
         del runs, prm
 
     # one native ADAM step on the generic kernels (B4, B5; float32) and one
-    # under FBTT_DG0=fused (B6 takes B3's i1 pass)
+    # under FBTT_DG0=onehot (B3 takes B6's i1 pass)
     adam = fbt.OptimType.ADAM
     batch = nbatches[1]
     prm = native_params(adam, cached=False)
@@ -1951,13 +2075,13 @@ def native_wide_phase(fbt, card, wrappers, request, cores, cache,
                      label, store_ulp=True)
     print(hold_state(line, new.optimizer_state, ref.optimizer_state,
                      old.optimizer_state, F32_UPDATE_TOL, label))
-    with knob({"FBTT_DG0": "fused"}):
+    with knob({"FBTT_DG0": "onehot"}):
         prm = native_params(adam, cached=False)
-        label = f"native ADAM FBTT_DG0=fused B={B} zipf1.05 bf16"
+        label = f"native ADAM FBTT_DG0=onehot B={B} zipf1.05 bf16"
         out, new, ref_out, ref, old = stepped(
             "train_native", native_step(adam), native_step(adam, **plain),
-            prm, batch, want(B1=1, B2=1, B6=1), label)
-        print(hold_cosine(f"[native+wide] {label}: launches B1 1 B2 1 B6 1",
+            prm, batch, want(B1=1, B2=1, B3=1), label)
+        print(hold_cosine(f"[native+wide] {label}: launches B1 1 B2 1 B3 1",
                           new, ref, old, label))
 
     # one native LAMB step probing the populated headline cache: the cores
@@ -2199,7 +2323,7 @@ def native_wide_phase(fbt, card, wrappers, request, cores, cache,
         if i == 4:
             mod.cache_populate()
         module_call(fbt, wrappers, paths["module_wide_cache"], mod, mref,
-                    mbatch(), want(B1=2), want(B3=2),
+                    mbatch(), want(B1=2), want(B3=1, B6=1),
                     f"wide TTEmbeddingBag SGD B={B} pooling {POOL} "
                     + ("probed call" if i == 4 else f"warm-up call {i}"),
                     tag="native+wide")
@@ -2373,22 +2497,22 @@ def dlrm_tools_phase(fbt, card, wrappers):
                             ("mlp", "MLP weights and biases")))
             + f" ({limit})")
 
-    # 1. five bf16 steps (pair mode: B1 once forward, B3 twice backward),
-    # one with float32 staging (B1 twice, no pair table), one under
-    # FBTT_DG0=fused (B6 for B3's i1 pass)
+    # 1. five bf16 steps (pair mode: B1 once forward, B3 and B6 once
+    # backward), one with float32 staging (B1 twice, no pair table), one
+    # under FBTT_DG0=onehot (B3 for B6's i1 pass)
     kstep = make_step()
     for i in range(5):
-        checked("train_dlrm", kstep, {}, batches[i], want(B1=1, B3=2),
+        checked("train_dlrm", kstep, {}, batches[i], want(B1=1, B3=1, B6=1),
                 (OUT_TOL, DLRM_LOGIT_TOL, None),
                 f"dlrm SGD step {i} bf16 B={DLRM_B}")
     checked("train_dlrm_f32", make_step(precision="highest"),
-            dict(precision="highest"), batches[5], want(B1=2, B3=2),
+            dict(precision="highest"), batches[5], want(B1=2, B3=1, B6=1),
             (F32_OUT_TOL, F32_OUT_TOL, F32_UPDATE_TOL),
             f"dlrm SGD step float32 staging B={DLRM_B}")
-    with knob({"FBTT_DG0": "fused"}):
+    with knob({"FBTT_DG0": "onehot"}):
         checked("train_dlrm_dg0", kstep, {}, batches[6],
-                want(B1=1, B3=1, B6=1), (OUT_TOL, DLRM_LOGIT_TOL, None),
-                f"dlrm SGD step FBTT_DG0=fused bf16 B={DLRM_B}")
+                want(B1=1, B3=2), (OUT_TOL, DLRM_LOGIT_TOL, None),
+                f"dlrm SGD step FBTT_DG0=onehot bf16 B={DLRM_B}")
     # the step asks nothing of the host: no synchronising call in a step
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
@@ -2442,7 +2566,7 @@ def dlrm_tools_phase(fbt, card, wrappers):
     got = counts()
     for k in wrappers:
         paths["train_dlrm"][k] += got[k]
-    if launches_differ(got, want(B1=4, B3=8)):
+    if launches_differ(got, want(B1=4, B3=4, B6=4)):
         fail(f"guarded steps: launches {got}")
     gparams.tt_cores[1][3, 17, 5] = float("nan")
     if bool(guard.finite_flag(gparams)):
@@ -2467,7 +2591,7 @@ def dlrm_tools_phase(fbt, card, wrappers):
     torch.cuda.synchronize()
     got = counts()
     paths["dlrm_walkthrough"] = got
-    if plains or launches_differ(got, want(B1=43, B3=80)):
+    if plains or launches_differ(got, want(B1=43, B3=40, B6=40)):
         fail(f"walkthrough: launches {got}, plain versions {plains}")
     if not res["last_loss"] < res["first_loss"]:
         fail(f"walkthrough: loss did not fall ({res['first_loss']} -> "
@@ -2483,7 +2607,7 @@ def dlrm_tools_phase(fbt, card, wrappers):
     steps = 3 + 10 + 100  # the slope's warm-up, k1 and k2
     for path, argv, expect in (
             ("cli", ["--iters", "100", "--run-baseline"],
-             want(B1=steps, B2=steps, B3=steps)),
+             want(B1=steps, B2=steps, B6=steps)),
             ("cli_generic", ["--iters", "100", "--impl", "pallas"],
              want(B4=steps, B5=steps))):
         zero_counts()
@@ -2534,8 +2658,8 @@ def dlrm_tools_phase(fbt, card, wrappers):
     gk = kernel_core_layouts([c.detach() for c in cores], tp, qs, rs)
     pair_ms = device_ms(lambda: tt_flat._pair_table(
         gk, tp, qs, rs, nt, torch.bfloat16))[0]
-    # the lookup's pool (bag_pool) and its one-hot dG0 product (nnz by
-    # T*p0), on this batch's plan
+    # the lookup's pool (bag_pool), and the one-hot dG0 product (nnz by
+    # T*p0) that B6 replaces under FBTT_DG0=onehot, on this batch's plan
     nnz = batch[1].numel()
     pos = torch.arange(nnz, dtype=torch.int32, device="cuda")
     plan, nza = tt_flat._lookup_plan(
@@ -2565,7 +2689,8 @@ def dlrm_tools_phase(fbt, card, wrappers):
           f"device ops, host {host:.3f} ms per step (busy share "
           f"{dev / host:.3f}); of the device time: the lookup forward + "
           f"backward {look:.4f} ms (its pair-table build {pair_ms:.4f}, "
-          f"bag_pool {pool_ms:.4f}, one-hot dG0 {dg0_ms:.4f}), the "
+          f"bag_pool {pool_ms:.4f}; not in it, the one-hot dG0 product "
+          f"that B6 replaces {dg0_ms:.4f}), the "
           f"MLPs and the interaction forward + backward with the loss "
           f"{dense_ms:.4f}, the rest (update, glue) "
           f"{dev - look - dense_ms:.4f} ({mhz_text(mhz)}) [{card}]")
@@ -2585,21 +2710,23 @@ def dlrm_tools_phase(fbt, card, wrappers):
     return paths
 
 
-# the knob phase's checks: (B, knobs, (B1, B2, B3) of one counting step).
-# FBTT_PAIR "1" skips B1's i1 pass; FBTT_FUSED_APPLY "0" trades B2 for
-# B1's and B3's i2 passes (autograd through FlatLookup), and "1" takes B2
-# at B=2048 (nnz 40960, pair mode by nza)
+# the knob phase's checks: (B, knobs, (B1, B2, B3, B6) of one counting
+# step). B6 takes the i1 pass's gradient; FBTT_DG0 "onehot" gives it back
+# to B3. FBTT_PAIR "1" skips B1's i1 pass; FBTT_FUSED_APPLY "0" trades B2
+# for B1's and B3's i2 passes (autograd through FlatLookup), and "1" takes
+# B2 at B=2048 (nnz 40960, pair mode by nza)
 KNOB_RUNS = (
-    (B, {}, (1, 1, 1)),
-    (B, {"FBTT_PAIR": "1"}, (0, 1, 1)),
-    (B, {"FBTT_PAIR": "0"}, (1, 1, 1)),
-    (B, {"FBTT_FUSED_APPLY": "0"}, (2, 0, 2)),
-    (B, {"FBTT_FUSED_APPLY": "1"}, (1, 1, 1)),
-    (4 * B, {}, (1, 0, 2)),
-    (4 * B, {"FBTT_FUSED_APPLY": "1"}, (0, 1, 1)),
-    (4 * B, {"FBTT_FUSED_APPLY": "0"}, (1, 0, 2)),
-    (4 * B, {"FBTT_PAIR": "0"}, (2, 0, 2)),
-    (4 * B, {"FBTT_PAIR": "1"}, (1, 0, 2)),
+    (B, {}, (1, 1, 0, 1)),
+    (B, {"FBTT_DG0": "onehot"}, (1, 1, 1, 0)),
+    (B, {"FBTT_PAIR": "1"}, (0, 1, 0, 1)),
+    (B, {"FBTT_PAIR": "0"}, (1, 1, 0, 1)),
+    (B, {"FBTT_FUSED_APPLY": "0"}, (2, 0, 1, 1)),
+    (B, {"FBTT_FUSED_APPLY": "1"}, (1, 1, 0, 1)),
+    (4 * B, {}, (1, 0, 1, 1)),
+    (4 * B, {"FBTT_FUSED_APPLY": "1"}, (0, 1, 0, 1)),
+    (4 * B, {"FBTT_FUSED_APPLY": "0"}, (1, 0, 1, 1)),
+    (4 * B, {"FBTT_PAIR": "0"}, (2, 0, 1, 1)),
+    (4 * B, {"FBTT_PAIR": "1"}, (1, 0, 1, 1)),
 )
 # the gates' sweeps: batch sizes of the headline counting step at pooling
 # 20 (FBTT_PAIR: nnz 4160, 20480, 65440; FBTT_FUSED_APPLY: nnz 8160,
@@ -2644,7 +2771,8 @@ def knob_phase(fbt, card, wrappers, cores, train_batch, plain_steps):
     launches = dict.fromkeys(wrappers, 0)
     for b, env, want in KNOB_RUNS:
         want = {**dict.fromkeys(wrappers, 0), **dict(zip(
-            ("seg_transform", "seg_fused_i2", "seg_accum"), want))}
+            ("seg_transform", "seg_fused_i2", "seg_accum", "seg_accum_dg0"),
+            want))}
         label = (f"counting step B={b} pooling {POOL} "
                  + (" ".join(f"{k}={v}" for k, v in env.items())
                     or "no knob set"))
@@ -2671,8 +2799,8 @@ def knob_phase(fbt, card, wrappers, cores, train_batch, plain_steps):
         for k in wrappers:
             launches[k] += got[k]
         line = (f"[knobs] {label}: launches B1 {got['seg_transform']} B2 "
-                f"{got['seg_fused_i2']} B3 {got['seg_accum']}, twice "
-                "bitwise equal")
+                f"{got['seg_fused_i2']} B3 {got['seg_accum']} B6 "
+                f"{got['seg_accum_dg0']}, twice bitwise equal")
         print(hold_step(line, out, ref_out, new, ref, old, OUT_TOL,
                         UPDATE_TOL, label), flush=True)
         del runs, out, new, out2, new2
@@ -3376,7 +3504,8 @@ def multi_child(spec):
         counts_equal = torch.equal(prm_a.cache.freq, ref.cache.freq)
         print(line + f"; LFU counts equal to one device's over the global "
               f"batch {counts_equal}", flush=True)
-        if plains or launches_differ(got, want) or got["seg_accum"] == 0 \
+        if plains or launches_differ(got, want) \
+                or got["seg_accum_dg0"] == 0 \
                 or not same \
                 or not counts_equal:
             fail(f"{tag}: the dp step's launches, repeatability or counts")
@@ -3430,9 +3559,9 @@ def multi_child(spec):
               f"batch's; {csr_ms:.3f} ms a step with the loader "
               f"({1e3 / csr_ms:.1f} steps/s); the loader alone "
               f"{loader_rate:.1f} batches/s [{card_line()}]", flush=True)
-        # B2 and B3 once a step on the flat path, with or without pair mode
+        # B2 and B6 once a step on the flat path, with or without pair mode
         if plains or got["seg_fused_i2"] != n_csr \
-                or got["seg_accum"] != n_csr:
+                or got["seg_accum_dg0"] != n_csr:
             fail(f"{tag}: the CSR path's launches")
         del scratch
 
@@ -3499,7 +3628,8 @@ def multi_child(spec):
                   f"{DLRM_LOGIT_TOL} x {gscale:.3e}); least cos(dp, "
                   f"dp_one_device) over this rank's leaves {least_cos:.6f} "
                   f"(limit {COS_MIN})", flush=True)
-            if (plains or not got["seg_transform"] or not got["seg_accum"]
+            if (plains or not got["seg_transform"]
+                    or not got["seg_accum_dg0"]
                     or not same or lerr > OUT_TOL
                     or gerr > DLRM_LOGIT_TOL * gscale):
                 fail(f"{tag}: the DLRM step's launches, repeatability, loss "
@@ -3524,7 +3654,7 @@ def multi_child(spec):
                   f"launches {launch_text(got)}, plain versions "
                   f"{plains or 0}", flush=True)
             if plains or not walk["last_loss"] < walk["first_loss"] \
-                    or not got["seg_accum"]:
+                    or not got["seg_accum_dg0"]:
                 fail(f"{tag}: the walkthrough on the mesh")
         multi_rest(fbt, tag, world, rank, mesh, cuda, zero_counts, counts,
                    res, cores_np, g_dout)
@@ -3750,7 +3880,7 @@ def multi_rest(fbt, tag, world, rank, mesh, cuda, zero_counts, counts, res,
                              UPDATE_TOL, what)
         print(line, flush=True)
         if plains or not same or not got["seg_fused_i2"] \
-                or not got["seg_accum"]:
+                or not got["seg_accum_dg0"]:
             fail(f"{what}: launches or repeatability")
         if optim == "SGD":
             scratch = owned()
@@ -3883,7 +4013,7 @@ def multi_rest(fbt, tag, world, rank, mesh, cuda, zero_counts, counts, res,
             ok = ok and oerr <= UPDATE_TOL * oscale
         print(line, flush=True)
         if plains or not same or not ok or got["seg_fused_i2"] != 1 \
-                or got["seg_accum"] != 1:
+                or got["seg_accum_dg0"] != 1:
             fail(f"{what}: launches, repeatability, counts or owned rows")
         if optim == "SGD":
             sc = owned_state()
@@ -4259,6 +4389,8 @@ def main():
                       f"{', the rule' if p == path else ''}): max_abs_err "
                       f"acc, dG0 {errs[0]:.3e}, {errs[1]:.3e} (rtol = atol = "
                       "1e-5), bitwise repeatable, ok")
+    max_err["seg_accum_dg0"] = max(max_err["seg_accum_dg0"],
+                                   check_dg0_train(seg))
     # B6's path rule: the library's answer and its Python copy agree
     for blocks, bw_x, bw_y, rseg, bf16_in in DG0_RULE_SHAPES:
         took = dg0_path(bf16_in, rseg, blocks, bw_x, bw_y, card=True)
@@ -4535,8 +4667,9 @@ def main():
     ada_plain = fbt.make_fused_train_step(P, Q, R, 1, B, optimizer=ada,
                                           impl="xla", precision="highest",
                                           device="cuda")
-    expect = {  # launches per step: (B1, B2, B3)
-        "fused": (1, 1, 1), "fused, pair": (0, 1, 1), "autograd": (1, 0, 2)}
+    expect = {  # launches per step: (B1, B2, B3, B6)
+        "fused": (1, 1, 0, 1), "fused, pair": (0, 1, 0, 1),
+        "autograd": (1, 0, 1, 1)}
     plan = [(B, z, "sgd", "fused")
             for z in (False, True, False, True, False)]
     plan += [(2 * B, False, "sgd", "fused, pair"),
@@ -4565,7 +4698,8 @@ def main():
         for k in wrappers:
             train_launches[k] += got[k]
         want = {**dict.fromkeys(wrappers, 0), **dict(zip(
-            ("seg_transform", "seg_fused_i2", "seg_accum"), expect[path]))}
+            ("seg_transform", "seg_fused_i2", "seg_accum", "seg_accum_dg0"),
+            expect[path]))}
         if launches_differ(got, want):
             fail(f"train B={b} ({path}): launches {got}, expected {want}")
         if out.shape != (1, b, D) or not torch.isfinite(out).all():
@@ -4573,7 +4707,7 @@ def main():
         line = (f"[train] {opt} B={b} pooling {POOL} "
                 f"{'zipf1.05' if zipf else 'uniform'} ({path}): launches "
                 f"B1 {got['seg_transform']} B2 {got['seg_fused_i2']} "
-                f"B3 {got['seg_accum']}")
+                f"B3 {got['seg_accum']} B6 {got['seg_accum_dg0']}")
         print(hold_step(line, out, ref_out, new, ref, old, OUT_TOL,
                         UPDATE_TOL, f"train B={b} {opt}"))
         if opt != "adagrad":
@@ -4635,7 +4769,7 @@ def main():
     # the reference benchmark's step: (a) five SGD steps with LFU counting
     # on (direct mode, hashtbl_size = E, cache_size = 0.1 E)
     flat3 = {**dict.fromkeys(wrappers, 0), "seg_transform": 1,
-             "seg_fused_i2": 1, "seg_accum": 1}
+             "seg_fused_i2": 1, "seg_accum_dg0": 1}
     count_step = fbt.make_fused_train_step(P, Q, R, 1, B, use_cache=True,
                                            device="cuda")
     cparams = fbt.TTEmbeddingParams(
@@ -4724,18 +4858,18 @@ def main():
           f"({int((loc >= 0).sum())} hits)")
     print(f"[train] launches on the cached training path: {ctrain_launches}")
 
-    # (c) FBTT_DG0=fused: B6 replaces B3 on the i1 pass
+    # (c) FBTT_DG0=onehot: B3 and the one-hot product take B6's i1 pass
     dtrain_launches = dict.fromkeys(wrappers, 0)
-    with knob({"FBTT_DG0": "fused"}):
+    with knob({"FBTT_DG0": "onehot"}):
         dplan = [  # step, plain step, batch, (B1, B2, B3, B6), label
-            (sgd_steps[B], sgd_plain[B], cbatches[0], (1, 1, 0, 1),
-             f"FBTT_DG0=fused sgd B={B} (fused)", False),
-            (sgd_steps[2 * B], sgd_plain[2 * B], batches[5], (0, 1, 0, 1),
-             f"FBTT_DG0=fused sgd B={2 * B} (fused, pair)", False),
-            (sgd_steps[4 * B], sgd_plain[4 * B], batches[6], (1, 0, 1, 1),
-             f"FBTT_DG0=fused sgd B={4 * B} (autograd)", False),
-            (csteps["sgd"][0], csteps["sgd"][1], zbatches[2], (1, 1, 0, 1),
-             f"FBTT_DG0=fused sgd B={B} cached", True),
+            (sgd_steps[B], sgd_plain[B], cbatches[0], (1, 1, 1, 0),
+             f"FBTT_DG0=onehot sgd B={B} (fused)", False),
+            (sgd_steps[2 * B], sgd_plain[2 * B], batches[5], (0, 1, 1, 0),
+             f"FBTT_DG0=onehot sgd B={2 * B} (fused, pair)", False),
+            (sgd_steps[4 * B], sgd_plain[4 * B], batches[6], (1, 0, 2, 0),
+             f"FBTT_DG0=onehot sgd B={4 * B} (autograd)", False),
+            (csteps["sgd"][0], csteps["sgd"][1], zbatches[2], (1, 1, 1, 0),
+             f"FBTT_DG0=onehot sgd B={B} cached", True),
         ]
         for kstep, pstep, batch, want, label, cached in dplan:
             prm = fbt.params_from_jax(cores, device="cuda")
@@ -4748,7 +4882,7 @@ def main():
                                  (OUT_TOL, UPDATE_TOL), cached)
             for k in wrappers:
                 dtrain_launches[k] += got[k]
-    print(f"[train] launches on the FBTT_DG0=fused training path: "
+    print(f"[train] launches on the FBTT_DG0=onehot training path: "
           f"{dtrain_launches}")
 
     phase_mark("5a knobs", t_start)

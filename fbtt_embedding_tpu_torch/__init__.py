@@ -10,10 +10,11 @@ step (``make_fused_train_step``: the reference's SGD / Adagrad, or with
 ``optim_semantics="native"`` every optimizer's own update,
 ``native_optim_init`` / ``native_optim_step``) through the flat
 sorted-run pipeline and its kernels: the segment transform (B1), the fused
-last-core training pass (B2), the gradient pass (B3) and, with
-``FBTT_DG0=fused``, the gradient pass with the first core's gradient folded
-in (B6); with ``impl="pallas"`` the same entry points run the generic
-per-lookup kernels (B4 forward, B5 backward). Both entries take the LFU
+last-core training pass (B2), the gradient pass (B3) and, on the first
+core's pass, the gradient pass with the first core's gradient folded in
+(B6; ``FBTT_DG0=onehot`` gives that pass to B3 and a one-hot product);
+with ``impl="pallas"`` the same entry points run the generic per-lookup
+kernels (B4 forward, B5 backward). Both entries take the LFU
 cache (``ops.cache``: counting, populate, probing, the cached rows'
 updates; direct and hashed int32 keys, and the wide int64-key layout for
 tables of 2^31 rows or more, keyed by ``wide_keyrows``). The modules

@@ -34,10 +34,12 @@
 //     at slot seg_index*seg + k, with its key (keys ascending, unused slots
 //     INT_MAX).
 //   kernel 2 is B3's per-span reduction of the acc tiles (seg_span.cuh).
-//   kernel 3 (one CTA per dG0 row) finds that row's partial in each
-//     segment by binary search in the segment's sorted keys and adds the
-//     partials in a fixed order (thread groups over ranges of segments,
-//     then the groups in order).
+//   kernel 3 adds the partials of each dG0 row in a fixed order, in two
+//     passes: CTAs over (a chunk of segments, a tile of dG0 rows) map each
+//     row to its slot in each segment of the chunk and write the chunk's
+//     sum of every row; then one CTA per row adds the chunk sums in chunk
+//     order. A row keyed in every segment (row 0 under Zipf traffic) is
+//     spread over every chunk's CTAs.
 // Every sum has a fixed order: bitwise repeatable, like B2, B3 and B5.
 //
 // Kernel 1 takes one of three paths (dg0_path below):
@@ -68,7 +70,8 @@ namespace {
 using namespace fbtt_span;
 
 constexpr int kNoKey = INT_MAX;               // unused partial slot / dropped row
-constexpr int kHitChunk = 2048;               // segments searched per pass of kernel 3
+constexpr int kMaxChunk = 64;                 // segments a CTA of kernel 3's pass 1 reads
+constexpr int kTileRows = 16;                 // dG0 rows a CTA of kernel 3's pass 1 owns
 constexpr int kMaxZTile = 128 * 1024;         // the CUDA-core path's dz0 tile, bytes
 constexpr int kInPlacePasses = 2;             // bw_x <= 64 for dz0 over y
 
@@ -311,66 +314,99 @@ seg_dg0_kernel(const int* __restrict__ runs, const int* __restrict__ first,
   keyed_partials(zs, bw_x, blocks, bw_x, ints, seg, base, dg0_part, dg0_key);
 }
 
-// One CTA per dG0 row r: the partials of r, added in a fixed order. The
-// x_w/4 float4 columns take x_w/4 threads; the CTA's kThreads / (x_w/4)
-// thread groups each add a contiguous range of every chunk of segments,
-// four loads in flight, and the groups' sums are added in group order at
-// the end: bitwise repeatable, and a hot row (present in every segment
-// under Zipf traffic) is not one thread's serial chain of L2 loads.
+// Kernel 3, both passes under one name (a trace reads them as B6's dG0
+// reduce). Pass 1 (kFinal false), grid (nchunk, tiles): the CTA owns
+// the `chunk` segments from blockIdx.x * chunk and the kTileRows dG0 rows
+// from blockIdx.y * kTileRows. It maps each (segment, row) to the row's
+// partial slot in the segment (keys are distinct within a segment, so the
+// map's writes never collide), then x_w/4 threads a row lane add each of
+// their rows' partials in segment order, eight loads in flight, and write
+// the chunk's sum (zeros for a row the chunk lacks) to
+// chunk_sum[blockIdx.x, row]. Pass 2 (kFinal true), one CTA a dG0 row:
+// the kThreads / (x_w/4) thread groups add contiguous ranges of the chunk
+// sums in chunk order, and the groups' sums are added in group order. So a
+// hot row (present in every segment under Zipf traffic) is split over
+// nchunk CTAs, not one CTA's chain of nseg loads, and every sum has a
+// fixed order: bitwise repeatable.
+template <bool kFinal>
 __global__ void __launch_bounds__(kThreads)
-dg0_reduce_kernel(const float* __restrict__ dg0_part, const int* __restrict__ dg0_key,
-                  float* __restrict__ dg0, int nseg, int seg, int x_w) {
-  __shared__ int hit[kHitChunk];
-  __shared__ float4 group_sum[kThreads];
-  const int r = blockIdx.x;
-  const int x4 = x_w / 4;  // <= kThreads
-  const int groups = kThreads / x4;
-  const int g = threadIdx.x / x4;
-  const int c = threadIdx.x - g * x4;
-  const bool active = g < groups;
+dg0_reduce_kernel(const float* __restrict__ src, const int* __restrict__ dg0_key,
+                  float* __restrict__ dst, int nseg, int seg, int x_w, int tp0, int chunk,
+                  int nchunk) {
   const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-  float4 sum = zero;
-  for (int s0 = 0; s0 < nseg; s0 += kHitChunk) {
-    const int n = min(kHitChunk, nseg - s0);
-    __syncthreads();  // the previous chunk's hits are no longer read
-    for (int i = threadIdx.x; i < n; i += kThreads) {
-      const int* kk = dg0_key + static_cast<size_t>(s0 + i) * seg;
-      int lo = 0, hi = seg;  // first slot whose key >= r
-      while (lo < hi) {
-        const int mid = (lo + hi) >> 1;
-        if (kk[mid] < r) lo = mid + 1; else hi = mid;
+  const int x4 = x_w / 4;  // <= kThreads
+  const int lanes = kThreads / x4;
+  const int lane = threadIdx.x / x4;
+  const int c = threadIdx.x - lane * x4;
+  if constexpr (!kFinal) {
+    __shared__ int slot[kMaxChunk * kTileRows];
+    const int s0 = blockIdx.x * chunk;
+    const int n = min(chunk, nseg - s0);
+    const int lo = blockIdx.y * kTileRows;
+    const int rows = min(kTileRows, tp0 - lo);
+    for (int i = threadIdx.x; i < n * kTileRows; i += kThreads) slot[i] = -1;
+    __syncthreads();
+    const int* keys = dg0_key + static_cast<size_t>(s0) * seg;
+    for (int i = threadIdx.x; i < n * seg; i += kThreads) {
+      const int k = keys[i];  // in [0, tp0) or kNoKey
+      if (k >= lo && k - lo < rows) {
+        const int s = i / seg;
+        slot[s * kTileRows + (k - lo)] = i - s * seg;
       }
-      hit[i] = (lo < seg && kk[lo] == r) ? lo : -1;
     }
     __syncthreads();
-    if (!active) continue;
-    const int lo = n * g / groups;
-    const int hi = n * (g + 1) / groups;
-    for (int i = lo; i < hi; i += 4) {
-      float4 v[4];
+    if (lane >= lanes) return;
+    const float* part = src + static_cast<size_t>(s0) * seg * x_w;
+    for (int rl = lane; rl < rows; rl += lanes) {
+      float4 sum = zero;
+      for (int i = 0; i < n; i += 8) {
+        float4 v[8];
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int h = i + u < hi ? hit[i + u] : -1;
-        v[u] = h >= 0 ? reinterpret_cast<const float4*>(
-                            dg0_part + (static_cast<size_t>(s0 + i + u) * seg + h) *
-                                           x_w)[c]
-                      : zero;
-      }
+        for (int u = 0; u < 8; ++u) {
+          const int h = i + u < n ? slot[(i + u) * kTileRows + rl] : -1;
+          v[u] = h >= 0 ? reinterpret_cast<const float4*>(
+                              part + (static_cast<size_t>(i + u) * seg + h) * x_w)[c]
+                        : zero;
+        }
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        sum.x += v[u].x; sum.y += v[u].y; sum.z += v[u].z; sum.w += v[u].w;
+        for (int u = 0; u < 8; ++u) {
+          sum.x += v[u].x; sum.y += v[u].y; sum.z += v[u].z; sum.w += v[u].w;
+        }
       }
+      reinterpret_cast<float4*>(
+          dst + (static_cast<size_t>(blockIdx.x) * tp0 + lo + rl) * x_w)[c] = sum;
     }
-  }
-  if (active) group_sum[threadIdx.x] = sum;
-  __syncthreads();
-  if (threadIdx.x < x4) {
-    float4 total = group_sum[c];
-    for (int k = 1; k < groups; ++k) {
-      const float4 v = group_sum[k * x4 + c];
-      total.x += v.x; total.y += v.y; total.z += v.z; total.w += v.w;
+  } else {
+    __shared__ float4 group_sum[kThreads];
+    const int r = blockIdx.x;
+    const bool active = lane < lanes;
+    float4 sum = zero;
+    if (active) {
+      const int hi = nchunk * (lane + 1) / lanes;
+      for (int i = nchunk * lane / lanes; i < hi; i += 8) {
+        float4 v[8];
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          v[u] = i + u < hi ? reinterpret_cast<const float4*>(
+                                  src + (static_cast<size_t>(i + u) * tp0 + r) * x_w)[c]
+                            : zero;
+        }
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          sum.x += v[u].x; sum.y += v[u].y; sum.z += v[u].z; sum.w += v[u].w;
+        }
+      }
+      group_sum[threadIdx.x] = sum;
     }
-    reinterpret_cast<float4*>(dg0 + static_cast<size_t>(r) * x_w)[c] = total;
+    __syncthreads();
+    if (threadIdx.x < x4) {
+      float4 total = group_sum[c];
+      for (int k = 1; k < lanes; ++k) {
+        const float4 v = group_sum[k * x4 + c];
+        total.x += v.x; total.y += v.y; total.z += v.z; total.w += v.w;
+      }
+      reinterpret_cast<float4*>(dst + static_cast<size_t>(r) * x_w)[c] = total;
+    }
   }
 }
 
@@ -390,11 +426,11 @@ cudaError_t launch_tc(const SpanArgs<__nv_bfloat16, float>& a, const KeyedArgs& 
 template <typename Tin>
 int launch_dg0(const int* runs, const int* first, const int* cnt, const void* x,
                const void* y, const int* i0c, const void* table, float* partial,
-               float* acc, float* dg0_part, int* dg0_key, float* dg0, int nseg, int seg,
-               int blocks, int bw_x, int bw_y, int p_rows, int tp0, int path,
-               cudaStream_t stream) {
+               float* acc, float* dg0_part, int* dg0_key, float* chunk_sum, float* dg0,
+               int nseg, int seg, int blocks, int bw_x, int bw_y, int p_rows, int tp0,
+               int chunk, int path, cudaStream_t stream) {
   constexpr bool kBf16 = sizeof(Tin) == 2;
-  if (!dg0_takes(path, kBf16, seg, blocks, bw_x, bw_y)) {
+  if (!dg0_takes(path, kBf16, seg, blocks, bw_x, bw_y) || chunk < 1 || chunk > kMaxChunk) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int x_w = blocks * bw_x;
@@ -428,8 +464,14 @@ int launch_dg0(const int* runs, const int* first, const int* cnt, const void* x,
   err = launch_span_reduce(runs, partial, acc, p_rows, seg, bw_x * bw_y, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (tp0 > 0) {
-    dg0_reduce_kernel<<<tp0, kThreads, 0, stream>>>(dg0_part, dg0_key, dg0, nseg, seg,
-                                                     x_w);
+    const int nchunk = (nseg + chunk - 1) / chunk;
+    if (nchunk > 0) {
+      const dim3 grid(nchunk, (tp0 + kTileRows - 1) / kTileRows);
+      dg0_reduce_kernel<false><<<grid, kThreads, 0, stream>>>(
+          dg0_part, dg0_key, chunk_sum, nseg, seg, x_w, tp0, chunk, nchunk);
+    }
+    dg0_reduce_kernel<true><<<tp0, kThreads, 0, stream>>>(chunk_sum, dg0_key, dg0, nseg,
+                                                          seg, x_w, tp0, chunk, nchunk);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -442,25 +484,30 @@ extern "C" {
 // cores with dz0 over y, 1 tensor cores with a dz0 tile, 0 CUDA cores:
 // fbtt_seg_accum_dg0_path gives the one to take); returns
 // cudaGetLastError() after the launches (0 on success), or
-// cudaErrorInvalidValue where `path` does not take the widths. in_bf16
-// selects bfloat16 (1) or float32 (0) for x, y and table. Scratch:
+// cudaErrorInvalidValue where `path` does not take the widths or `chunk`
+// is not in [1, 64]. in_bf16 selects bfloat16 (1) or float32 (0) for x, y
+// and table. Kernel 3 adds `chunk` segments' partials a CTA. Scratch:
 // `partial` holds (nseg + p_rows) float tiles of bw_x * bw_y, `dg0_part`
-// nseg*seg float rows of blocks*bw_x and `dg0_key` nseg*seg ints. Outputs:
-// acc [p_rows, bw_x, bw_y] and dg0 [tp0, blocks*bw_x], both float32.
+// nseg*seg float rows of blocks*bw_x, `dg0_key` nseg*seg ints and
+// `chunk_sum` ceil(nseg / chunk) * tp0 float rows of blocks*bw_x; it may
+// share `partial`'s memory, which kernel 2 has read before kernel 3 runs.
+// Outputs: acc [p_rows, bw_x, bw_y] and dg0 [tp0, blocks*bw_x], both
+// float32.
 int fbtt_seg_accum_dg0(const int* runs, const int* first, const int* cnt, const void* x,
                        const void* y, const int* i0c, const void* table, float* partial,
-                       float* acc, float* dg0_part, int* dg0_key, float* dg0, int nseg,
-                       int seg, int blocks, int bw_x, int bw_y, int p_rows, int tp0,
-                       int in_bf16, int path, void* stream) {
+                       float* acc, float* dg0_part, int* dg0_key, float* chunk_sum,
+                       float* dg0, int nseg, int seg, int blocks, int bw_x, int bw_y,
+                       int p_rows, int tp0, int chunk, int in_bf16, int path,
+                       void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (in_bf16) {
     return launch_dg0<__nv_bfloat16>(runs, first, cnt, x, y, i0c, table, partial, acc,
-                                     dg0_part, dg0_key, dg0, nseg, seg, blocks, bw_x,
-                                     bw_y, p_rows, tp0, path, st);
+                                     dg0_part, dg0_key, chunk_sum, dg0, nseg, seg, blocks,
+                                     bw_x, bw_y, p_rows, tp0, chunk, path, st);
   }
   return launch_dg0<float>(runs, first, cnt, x, y, i0c, table, partial, acc, dg0_part,
-                           dg0_key, dg0, nseg, seg, blocks, bw_x, bw_y, p_rows, tp0,
-                           path, st);
+                           dg0_key, chunk_sum, dg0, nseg, seg, blocks, bw_x, bw_y, p_rows,
+                           tp0, chunk, path, st);
 }
 
 // The path kernel 1 takes for these widths: 2 tensor cores with dz0 over

@@ -1000,8 +1000,8 @@ class TableBatchedTTEmbeddingBag(nn.Module):
     mode applies the fused update in place; dense mode (``sparse=False``)
     returns the gradients. The forward keeps the autograd graph of its
     lookup (``pooled_tt_lookup``: on the flat path kernel B1 forward and
-    B3, or B6 under ``FBTT_DG0=fused``, backward; with ``impl="pallas"``
-    B4 and B5), and ``backward`` takes the cores' gradients from that
+    B3 and B6 (B3 alone under ``FBTT_DG0=onehot``) backward; with
+    ``impl="pallas"`` B4 and B5), and ``backward`` takes the cores' gradients from that
     graph: the gradient JAX's module recomputes through the plain chain.
     The output is detached; where the forward ran without grad mode, or
     the cores changed since, ``backward`` runs the lookup again.

@@ -62,6 +62,9 @@ _IN_PLACE_PASSES = 2            # 32-column z passes held: bw_x <= 64
 _RED_FLOATS = _THREADS * 16
 _CHUNK_FLOATS = 64 * 1024 // 4
 _NO_KEY = 2 ** 31 - 1
+_MAX_CHUNK = 64                 # segments a CTA of kernel 3's first pass adds
+_TILE_ROWS = 16                 # dG0 rows it owns
+_CHUNK_CTAS = 1024              # the first pass's grid the chunk aims at
 
 
 def _key_bytes(seg):
@@ -126,6 +129,17 @@ def dg0_fits(in_bf16: bool, seg: int, blocks: int, bw_x: int,
     return dg0_path(in_bf16, seg, blocks, bw_x, bw_y) >= 0
 
 
+def dg0_chunk(nseg: int, tp0: int) -> int:
+    """Segments a CTA of kernel 3's first pass adds: about
+    ``_CHUNK_CTAS`` CTAs over (chunk, tile of ``_TILE_ROWS`` dG0 rows), at
+    least 8 segments and at most ``_MAX_CHUNK``. On the H100 at the
+    headline widths (tp0 200) it gives 8, 17, 64 and 64 segments at nseg
+    160, 1280, 5120 and 20480, where chunks of 8, 16, 64 and 64 read
+    fastest of 8, 16, 32 and 64; a fixed 64 costs 2.6x at nseg 160."""
+    tiles = -(-tp0 // _TILE_ROWS)
+    return min(_MAX_CHUNK, max(8, -(-nseg * tiles // _CHUNK_CTAS)))
+
+
 def seg_accum_dg0_plain(runs, first, cnt, x, y, i0c, table, *, blocks, bw_x,
                         bw_y, p_rows, tp0, seg):
     """Plain PyTorch version: :func:`seg_accum_plain` with a float32 z,
@@ -147,9 +161,12 @@ def seg_accum_dg0_sched_plain(runs, first, cnt, x, y, i0c, table, *,
     outside ``[0, tp0)``, dropped), orders them by (key, row) and writes
     one partial row per distinct key, its rows' float32 dz0 added in row
     order, keys ascending. Kernel 2: acc[j] = span j's tiles in segment
-    order. Kernel 3: dG0[r] = the partials keyed r in segment order.
-    Returns ``(acc, dG0, partial rows [nseg, seg, blocks*bw_x], their keys
-    [nseg, seg] with unused slots INT_MAX)``."""
+    order. Kernel 3: for each chunk of :func:`dg0_chunk` segments, the
+    chunk's partials keyed r in segment order; then dG0[r] = the chunk
+    sums, ``_THREADS // (x_w/4)`` groups each adding a contiguous range of
+    them in chunk order, the groups' sums added in group order. Returns
+    ``(acc, dG0, partial rows [nseg, seg, blocks*bw_x], their keys [nseg,
+    seg] with unused slots INT_MAX)``."""
     nseg = first.shape[0]
     nza, x_w = nseg * seg, blocks * bw_x
     span, live = span_of_rows(runs, nza, p_rows)
@@ -188,12 +205,22 @@ def seg_accum_dg0_sched_plain(runs, first, cnt, x, y, i0c, table, *,
         for s in range(nseg):
             if (s, j) in tiles:
                 acc[j] = acc[j] + tiles[(s, j)]
-    dg0 = torch.zeros((tp0, x_w), dtype=torch.float32)
+    chunk = dg0_chunk(nseg, tp0)
+    nchunk = -(-nseg // chunk)
+    chunk_sum = torch.zeros((nchunk, tp0, x_w), dtype=torch.float32)
     for s in range(nseg):
         for slot in range(seg):
             k = int(part_key[s, slot])
             if k != _NO_KEY:
-                dg0[k] = dg0[k] + part[s, slot]
+                c = s // chunk
+                chunk_sum[c, k] = chunk_sum[c, k] + part[s, slot]
+    groups = _THREADS // (x_w // 4)
+    dg0 = None
+    for g in range(groups):
+        group_sum = torch.zeros((tp0, x_w), dtype=torch.float32)
+        for i in range(nchunk * g // groups, nchunk * (g + 1) // groups):
+            group_sum = group_sum + chunk_sum[i]
+        dg0 = group_sum if dg0 is None else dg0 + group_sum
     return acc, dg0, part, part_key
 
 
@@ -233,7 +260,12 @@ def seg_accum_dg0(runs, first, cnt, x, y, i0c, table, *, blocks, bw_x, bw_y,
     f32 = torch.float32
     acc = torch.empty((p_rows, bw_x, bw_y), dtype=f32, device=dev)
     dg0 = torch.empty((tp0, x_w), dtype=f32, device=dev)
-    partial = torch.empty((nseg + p_rows, bw_x * bw_y), dtype=f32, device=dev)
+    chunk = dg0_chunk(nseg, tp0)
+    # kernel 3 writes its chunk sums over kernel 1's acc tiles, which
+    # kernel 2 has read by then (one stream): one buffer for both
+    partial = torch.empty((max((nseg + p_rows) * bw_x * bw_y,
+                               -(-nseg // chunk) * tp0 * x_w),),
+                          dtype=f32, device=dev)
     dg0_part = torch.empty((nseg * seg, x_w), dtype=f32, device=dev)
     dg0_key = torch.empty((nseg * seg,), dtype=torch.int32, device=dev)
     lib = _lib()
@@ -243,14 +275,14 @@ def seg_accum_dg0(runs, first, cnt, x, y, i0c, table, *, blocks, bw_x, bw_y,
             runs.data_ptr(), first.data_ptr(), cnt.data_ptr(), x.data_ptr(),
             y.data_ptr(), i0c.data_ptr(), table.data_ptr(),
             partial.data_ptr(), acc.data_ptr(), dg0_part.data_ptr(),
-            dg0_key.data_ptr(), dg0.data_ptr(), nseg, seg, blocks, bw_x, bw_y,
-            p_rows, tp0, int(in_bf16), path, stream)
+            dg0_key.data_ptr(), partial.data_ptr(), dg0.data_ptr(), nseg,
+            seg, blocks, bw_x, bw_y, p_rows, tp0, chunk, int(in_bf16), path,
+            stream)
     if err != 0:
         raise RuntimeError("seg_accum_dg0 launch failed: "
                            + lib.fbtt_error_string(err).decode())
     profiling.count("launches.seg_accum_dg0")
     return acc, dg0
-
 
 
 def _lib():
@@ -260,7 +292,7 @@ def _lib():
     if lib.fbtt_seg_accum_dg0.argtypes is None:
         p = ctypes.c_void_p
         i = ctypes.c_int
-        lib.fbtt_seg_accum_dg0.argtypes = [p] * 12 + [i] * 9 + [p]
+        lib.fbtt_seg_accum_dg0.argtypes = [p] * 13 + [i] * 10 + [p]
         lib.fbtt_seg_accum_dg0.restype = ctypes.c_int
         lib.fbtt_seg_accum_dg0_path.argtypes = [i] * 5
         lib.fbtt_seg_accum_dg0_path.restype = ctypes.c_int

@@ -16,12 +16,14 @@ middle/last core)::
   dr   = dout[rowidx_s2] * w               gather [nza, D]
   dZ1', dG2 = seg_accum(Z1', dr, G2bd)     (kernel B3, folded by mm)
   dZ1  = dZ1'[perm21]                      gather, s2 -> s1 order
+  dG1, dG0 = seg_accum_dg0(z0, dZ1, i0c, G1)   (kernel B6)
+
+  B6 is B3's pass with dG0 folded in, and dz0 never leaves it. Where B6
+  takes no path for the widths, or under ``FBTT_DG0=onehot``
+  (``_dg0_fused_gate``; the JAX package's default, which suits the TPU's
+  matrix unit), the pass is B3 and a one-hot product:
   dz0, dG1 = seg_accum(z0, dZ1, G1)        (kernel B3, float32 dz0)
   dG0  = onehot(i0_s1)^T @ dz0             float32 product
-
-  with FBTT_DG0=fused (``_dg0_fused_gate``; off by default, as in the JAX
-  package) the last two lines are one pass, and dz0 never leaves it:
-  dG1, dG0 = seg_accum_dg0(z0, dZ1, i0c, G1)   (kernel B6)
 
 ``flat_train_apply`` (the fused training step, ``d_output`` known up front)
 runs the last core's forward and backward as one pass instead
@@ -59,9 +61,9 @@ one pass.
 Numerics: float32 master cores; intermediates staged in ``compute_dtype``
 (bfloat16 by default on the card, float32 on the CPU or when asked);
 products accumulate in float32, and pooling, core gradients and dz0 are
-float32. The one-hot products (dG0; the pool's plain route) are float32
-``torch.matmul`` calls: nothing here turns TF32 on, so on the card they
-run in full float32 as long as the caller leaves
+float32. The one-hot products (dG0 beside B3; the pool's plain route) are
+float32 ``torch.matmul`` calls: nothing here turns TF32 on, so on the card
+they run in full float32 as long as the caller leaves
 ``torch.backends.cuda.matmul.allow_tf32`` at its default (False).
 
 The segment length ``SEG`` is this port's choice for Hopper (one CTA of
@@ -151,11 +153,11 @@ def _bd_widths(tt_q_shapes, ranks):
 def _dg0_fused_gate(dtype: torch.dtype, blocks: int, bw_x: int,
                     bw_y: int) -> bool:
     """Whether the innermost gradient pass folds dG0 in (kernel B6):
-    ``FBTT_DG0=fused`` and widths (``blocks = q0``, ``bw_x = r1``, ``bw_y
-    = q1*r2``) staged in ``dtype`` that one of B6's paths takes
-    (:func:`dg0_fits`). Default "onehot": off, as in the JAX package. The
+    wherever one of B6's paths takes the widths (``blocks = q0``, ``bw_x
+    = r1``, ``bw_y = q1*r2``) staged in ``dtype`` (:func:`dg0_fits`),
+    unless ``FBTT_DG0=onehot`` asks for B3 and the one-hot product. The
     TPU's span-row and VMEM limits do not apply."""
-    return knobs.get_str("FBTT_DG0") == "fused" and dg0_fits(
+    return knobs.get_str("FBTT_DG0") != "onehot" and dg0_fits(
         dtype == torch.bfloat16, SEG, blocks, bw_x, bw_y)
 
 
@@ -570,8 +572,9 @@ def _grad_passes(plan: FlatPlan, stages, dz, top, g0f, tables, widths, p, q,
     table (``mm``), so B3 gives the core's gradient as it is. dz stays in
     the staging dtype between passes; z0 is recomputed by the gather where
     pair mode skipped pass 1.
-    The float32 dz0 of pass 1 meets a float32 one-hot product, or, under
-    :func:`_dg0_fused_gate`, pass 1 runs kernel B6 and gives dG0 itself."""
+    Pass 1 runs kernel B6 and gives dG0 itself where
+    :func:`_dg0_fused_gate` allows; else B3's float32 dz0 meets a float32
+    one-hot product."""
     tp0 = t * p[0]
     for ti in range(top, 0, -1):
         mm, bw_in, bw_out = widths[ti - 1]

@@ -6,8 +6,7 @@ Counterpart of ``fbtt_embedding_tpu.parallel.sharded`` on
 returns this rank's block of the batch (``parallel.multihost``), and every
 collective goes through ``parallel.collectives`` on the mesh axis's process
 group. The lookups inside are the single-device ones, so the local work
-runs the ported kernels (B1-B3, B6 under ``FBTT_DG0=fused``, B4/B5 under
-``impl="pallas"``).
+runs the ported kernels (B1-B3 and B6, B4/B5 under ``impl="pallas"``).
 
 * **Data parallel** (:func:`make_dp_lookup`,
   :func:`make_sharded_fused_train_step`, :func:`make_dp_serving_fn`,

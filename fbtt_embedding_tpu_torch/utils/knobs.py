@@ -12,12 +12,18 @@ as the unforced path would. Kernels: B1 ``seg_transform``, B2
 below are per training step of the headline model (p=[200, 220, 250],
 q=[4, 4, 4], ranks [32, 32], pooling 20).
 
-``FBTT_DG0`` ("fused" | "onehot", default "onehot")
-    How the flat pipeline's backward gets the first core's gradient.
-    "onehot": the innermost gradient pass (B3) writes the float32
-    cotangent dz0 and a float32 one-hot product reduces it. "fused": B6
-    folds dG0 into that pass and dz0 never reaches device memory (where
-    ``dg0_fits`` takes the widths). At B=512: B1 1, B2 1, B6 1, B3 0.
+``FBTT_DG0`` ("onehot"; default: B6 where it fits)
+    How the flat pipeline's backward gets the first core's gradient
+    (``tt_flat._dg0_fused_gate``). By default B6 folds dG0 into the
+    innermost gradient pass and dz0 never reaches device memory, wherever
+    ``dg0_fits`` takes the pass's staging dtype and widths (q0, r1,
+    q1*r2); elsewhere, and everywhere under "onehot", that pass (B3)
+    writes the float32 cotangent dz0 and a float32 one-hot product
+    reduces it. Any other value is the default: the rule reads nothing
+    but the dtype and the widths. "onehot" is the JAX package's default,
+    which suits the TPU's matrix unit; on the card its float32 product
+    costs more than B6 at every size measured. At B=512: default B1 1,
+    B2 1, B6 1, B3 0; "onehot" B1 1, B2 1, B3 1.
 ``FBTT_PAIR`` ("0" | "1", default auto: nza >= 16384)
     The first pass's G0xG1 pair-product table (``tt_flat._pair_gate``).
     With it, a per-call ``[T*p0*p1 + 1, q0*q1*r2]`` table replaces the z0
@@ -29,18 +35,19 @@ q=[4, 4, 4], ranks [32, 32], pooling 20).
     the DLRM's ``fixed_pool_lookup`` and the sharded steps. The folded
     serve builds its table once and takes the structural gate alone, as
     the JAX package's ``make_serving_fold`` does. At B=512: default B1 1,
-    B2 1, B3 1; "1": B1 0, B2 1, B3 1.
+    B2 1, B6 1; "1": B1 0, B2 1, B6 1.
 ``FBTT_FUSED_APPLY`` ("0" | "1", default auto: nnz <= 32768)
     Whether ``make_fused_train_step`` (and the sharded steps, through the
     same ``_forward_backward``) runs ``flat_train_apply``, whose last core
     is one fused forward + backward pass (B2), or differentiates
-    ``FlatLookup`` (B1 forward on every pass, B3 backward on every pass).
-    "1" takes the fused apply at any nnz, "0" never, anything else means
-    auto; ``impl`` "auto" or "pallas_sorted" and an exact flat config are
-    still required. The module's backward differentiates ``FlatLookup``
-    and does not read it. At B=512: "0" gives B1 2, B2 0, B3 2; at
-    B=2048 (nnz 40960, pair mode by default): default B1 1, B2 0, B3 2,
-    "1" B1 0, B2 1, B3 1.
+    ``FlatLookup`` (B1 forward on every pass, B3 backward on every pass
+    but the first, which B6 takes). "1" takes the fused apply at any nnz,
+    "0" never, anything else means auto; ``impl`` "auto" or
+    "pallas_sorted" and an exact flat config are still required. The
+    module's backward differentiates ``FlatLookup`` and does not read it.
+    At B=512: "0" gives B1 2, B2 0, B3 1, B6 1; at B=2048 (nnz 40960, pair
+    mode by default): default B1 1, B2 0, B3 1, B6 1, "1" B1 0, B2 1, B6
+    1.
 
 Not carried, from the JAX package's eleven:
 
@@ -67,7 +74,7 @@ from typing import Optional
 
 # knob name -> (kind, default as documented)
 PERF_KNOBS = {
-    "FBTT_DG0": ("str", "onehot"),
+    "FBTT_DG0": ("str", "B6 where dg0_fits"),
     "FBTT_PAIR": ("bool01", "auto (nza >= 16384)"),
     "FBTT_FUSED_APPLY": ("bool01", "auto (nnz <= 32768)"),
 }

@@ -22,6 +22,16 @@ prints, on the headline bfloat16 cases, the device time of B6 on each path
 that takes them, kernel by kernel, and of B3 plus the one-hot product
 (``chip_smoke.device_ms``: 20 calls under ``torch.profiler``). A quicker
 loop than ``chip_smoke.py`` for work on B6.
+
+Last, the training step's i1 pass (``e11m-train-b65536-zipf``: B=65536,
+pooling 20, ids Zipf(1.05) over E = 200 * 220 * 250 as ``h100_bench``
+draws them, sorted by i1, nza 1,310,720, nseg 20480, tp0 200; bfloat16
+only, ``chip_smoke.train_case``): the plain version would take tens of GB
+there (``chip_smoke.py`` runs it block by block), so
+acc is held against B3's and dG0, B6's and the one-hot product's, against
+a float64 sum of B3's float32 dz0 rows (max |error| / max |dG0| <= 1e-5),
+and B6 twice bitwise; with ``--profile`` its kernels' device times beside
+B3 plus the one-hot product's.
 """
 
 import sys
@@ -66,6 +76,70 @@ def b6_kernel_name(full):
         if tag in full:
             return kernel_name(full) + what
     return kernel_name(full)
+
+
+def check_train(profile, card):
+    """The training shape: B6 against B3 and a float64 dG0, twice bitwise,
+    times beside B3 plus the one-hot product. Returns whether it held."""
+    import torch
+
+    from chip_smoke import DG0_TRAIN, device_ms, train_case
+    from fbtt_embedding_tpu_torch.ops.kernels.seg_accum import seg_accum
+    from fbtt_embedding_tpu_torch.ops.kernels.seg_accum_dg0 import (
+        seg_accum_dg0,
+    )
+    from fbtt_embedding_tpu_torch.ops.kernels.tt_flat import SEG
+
+    name, blocks, bw_x, bw_y, p_rows, nza, tp0 = DG0_TRAIN
+    runs, first, cnt, x, y, table, i0c = train_case(
+        27, nza, blocks, bw_x, bw_y, p_rows, tp0)
+    kw = dict(blocks=blocks, bw_x=bw_x, bw_y=bw_y, p_rows=p_rows, seg=SEG)
+    args = (runs, first, cnt, x, y, i0c, table)
+    iota = torch.arange(tp0, dtype=torch.int32, device="cuda")
+
+    def unfused():
+        acc, z = seg_accum(runs, first, cnt, x, y, table,
+                           z_dtype=torch.float32, **kw)
+        oh = (i0c[:, None] == iota[None, :]).float()
+        return acc, torch.matmul(oh.t(), z)
+
+    def fused():
+        return seg_accum_dg0(*args, tp0=tp0, **kw)
+
+    got, again = fused(), fused()
+    b3_acc, z = seg_accum(runs, first, cnt, x, y, table,
+                          z_dtype=torch.float32, **kw)
+    want = torch.zeros((tp0, blocks * bw_x), dtype=torch.float64,
+                       device="cuda").index_add_(0, i0c.long(), z.double())
+    del z
+    onehot = unfused()[1]
+    torch.cuda.synchronize()
+    repeat = all(torch.equal(a, b) for a, b in zip(got, again))
+    scale = want.abs().max().item()
+    err = (got[1].double() - want).abs().max().item() / scale
+    err_oh = (onehot.double() - want).abs().max().item() / scale
+    acc_err = (got[0] - b3_acc).abs().max().item() / \
+        b3_acc.abs().max().item()
+    hot = int((i0c == 0).sum())
+    ok = repeat and err <= 1e-5 and acc_err <= 1e-5
+    print(f"{name} bfloat16 (nza {nza}, nseg {nza // SEG}, tp0 {tp0}, "
+          f"row 0 {hot} rows in {int((i0c.view(-1, SEG) == 0).any(1).sum())}"
+          f" segments): acc against B3 {acc_err:.2e}, dG0 against float64 "
+          f"{err:.2e} (the one-hot product {err_oh:.2e}), max relative; "
+          f"bitwise repeatable {repeat}; ok {ok}")
+    del got, again, b3_acc, want, onehot
+    k_ms = mean_ms(fused, n=10)
+    u_ms = mean_ms(unfused, n=10)
+    print(f"  B6 {k_ms * 1e3:.1f} us, B3 + one-hot dG0 {u_ms * 1e3:.1f} us "
+          f"between events [{card}]")
+    if profile:
+        for what, fn in (("B6", fused), ("B3 + one-hot dG0", unfused)):
+            dev, per, mhz = device_ms(fn, n=10)
+            print(f"  {what} on the device: {dev * 1e3:.2f} us ("
+                  + " + ".join(f"{b6_kernel_name(k)} {v * 1e3:.2f}"
+                               for k, v in per.items())
+                  + f"; SM {mhz} MHz) [{card}]")
+    return ok
 
 
 def main():
@@ -174,6 +248,7 @@ def main():
                           + " + ".join(f"{b6_kernel_name(k)} {v * 1e3:.2f}"
                                        for k, v in per.items())
                           + f"; SM {mhz} MHz) [{card}]")
+    ok = check_train("--profile" in sys.argv, card) and ok
     if not ok:
         raise SystemExit("check_dg0_kernel: FAILED")
 

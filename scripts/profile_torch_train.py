@@ -30,8 +30,8 @@ that optimizer's own update (``optim_semantics="native"``, state from
 p=[1300, 1300, 1300] (E = 2.197e9, past 2^31) at the same widths: uniform
 int64 ids as wide key rows, and with ``--count`` the wide-key cache
 (``hashtbl_size`` 2^24, ``cache_size`` 2^20). ``--trace PATH`` also
-writes the Chrome trace. ``FBTT_DG0=fused`` in the environment profiles
-the step with kernel B6.
+writes the Chrome trace. ``FBTT_DG0=onehot`` in the environment profiles
+the step with B3 and the one-hot product in place of kernel B6.
 """
 
 import argparse

@@ -9,11 +9,12 @@
   row in every segment, T=2, a tt_ndim-4 first pass, keys >= tp0 inside
   live spans and valid keys on the sentinel span's rows;
 - the path rule's Python copy (``dg0_path``) on both sides of each limit;
-- ``flat_train_apply`` and the ``FlatLookup`` backward with
-  ``FBTT_DG0=fused`` against the JAX package's own with the same knob
-  (interpret mode), float32, rtol 1e-6: dead masks, pair mode, tt_ndim 2,
-  3 and 4, two tables; and ``FBTT_DG0`` routing (B6 replaces B3 on the i1
-  pass; off by default);
+- ``flat_train_apply`` and the ``FlatLookup`` backward by default (B6)
+  against the JAX package's own under ``FBTT_DG0=fused``, the JAX
+  knob's value for its B6 (interpret mode), float32, rtol 1e-6: dead
+  masks, pair mode, tt_ndim 2, 3 and 4, two tables; and ``FBTT_DG0``
+  routing (B6 replaces B3 on the i1 pass by default; "onehot" gives it
+  back);
 - the knob registry and the wrapper's input checks.
 """
 
@@ -127,19 +128,20 @@ def test_seg_accum_dg0_checks_inputs():
 def test_dg0_gate_and_knobs(monkeypatch):
     f32, bf16 = torch.float32, torch.bfloat16
     gate = tflat._dg0_fused_gate
+    # unset: B6 wherever a path takes the widths; where none does (the
+    # CUDA-core path's float32 dz0 tile passes 128 KB of shared memory:
+    # q0*r1 = 544 > 512 at seg 64), the one-hot
     monkeypatch.delenv("FBTT_DG0", raising=False)
-    assert not gate(bf16, 4, 32, 128)  # "onehot" by default
-    monkeypatch.setenv("FBTT_DG0", "onehot")
-    assert not gate(bf16, 4, 32, 128)
-    monkeypatch.setenv("FBTT_DG0", "fused")
     assert gate(bf16, 4, 32, 128) and gate(f32, 4, 32, 128)
     assert gate(f32, 4, 128, 128)
-    # where no path takes the widths: the CUDA-core path's float32 dz0 tile
-    # passes 128 KB of shared memory (q0*r1 = 544 > 512 at seg 64)
     assert not gate(f32, 4, 136, 128) and not gate(bf16, 4, 136, 128)
+    # "onehot": B3 and the one-hot product at every width
+    monkeypatch.setenv("FBTT_DG0", "onehot")
+    assert not gate(bf16, 4, 32, 128) and not gate(f32, 4, 128, 128)
     assert dg0_fits(False, 64, 4, 128, 128)
     assert not dg0_fits(False, 64, 4, 136, 128)
-    assert knobs.get_str("FBTT_DG0") == "fused"
+    assert knobs.get_str("FBTT_DG0") == "onehot"
+    assert knobs.PERF_KNOBS["FBTT_DG0"][1] == "B6 where dg0_fits"
     with pytest.raises(KeyError):
         knobs.get_str("FBTT_SEG")  # the TPU's knobs are not carried over
 
@@ -242,6 +244,62 @@ def test_dg0_schedule_model_matches_plain_and_pallas(name, shape):
         assert (pk[:, 0] == 0).all()  # the hot row's partial in every segment
 
 
+def _hot_row_check(blocks, bw_x, bw_y, p_rows, seg, tp0, nseg, chunk):
+    """Kernel 3's schedule past one chunk and one group, the hot row keyed
+    in every segment, against the plain version (dG0, a float32 sum of up
+    to ~2000 rows a row in another order: max |difference| within 1e-5 of
+    max |dG0|), and bitwise equal run to run; ``dg0_chunk`` gives
+    ``chunk``, and there are more chunks than thread groups."""
+    from fbtt_embedding_tpu_torch.ops.kernels.seg_accum_dg0 import (
+        _THREADS,
+        dg0_chunk,
+    )
+
+    nza = nseg * seg
+    rng = np.random.default_rng(nseg)
+    keys = np.sort(rng.integers(0, p_rows, size=nza))
+    keys[-seg - 3:] = p_rows  # a sentinel tail
+    i0c = ((rng.zipf(1.3, size=nza) - 1) % tp0).astype(np.int32)
+    i0c[::seg] = 0  # the hot row has a row in every segment
+    i0c[keys >= p_rows] = tp0
+    i0c[-seg - 3:-seg] = 0
+    runs, first, cnt = tflat._span_table(
+        torch.as_tensor(keys.astype(np.int32)), p_rows, nseg, seg=seg)
+    x = torch.as_tensor(rng.standard_normal((nza, blocks * bw_x)),
+                        dtype=torch.float32)
+    y = torch.as_tensor(rng.standard_normal((nza, blocks * bw_y)),
+                        dtype=torch.float32)
+    table = torch.as_tensor(
+        rng.standard_normal(((p_rows + tflat.SPAN_BLOCK) * bw_x, bw_y)),
+        dtype=torch.float32)
+    args = (runs, first, cnt, x, y, torch.as_tensor(i0c), table)
+    kw = dict(blocks=blocks, bw_x=bw_x, bw_y=bw_y, p_rows=p_rows, tp0=tp0,
+              seg=seg)
+    assert dg0_chunk(nseg, tp0) == chunk
+    groups = _THREADS // (blocks * bw_x // 4)
+    assert -(-nseg // chunk) > groups  # many chunks in every group
+    acc, dg0, _, part_key = seg_accum_dg0_sched_plain(*args, **kw)
+    assert (part_key[:-1, 0] == 0).all()  # the hot row in every segment
+    want_acc, want_dg0 = seg_accum_dg0_plain(*args, **kw)
+    torch.testing.assert_close(acc, want_acc, **TIGHT)
+    err = (dg0 - want_dg0).abs().max() / want_dg0.abs().max()
+    assert err <= 1e-5, err
+    acc2, dg02, _, _ = seg_accum_dg0_sched_plain(*args, **kw)
+    assert torch.equal(acc, acc2) and torch.equal(dg0, dg02)
+
+
+def test_dg0_schedule_model_hot_row_over_many_chunks():
+    """Chunks of 8 segments (``dg0_chunk``'s floor), nseg > 2048."""
+    _hot_row_check(2, 8, 8, 40, 4, 40, 2056, chunk=8)
+
+
+def test_dg0_schedule_model_hot_row_at_chunk_64():
+    """Chunks of 64 segments (``dg0_chunk``'s cap, which the training
+    cell's i1 pass takes), more of them than the headline widths' eight
+    thread groups."""
+    _hot_row_check(4, 32, 8, 40, 4, 4096, 600, chunk=64)
+
+
 def _count(monkeypatch):
     """Count the plain calls behind seg_accum and seg_accum_dg0 in the
     flat pipeline (the CPU runs no kernel)."""
@@ -268,7 +326,7 @@ APPLY_CASES = [(1, True, 21), (2, False, 3), (5, True, 4), (6, False, 5),
 @pytest.mark.parametrize("cid,dead,seed", APPLY_CASES)
 def test_flat_train_apply_dg0_fused_matches_jax(monkeypatch, cid, dead,
                                                 seed):
-    monkeypatch.setenv("FBTT_DG0", "fused")
+    monkeypatch.setenv("FBTT_DG0", "fused")  # JAX's B6; the port's default
     case = CASES[cid]
     rfull, cores, idx, rowidx, tab, w = make_case(**case, seed=seed)
     p, q, T, b = case["p"], case["q"], case.get("T", 1), case["b"]
@@ -356,21 +414,51 @@ def test_flat_lookup_backward_dg0_fused_matches_jax(monkeypatch, cid, dead,
 
 
 def test_dg0_fused_matches_onehot(monkeypatch):
-    """Same gradients with the knob on and off (the port alone)."""
+    """Same gradients with ``FBTT_DG0`` unset (B6 by default) as with
+    "onehot" (the port alone); B6 runs pass 1, and B3 not."""
     case = CASES[3]
     rfull, cores, idx, rowidx, tab, w = make_case(**case, seed=12)
     p, q, b = case["p"], case["q"], case["b"]
     d_out = torch.as_tensor(_d_out(1, b, int(np.prod(q))))
     res = {}
-    for mode in ("onehot", "fused"):
-        monkeypatch.setenv("FBTT_DG0", mode)
+    for mode in ("onehot", None):
+        if mode is None:
+            monkeypatch.delenv("FBTT_DG0", raising=False)
+        else:
+            monkeypatch.setenv("FBTT_DG0", mode)
         calls = _count(monkeypatch)
         res[mode] = tflat.flat_train_apply(
             [torch.as_tensor(c) for c in cores], p, q, rfull, b, _t(idx),
             _t(rowidx), None, None, None, d_out)
-        assert calls["seg_accum_dg0"] == (mode == "fused")
+        assert calls["seg_accum_dg0"] == (mode != "onehot")
         assert calls["seg_accum"] == (mode == "onehot")
-    (out_f, g_f), (out_o, g_o) = res["fused"], res["onehot"]
+    out_o, g_o = res["onehot"]
+    out_f, g_f = res[None]
     assert torch.equal(out_f, out_o)
     for a, b_ in zip(g_f, g_o):
+        torch.testing.assert_close(a, b_, **FUSED)
+
+
+def test_flat_lookup_backward_default_takes_b6(monkeypatch):
+    """``FBTT_DG0`` unset: ``FlatLookup``'s backward runs B6 on pass 1
+    (no B3 there) and gives the gradients of "onehot"."""
+    case = CASES[1]
+    rfull, cores, idx, rowidx, tab, w = make_case(**case, seed=33)
+    p, q, b = case["p"], case["q"], case["b"]
+    d_out = torch.as_tensor(_d_out(1, b, int(np.prod(q))))
+    got = {}
+    for mode in ("onehot", None):
+        if mode is None:
+            monkeypatch.delenv("FBTT_DG0", raising=False)
+        else:
+            monkeypatch.setenv("FBTT_DG0", mode)
+        calls = _count(monkeypatch)
+        leaves = [torch.as_tensor(c).requires_grad_() for c in cores]
+        out = t_lookup(leaves, p, q, rfull, b, _t(idx), _t(rowidx), None,
+                       weights=_t(w), impl="pallas_sorted")
+        got[mode] = torch.autograd.grad(out, leaves, d_out)
+        want_b3 = len(p) - 1 if mode == "onehot" else len(p) - 2
+        assert calls == {"seg_accum": want_b3,
+                         "seg_accum_dg0": int(mode is None)}
+    for a, b_ in zip(got[None], got["onehot"]):
         torch.testing.assert_close(a, b_, **FUSED)

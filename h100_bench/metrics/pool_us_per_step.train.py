@@ -1,8 +1,9 @@
 """Device microseconds of pooling per training step, from the program's
 own spans (``fbtt_embedding_tpu_torch.utils.profiling.span_totals``): the
 stream time of every ``fbtt.pool`` span (the forward's pool,
-``tt_flat._pool_flat``: ``segment_sum`` above 4096 pooled rows, and its
-transpose, ``_row_cotangents``) over the ``fbtt.step`` spans, which count
+``tt_flat._pool_flat``: on the card the bag-order pool kernel,
+``ops/kernels/bag_pool.py``; and its transpose, ``_row_cotangents``, a
+gather) over the ``fbtt.step`` spans, which count
 the steps of the traced window and its pads. None for a program without
 spans, on the CPU (no device seconds) or where none ran."""
 

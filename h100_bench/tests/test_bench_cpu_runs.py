@@ -11,10 +11,9 @@ import time
 import pytest
 
 from h100_bench import harness
-from h100_bench.tests.tiny import tiny_cell, workloads
+from h100_bench.tests.tiny import (KEYS, faults, tiny_cell, tiny_path,
+                                   tiny_spec, tiny_workloads, workloads)
 
-TRAIN = [w for w in workloads() if "-train-" in w]
-SERVE = [w for w in workloads() if "-serve-" in w]
 SEED = 2 ** 31 + 977
 
 
@@ -25,36 +24,48 @@ def run(cell, **kw):
 
 
 @pytest.mark.parametrize("workload", workloads())
+def test_every_cell_has_its_tiny_file(workload):
+    path = tiny_path(workload)
+    assert path.exists(), f"cell {workload} has no tiny sizes: add {path}"
+    tiny = tiny_spec(workload)
+    assert set(tiny) == KEYS, path
+    assert isinstance(tiny["config"], dict) and isinstance(tiny["mix"], dict)
+    assert tiny["faults"] and all(isinstance(f, str) for f in tiny["faults"])
+
+
+@pytest.mark.parametrize("workload", tiny_workloads())
 def test_program_run_is_correct(workload):
-    res = run(tiny_cell(workload))
+    cell = tiny_cell(workload)
+    res = run(cell)
     assert res["correct"], res["checks"]
     assert res["attempted"] > 0 and res["failed"] == 0
-    names = {m["name"] for m in tiny_cell(workload).end_to_end}
-    assert set(res["metrics"]) == names
+    assert set(res["metrics"]) == {m["name"] for m in cell.end_to_end}
+    # every limit is compared, and nothing is compared without a limit
+    assert set(res["checks"]) == set(cell.limits), res["checks"]
     assert list(res)[-1] == "checks"
 
 
-@pytest.mark.parametrize("workload", workloads())
+@pytest.mark.parametrize("workload", tiny_workloads())
 def test_control_is_not_correct(workload):
     res = run(tiny_cell(workload), control=True)
     assert not res["correct"], res["checks"]
 
 
-@pytest.mark.parametrize("workload,fault", [
-    (w, f) for w in TRAIN for f in ("frozen", "half_batch")] + [
-    (w, "altered") for w in SERVE])
+@pytest.mark.parametrize("workload,fault", faults())
 def test_broken_timed_path_is_not_correct(workload, fault):
     res = run(tiny_cell(workload), fault=fault)
     assert not res["correct"], res["checks"]
 
 
 def test_no_jax_after_a_run():
+    """Every cell's run, in one process."""
     code = (
         "import sys, time; sys.path.insert(0, '.');"
         "from h100_bench import harness;"
-        "from h100_bench.tests.tiny import tiny_cell;"
-        f"harness.execute(tiny_cell({SERVE[0]!r}), 5, 0.1, False, 'cpu',"
-        " time.perf_counter(), out=open('/dev/null', 'w'));"
+        "from h100_bench.tests.tiny import tiny_cell, tiny_workloads;"
+        "[harness.execute(tiny_cell(w), 5, 0.1, False, 'cpu',"
+        " time.perf_counter(), out=open('/dev/null', 'w'))"
+        " for w in tiny_workloads()];"
         "print(sorted({m.split('.')[0] for m in sys.modules} & "
         "{'jax', 'jaxlib', 'flax', 'fbtt_embedding_tpu'}))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -1,8 +1,11 @@
 """BENCHMARK.json and the files it names: found by name, parseable, and
-within the limits the format sets on names, units and keys."""
+within the limits the format sets on names, units and keys; each table of
+each configuration whole."""
 
 import json
+import math
 import re
+from pathlib import Path
 
 import pytest
 
@@ -14,6 +17,32 @@ UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 WORKLOADS = [w["name"] for w in BENCH["workloads"]]
 METRIC_KEYS = {"name", "unit", "better", "source", "bound", "workloads",
                "layer", "moves"}
+TABLE_KEYS = {"name", "tt_p_shapes", "tt_q_shapes", "tt_ranks",
+              "num_embeddings", "embedding_dim"}
+FIXTURES = Path(__file__).resolve().parent / "fixtures"
+
+
+def tables(cfg: dict) -> list:
+    """A configuration's tables: those listed under ``tables`` (each with
+    the keys of ``TABLE_KEYS``, ``num_tables`` their count), or the
+    configuration itself as its one table."""
+    if "tables" not in cfg:
+        assert cfg.get("num_tables", 1) == 1, cfg["name"]
+        return [cfg]
+    assert cfg["num_tables"] == len(cfg["tables"]), cfg["name"]
+    for t in cfg["tables"]:
+        assert set(t) == TABLE_KEYS, (cfg["name"], t.get("name"))
+    return cfg["tables"]
+
+
+def check_table(t: dict) -> None:
+    """A TT table's shapes multiply to its rows and its width, with one
+    rank between each two cores."""
+    p, q = t["tt_p_shapes"], t["tt_q_shapes"]
+    assert len(p) == len(q) >= 2, t["name"]
+    assert math.prod(p) == t["num_embeddings"], t["name"]
+    assert math.prod(q) == t["embedding_dim"], t["name"]
+    assert len(t["tt_ranks"]) == len(p) - 1, t["name"]
 
 
 def test_top_level_keys():
@@ -48,7 +77,6 @@ def test_cell_files_found_by_name(workload):
     assert cell.config["name"] == next(
         w["config"] for w in BENCH["workloads"] if w["name"] == workload)
     assert (spec.HERE / "drivers" / f"{cell.mix['kind']}.py").exists()
-    assert {"first_out_err", "out_err"} & set(cell.limits)
     names = {m["name"] for m in cell.end_to_end}
     assert "setup_s" in names and len(names) >= 2
     assert cell.per_layer
@@ -70,10 +98,22 @@ def test_configs_and_bounds():
         assert cfg["name"] == c["name"] and cfg["reduced"] == c["reduced"]
         assert cfg["source"] == c["source"].rstrip("/")
         assert c["source"].startswith("https://")
-        e = d = 1
-        for p, q in zip(cfg["tt_p_shapes"], cfg["tt_q_shapes"]):
-            e, d = e * p, d * q
-        assert (e, d) == (cfg["num_embeddings"], cfg["embedding_dim"])
+        for t in tables(cfg):
+            check_table(t)
     for m in BENCH["end_to_end"]:
         assert 0.01 <= m["bound"] <= 0.25
         assert m["source"] in ("host_clock", "device_trace")
+
+
+def test_table_check_takes_each_table_of_a_configuration():
+    cfg = spec.load_json(FIXTURES / "two-tables.json")
+    assert [t["name"] for t in tables(cfg)] == ["t0", "t1"]
+    for t in tables(cfg):
+        check_table(t)
+
+
+def test_table_check_refuses_a_table_whose_shapes_miss_its_rows():
+    cfg = spec.load_json(FIXTURES / "two-tables-bad-rows.json")
+    check_table(tables(cfg)[0])
+    with pytest.raises(AssertionError, match="t1"):
+        check_table(tables(cfg)[1])

@@ -1,44 +1,49 @@
-"""Tiny configurations and mixes for CPU runs of the harness: the cells'
-own mixes at a small batch, over small tables of the cells' shapes."""
+"""Tiny sizes for CPU runs of the harness, one file per cell, found by the
+cell's name: ``tests/tiny/<workload>.json`` holds
 
-import json
-import math
+* ``config``: keys merged over the cell's configuration (a small table of
+  the cell's widths),
+* ``mix``: keys merged over the cell's traffic mix (a key given here, such
+  as a ``counting`` block, replaces the mix's whole),
+* ``faults``: the faults the cell's driver plants (``ctx.fault``), each of
+  which must make ``correct`` false.
+"""
+
 from pathlib import Path
 
 from h100_bench import spec
 
-HERE = Path(__file__).resolve().parents[1]
-
-CONFIGS = {
-    "ttrec-e11m-d64": {"tt_p_shapes": [10, 11, 12], "tt_q_shapes": [4, 4, 4],
-                       "tt_ranks": [32, 32]},
-    "ttrec-e1b-d64-ndim4": {"tt_p_shapes": [5, 6, 6, 7],
-                            "tt_q_shapes": [2, 4, 2, 4],
-                            "tt_ranks": [32, 32, 32]},
-}
+TINY = Path(__file__).resolve().parent / "tiny"
+KEYS = {"config", "mix", "faults"}
 
 
-def tiny_cell(workload: str, limits=None) -> spec.Cell:
-    """The cell ``workload`` at a tiny size: its configuration's widths
-    over a small table, its mix at B = 32 with a pool of 8, a hashed table
-    smaller than the table."""
+def tiny_path(workload: str) -> Path:
+    return TINY / f"{workload}.json"
+
+
+def tiny_spec(workload: str) -> dict:
+    return spec.load_json(tiny_path(workload))
+
+
+def tiny_cell(workload: str) -> spec.Cell:
+    """The cell ``workload`` at the size its tiny file gives."""
     cell = spec.load_cell(workload)
-    cfg = dict(cell.config, **CONFIGS[cell.config["name"]])
-    mix = dict(cell.mix, batch_size=32)
-    if mix["kind"] == "train":
-        mix["pool_batches"] = 8
-        if mix.get("counting", {}).get("layout") == "hashed":
-            mix["counting"] = {"layout": "hashed", "hashtbl_size": 1024,
-                               "cache_size": 128}
-    else:
-        mix.update(pool_requests=8, count_batches=4)
-    if limits == "none":
-        limits = {k: math.inf for k in cell.limits}
-    return spec.Cell(workload, 1, cfg, mix,
-                     cell.limits if limits is None else limits)
+    tiny = tiny_spec(workload)
+    cell.config = dict(cell.config, **tiny["config"])
+    cell.mix = dict(cell.mix, **tiny["mix"])
+    return cell
 
 
 def workloads():
-    return [w["name"] for w in
-            json.loads((HERE.parent / "BENCHMARK.json").read_text())
-            ["workloads"]]
+    return [w["name"] for w in spec.load_benchmark()["workloads"]]
+
+
+def tiny_workloads():
+    """The cells that have a tiny file (a cell without one fails
+    ``test_every_cell_has_its_tiny_file``)."""
+    return [w for w in workloads() if tiny_path(w).exists()]
+
+
+def faults():
+    """``(workload, fault)`` for every fault of every tiny file."""
+    return [(w, f) for w in tiny_workloads() for f in tiny_spec(w)["faults"]]

@@ -26,7 +26,9 @@ serving folds the cores once (``make_folded_serving_fn``,
 ``refold_cache``; ``make_bucketed_serving_fn`` for requests of any size).
 The DLRM model (``models.dlrm``: ``DLRMConfig``, ``init_dlrm_params``,
 ``dlrm_forward``, ``make_dlrm_train_step``) trains on the same lookup
-through autograd, with its walkthrough ``examples.train_dlrm``; on several
+through autograd, with its walkthrough ``examples.train_dlrm``, and so
+does MLPerf's DLRM-DCNv2 (``models.dcnv2``: one TT group and plain
+tables, multi-hot bags, a low-rank cross network, Adagrad); on several
 GPUs (``parallel``, on ``torch.distributed``: ``initialize_distributed``,
 ``make_mesh`` / ``make_hybrid_mesh``, the data-parallel and table-sharded
 lookups, the data-parallel fused step ``make_sharded_fused_train_step``
@@ -63,6 +65,14 @@ from fbtt_embedding_tpu_torch.models.dlrm import (
     init_dlrm_params,
     make_dlrm_train_step,
     shard_dlrm_params,
+)
+from fbtt_embedding_tpu_torch.models.dcnv2 import (
+    DCNv2Batch,
+    DCNv2Config,
+    DCNv2Params,
+    dcnv2_forward,
+    init_dcnv2_params,
+    make_dcnv2_train_step,
 )
 from fbtt_embedding_tpu_torch.models.tt_embedding import (
     FoldedServingParams,
@@ -187,6 +197,9 @@ from fbtt_embedding_tpu_torch.utils.shapes import suggested_tt_shapes
 
 __all__ = [
     "CacheState",
+    "DCNv2Batch",
+    "DCNv2Config",
+    "DCNv2Params",
     "DLRMConfig",
     "DLRMParams",
     "FlatLookup",
@@ -214,6 +227,7 @@ __all__ = [
     "csr_step_adapter",
     "decompose_indices",
     "decompose_indices64",
+    "dcnv2_forward",
     "dlrm_forward",
     "dlrm_params_from_jax",
     "flat_train_apply",
@@ -221,11 +235,13 @@ __all__ = [
     "guard",
     "hash_keys",
     "hash_keys_wide",
+    "init_dcnv2_params",
     "init_dlrm_params",
     "init_tt_cores",
     "initialize_distributed",
     "make_bucketed_serving_fn",
     "make_cache_state",
+    "make_dcnv2_train_step",
     "make_dlrm_train_step",
     "make_dp_cached_lookup",
     "make_dp_lookup",

@@ -7,6 +7,8 @@ Counterpart of ``fbtt_embedding_tpu.ops.indexing``:
   tables with ``prod(p) >= 2**31``);
 - CSR offsets -> per-lookup (rowidx, tableidx), by marking bag starts
   and prefix-summing (no host synchronisation, empty bags allowed);
+- the per-lookup (rowidx, tableidx) of fixed multi-hot bags, one bag size
+  per table (``multi_hot_positions``);
 - the wide int64 key-row layout ``(hi, lo, part_0..part_{ndim-1})`` that
   serving takes for big tables;
 - the host-side CSR -> fixed-pooling re-layout of the multi-GPU steps
@@ -119,4 +121,17 @@ def rowidx_from_offsets(
     marks.index_add_(0, inner, torch.ones_like(inner, dtype=torch.int32))
     bag = torch.cumsum(marks[:nnz], 0, dtype=torch.int32)
     bag = bag.clamp(0, num_tables * batch_size - 1)
+    return bag % batch_size, torch.div(bag, batch_size, rounding_mode="floor")
+
+
+def multi_hot_positions(batch_size: int, pooling: Sequence[int], device
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-lookup ``(rowidx, tableidx)``, both int32, of tables whose bags
+    hold ``pooling[t]`` lookups each: table-major, each table's ``[B,
+    pooling[t]]`` block bag by bag, as a multi-hot batch lays out."""
+    lengths = torch.tensor([int(n) for n in pooling], dtype=torch.int64,
+                           device=device).repeat_interleave(batch_size)
+    bag = torch.repeat_interleave(
+        torch.arange(lengths.shape[0], dtype=torch.int32, device=device),
+        lengths, output_size=batch_size * sum(int(n) for n in pooling))
     return bag % batch_size, torch.div(bag, batch_size, rounding_mode="floor")

@@ -30,8 +30,9 @@
 // round trip, no longer the multiply-adds. The folded i2 pass (32 x 4) is
 // a narrow stream, on the narrow tensor-core path in bf16 (seg_fused_i2.cu's
 // path without the forward product); float32 and other widths take the
-// CUDA-core paths. Partial gradient tiles are added per span in segment
-// order by a second kernel: no float atomics, bitwise repeatable.
+// CUDA-core paths. Partial gradient tiles are added per span in a fixed
+// order by a second kernel (a span of many tiles in chunks, then the chunk
+// sums): no float atomics, bitwise repeatable.
 
 #include "seg_span.cuh"
 
@@ -43,26 +44,43 @@ extern "C" {
 // launches (0 on success). in_bf16 / z_bf16 select bfloat16 (1) or
 // float32 (0) for x, y, table and for z. mm folds the block-diagonal table
 // (1: the slab as it is). `partial` holds (nseg + p_rows) float tiles of
-// (bw_x/mm) * (bw_y/mm); acc is [p_rows, bw_x/mm, bw_y/mm] float.
+// (bw_x/mm) * (bw_y/mm); acc is [p_rows, bw_x/mm, bw_y/mm] float. Kernel 2
+// adds a span's tiles in chunks of `chunk` (0: one chunk a span), with
+// `sched` holding its schedule (2 * p_rows + 3 + ceil((nseg + p_rows) /
+// chunk) + p_rows ints; unused at chunk 0).
 int fbtt_seg_accum(const int* runs, const int* first, const int* cnt, const void* x,
                    const void* y, const void* table, void* z, float* partial,
-                   float* acc, int nseg, int seg, int blocks, int bw_x, int bw_y,
-                   int mm, int p_rows, int in_bf16, int z_bf16, void* stream) {
+                   float* acc, int* sched, int nseg, int seg, int blocks, int bw_x,
+                   int bw_y, int mm, int p_rows, int chunk, int in_bf16, int z_bf16,
+                   void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (in_bf16) {
     return z_bf16 ? launch<__nv_bfloat16, __nv_bfloat16, false>(
-                        runs, first, cnt, x, y, table, z, nullptr, partial, acc, nseg,
-                        seg, blocks, bw_x, bw_y, mm, p_rows, st)
+                        runs, first, cnt, x, y, table, z, nullptr, partial, acc, sched,
+                        nseg, seg, blocks, bw_x, bw_y, mm, p_rows, chunk, st)
                   : launch<__nv_bfloat16, float, false>(
-                        runs, first, cnt, x, y, table, z, nullptr, partial, acc, nseg,
-                        seg, blocks, bw_x, bw_y, mm, p_rows, st);
+                        runs, first, cnt, x, y, table, z, nullptr, partial, acc, sched,
+                        nseg, seg, blocks, bw_x, bw_y, mm, p_rows, chunk, st);
   }
   return z_bf16 ? launch<float, __nv_bfloat16, false>(runs, first, cnt, x, y, table, z,
-                                                     nullptr, partial, acc, nseg, seg,
-                                                     blocks, bw_x, bw_y, mm, p_rows, st)
+                                                     nullptr, partial, acc, sched, nseg,
+                                                     seg, blocks, bw_x, bw_y, mm, p_rows,
+                                                     chunk, st)
                 : launch<float, float, false>(runs, first, cnt, x, y, table, z, nullptr,
-                                             partial, acc, nseg, seg, blocks, bw_x, bw_y,
-                                             mm, p_rows, st);
+                                             partial, acc, sched, nseg, seg, blocks, bw_x,
+                                             bw_y, mm, p_rows, chunk, st);
+}
+
+// Kernel 2 alone: acc [p_rows, tile] float from `partial`'s (nseg + p_rows)
+// tiles of `tile` floats (a multiple of 4) at the spans of `runs`, in
+// chunks of `chunk` as fbtt_seg_accum adds them (the chunk sums overwrite
+// tiles of `partial`). Returns cudaGetLastError() after the launches.
+int fbtt_span_reduce(const int* runs, float* partial, float* acc, int* sched, int nseg,
+                     int seg, int tile, int p_rows, int chunk, void* stream) {
+  if (tile <= 0 || tile % 4 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(fbtt_span::launch_span_reduce(
+      runs, partial, acc, sched, nseg, p_rows, seg, tile, chunk,
+      static_cast<cudaStream_t>(stream)));
 }
 
 // The path the first kernel takes for these widths after folding by mm:

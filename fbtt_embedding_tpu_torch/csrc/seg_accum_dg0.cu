@@ -33,7 +33,8 @@
 //     i0 in row order, and writes one float32 partial row per distinct i0
 //     at slot seg_index*seg + k, with its key (keys ascending, unused slots
 //     INT_MAX).
-//   kernel 2 is B3's per-span reduction of the acc tiles (seg_span.cuh).
+//   kernel 2 is B3's per-span reduction of the acc tiles (seg_span.cuh),
+//     a span of many tiles in chunks, then its chunk sums.
 //   kernel 3 adds the partials of each dG0 row in a fixed order, in two
 //     passes: CTAs over (a chunk of segments, a tile of dG0 rows) map each
 //     row to its slot in each segment of the chunk and write the chunk's
@@ -426,9 +427,9 @@ cudaError_t launch_tc(const SpanArgs<__nv_bfloat16, float>& a, const KeyedArgs& 
 template <typename Tin>
 int launch_dg0(const int* runs, const int* first, const int* cnt, const void* x,
                const void* y, const int* i0c, const void* table, float* partial,
-               float* acc, float* dg0_part, int* dg0_key, float* chunk_sum, float* dg0,
-               int nseg, int seg, int blocks, int bw_x, int bw_y, int p_rows, int tp0,
-               int chunk, int path, cudaStream_t stream) {
+               float* acc, int* sched, float* dg0_part, int* dg0_key, float* chunk_sum,
+               float* dg0, int nseg, int seg, int blocks, int bw_x, int bw_y, int p_rows,
+               int tp0, int chunk, int span_chunk, int path, cudaStream_t stream) {
   constexpr bool kBf16 = sizeof(Tin) == 2;
   if (!dg0_takes(path, kBf16, seg, blocks, bw_x, bw_y) || chunk < 1 || chunk > kMaxChunk) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -461,7 +462,8 @@ int launch_dg0(const int* runs, const int* first, const int* cnt, const void* x,
     }
   }
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = launch_span_reduce(runs, partial, acc, p_rows, seg, bw_x * bw_y, stream);
+  err = launch_span_reduce(runs, partial, acc, sched, nseg, p_rows, seg, bw_x * bw_y,
+                           span_chunk, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (tp0 > 0) {
     const int nchunk = (nseg + chunk - 1) / chunk;
@@ -486,7 +488,9 @@ extern "C" {
 // cudaGetLastError() after the launches (0 on success), or
 // cudaErrorInvalidValue where `path` does not take the widths or `chunk`
 // is not in [1, 64]. in_bf16 selects bfloat16 (1) or float32 (0) for x, y
-// and table. Kernel 3 adds `chunk` segments' partials a CTA. Scratch:
+// and table. Kernel 2 adds a span's tiles in chunks of `span_chunk` (0: one
+// chunk a span) with `sched`, as in fbtt_seg_accum; kernel 3 adds `chunk`
+// segments' partials a CTA. Scratch:
 // `partial` holds (nseg + p_rows) float tiles of bw_x * bw_y, `dg0_part`
 // nseg*seg float rows of blocks*bw_x, `dg0_key` nseg*seg ints and
 // `chunk_sum` ceil(nseg / chunk) * tp0 float rows of blocks*bw_x; it may
@@ -495,19 +499,20 @@ extern "C" {
 // float32.
 int fbtt_seg_accum_dg0(const int* runs, const int* first, const int* cnt, const void* x,
                        const void* y, const int* i0c, const void* table, float* partial,
-                       float* acc, float* dg0_part, int* dg0_key, float* chunk_sum,
-                       float* dg0, int nseg, int seg, int blocks, int bw_x, int bw_y,
-                       int p_rows, int tp0, int chunk, int in_bf16, int path,
-                       void* stream) {
+                       float* acc, int* sched, float* dg0_part, int* dg0_key,
+                       float* chunk_sum, float* dg0, int nseg, int seg, int blocks, int bw_x,
+                       int bw_y, int p_rows, int tp0, int chunk, int span_chunk,
+                       int in_bf16, int path, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (in_bf16) {
     return launch_dg0<__nv_bfloat16>(runs, first, cnt, x, y, i0c, table, partial, acc,
-                                     dg0_part, dg0_key, chunk_sum, dg0, nseg, seg, blocks,
-                                     bw_x, bw_y, p_rows, tp0, chunk, path, st);
+                                     sched, dg0_part, dg0_key, chunk_sum, dg0, nseg, seg,
+                                     blocks, bw_x, bw_y, p_rows, tp0, chunk, span_chunk,
+                                     path, st);
   }
-  return launch_dg0<float>(runs, first, cnt, x, y, i0c, table, partial, acc, dg0_part,
-                           dg0_key, chunk_sum, dg0, nseg, seg, blocks, bw_x, bw_y, p_rows,
-                           tp0, chunk, path, st);
+  return launch_dg0<float>(runs, first, cnt, x, y, i0c, table, partial, acc, sched,
+                           dg0_part, dg0_key, chunk_sum, dg0, nseg, seg, blocks, bw_x, bw_y,
+                           p_rows, tp0, chunk, span_chunk, path, st);
 }
 
 // The path kernel 1 takes for these widths: 2 tensor cores with dz0 over

@@ -26,8 +26,8 @@
 // and the widths that path does not take run the narrow CUDA-core path
 // (lanes of 8 columns, shuffle sums), about 2.3x slower in bf16. Unfolded
 // (mm = 1: the whole 128 x 16 slab, 4x the multiply-adds) it takes the
-// CUDA-core path. Partial gradient tiles are added per span in segment
-// order by a second kernel: bitwise repeatable.
+// CUDA-core path. Partial gradient tiles are added per span in a fixed
+// order by a second kernel (seg_span.cuh): bitwise repeatable.
 
 #include "seg_span.cuh"
 
@@ -39,19 +39,24 @@ extern "C" {
 // launches (0 on success). in_bf16 selects bfloat16 (1) or float32 (0) for
 // x, y, table, z and rows. mm folds the block-diagonal table (1: the slab
 // as it is). `partial` holds (nseg + p_rows) float tiles of (bw_x/mm) *
-// (bw_y/mm); acc is [p_rows, bw_x/mm, bw_y/mm] float.
+// (bw_y/mm); acc is [p_rows, bw_x/mm, bw_y/mm] float. Kernel 2 adds a
+// span's tiles in chunks of `chunk` (0: one chunk a span) with `sched`, as
+// in fbtt_seg_accum.
 int fbtt_seg_fused_i2(const int* runs, const int* first, const int* cnt, const void* x,
                       const void* y, const void* table, void* z, void* rows,
-                      float* partial, float* acc, int nseg, int seg, int blocks,
-                      int bw_x, int bw_y, int mm, int p_rows, int in_bf16, void* stream) {
+                      float* partial, float* acc, int* sched, int nseg, int seg,
+                      int blocks, int bw_x, int bw_y, int mm, int p_rows, int chunk,
+                      int in_bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (in_bf16) {
     return launch<__nv_bfloat16, __nv_bfloat16, true>(runs, first, cnt, x, y, table, z,
-                                                      rows, partial, acc, nseg, seg,
-                                                      blocks, bw_x, bw_y, mm, p_rows, st);
+                                                      rows, partial, acc, sched, nseg, seg,
+                                                      blocks, bw_x, bw_y, mm, p_rows, chunk,
+                                                      st);
   }
   return launch<float, float, true>(runs, first, cnt, x, y, table, z, rows, partial, acc,
-                                    nseg, seg, blocks, bw_x, bw_y, mm, p_rows, st);
+                                    sched, nseg, seg, blocks, bw_x, bw_y, mm, p_rows, chunk,
+                                    st);
 }
 
 // The path the first kernel takes for these widths after folding by mm:

@@ -34,10 +34,13 @@
 // float atomics would make the gradient depend on the schedule. So each CTA
 // writes the float32 sum of its own rows of span j as a partial tile at
 // slot s + j (unique, because first[s+1] >= last span of s), and kernel 2
-// adds span j's partial tiles in segment order into acc[j]: bitwise
+// adds span j's partial tiles in a fixed order into acc[j]: bitwise
 // repeatable. Segment-parallel (and not one CTA per span) because a hot
 // core row under Zipf traffic owns thousands of rows: one CTA per span
-// would serialise them on one SM, while segments stay balanced.
+// would serialise them on one SM, while segments stay balanced. For the
+// same reason kernel 2 splits a span of many tiles into chunks of
+// consecutive tiles, one CTA a chunk, and adds the chunk sums in chunk
+// order in a second pass; a span of few tiles is one chunk (kernel 2 below).
 //
 // Kernel 1 takes one of four paths (span_path below):
 //  - tensor cores (bf16 inputs, B3, kx and ky multiples of 16): the
@@ -1129,71 +1132,231 @@ seg_span_tcn_kernel(const SpanArgs<__nv_bfloat16, Tz> a) {
 }
 
 // ---------------------------------------------------------------------------
-// Kernel 2: acc[j] = span j's partial tiles added in segment order (zero for
-// an empty span). Grid (spans, column chunks); a chunk of cw <= kThreads
-// float4 columns takes kThreads / cw thread groups, each adding a
-// contiguous range of the span's tiles with kReduceDepth loads in flight,
-// and the groups' sums are added in group order: a fixed order, bitwise
-// repeatable, and a hot span's many tiles (under Zipf traffic one core row
-// meets most segments) are not one serial chain of L2 loads.
-__global__ void __launch_bounds__(kThreads)
-span_reduce_kernel(const int* __restrict__ runs, const float* __restrict__ partial,
-                   float* __restrict__ acc, int seg, int tile) {
-  __shared__ float4 group_sum[kThreads];
-  const int j = blockIdx.x;
+// Kernel 2 (span_reduce_kernel): acc[j] = span j's partial tiles added in
+// a fixed order (zero for an empty span). Span j's tiles lie at the
+// consecutive slots s + j, s over the segments it meets. Under Zipf traffic
+// one core row meets most segments (a quarter of the 20480 at the training
+// cell's i1 pass, ~90 MB of tiles): one CTA a span would add them in one
+// serial chain of loads while the other spans are long done. So with a
+// chunk C > 0 the tiles are added in two passes. CTAs over (span, chunk of
+// at most C consecutive tiles, column block) add their chunk's tiles in
+// slot order: a span of one chunk (nearly every span) writes acc[j] so; a
+// split span's chunk writes its sum over its own first tile, which only
+// that CTA reads, after reading it. Then a CTA per split span adds its
+// chunk sums in chunk order into acc[j]. A schedule pass before them (one
+// CTA) counts each span's chunks from runs and writes span j's first chunk,
+// each chunk's span and the split spans to `sched`: the grids are sized by
+// bounds the host knows, and nothing is read on the host. C = 0 is one
+// chunk a span: the chunk pass alone, one CTA a span. In a CTA, a column
+// block of cw <= kThreads float4 columns takes kThreads / cw thread groups,
+// each adding a contiguous range of the chunk's tiles with kReduceDepth
+// loads in flight, and the groups' sums are added in group order. Every
+// sum has a fixed order: bitwise repeatable, no atomics.
+constexpr int kReduceSchedule = 0;  // span_reduce_kernel's passes
+constexpr int kReduceChunks = 1;
+constexpr int kReduceChunkSums = 2;
+
+// Chunks in all, at most: the spans' tiles fill at most nseg + p_rows slots,
+// and each span has at most one chunk of fewer than C tiles.
+inline long long reduce_chunks(int nseg, int p_rows, int chunk) {
+  return (static_cast<long long>(nseg) + p_rows + chunk - 1) / chunk + p_rows;
+}
+
+// Split spans, at most: each has more than C tiles.
+inline long long reduce_splits(int nseg, int p_rows, int chunk) {
+  return std::min<long long>(p_rows, (static_cast<long long>(nseg) + p_rows) / (chunk + 1));
+}
+
+// Span j's partial tiles: how many, and (in `slot`) the slot of its first.
+__device__ __forceinline__ int span_tiles(const int* __restrict__ runs, int j, int seg,
+                                          int& slot) {
   const int st = runs[j];
   const int en = runs[j + 1];
-  const int n4 = tile / 4;
-  const int cw = min(n4, kThreads);
-  const int groups = kThreads / cw;
+  slot = st / seg + j;
+  return en > st ? (en - 1) / seg - st / seg + 1 : 0;
+}
+
+// The exclusive prefix of v over the CTA's threads, and in `total` the sum;
+// every thread of the CTA calls it. warp_tot holds kWarps entries.
+__device__ __forceinline__ int2 cta_scan(int2 v, int2* warp_tot, int2& total) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  int2 inc = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int a = __shfl_up_sync(0xffffffffu, inc.x, o);
+    const int b = __shfl_up_sync(0xffffffffu, inc.y, o);
+    if (lane >= o) {
+      inc.x += a;
+      inc.y += b;
+    }
+  }
+  if (lane == 31) warp_tot[warp] = inc;
+  __syncthreads();
+  int2 before = make_int2(0, 0);
+  total = make_int2(0, 0);
+  for (int w = 0; w < kWarps; ++w) {
+    const int2 t = warp_tot[w];
+    if (w < warp) {
+      before.x += t.x;
+      before.y += t.y;
+    }
+    total.x += t.x;
+    total.y += t.y;
+  }
+  __syncthreads();  // warp_tot is read before the next call writes it
+  return make_int2(before.x + inc.x - v.x, before.y + inc.y - v.y);
+}
+
+// Float4 column c of the `count` tiles at slots slot0, slot0 + stride, ...:
+// thread group gi of `groups` (cw threads each) adds the gi-th contiguous
+// range of them in order, kReduceDepth loads in flight, then the groups'
+// sums are added in group order through group_sum. Every thread of the CTA
+// calls it; group 0 (threadIdx.x < cw) returns the total. p4 may alias the
+// tiles the caller writes after.
+__device__ __forceinline__ float4 ordered_sum(const float4* p4, int slot0, int stride,
+                                              int count, int n4, int c, int cw, int groups,
+                                              float4* group_sum) {
   const int gi = threadIdx.x / cw;
-  const int ci = threadIdx.x - gi * cw;
-  const bool active = gi < groups;
   const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-  float4* out = reinterpret_cast<float4*>(acc + static_cast<size_t>(j) * tile);
-  const float4* p4 = reinterpret_cast<const float4*>(partial);
-  const int s_lo = st / seg;
-  const int n_seg = en > st ? (en - 1) / seg - s_lo + 1 : 0;
-  for (int c0 = blockIdx.y * cw; c0 < n4; c0 += gridDim.y * cw) {
-    const int c = c0 + ci;
-    float4 sum = zero;
-    if (active && c < n4) {
-      const int lo = n_seg * gi / groups;
-      const int hi = n_seg * (gi + 1) / groups;
-      for (int i = lo; i < hi; i += kReduceDepth) {
-        float4 v[kReduceDepth];
+  float4 sum = zero;
+  if (gi < groups && c < n4) {
+    const int lo = count * gi / groups;
+    const int hi = count * (gi + 1) / groups;
+    for (int i = lo; i < hi; i += kReduceDepth) {
+      float4 v[kReduceDepth];
 #pragma unroll
-        for (int u = 0; u < kReduceDepth; ++u) {
-          v[u] = i + u < hi ? p4[static_cast<size_t>(s_lo + i + u + j) * n4 + c] : zero;
-        }
+      for (int u = 0; u < kReduceDepth; ++u) {
+        v[u] = i + u < hi ? p4[(static_cast<size_t>(slot0) +
+                                static_cast<size_t>(i + u) * stride) * n4 + c]
+                          : zero;
+      }
 #pragma unroll
-        for (int u = 0; u < kReduceDepth; ++u) {
-          sum.x += v[u].x; sum.y += v[u].y; sum.z += v[u].z; sum.w += v[u].w;
-        }
+      for (int u = 0; u < kReduceDepth; ++u) {
+        sum.x += v[u].x; sum.y += v[u].y; sum.z += v[u].z; sum.w += v[u].w;
       }
     }
-    if (groups > 1) {
-      __syncthreads();  // the previous chunk's group sums are no longer read
-      if (active) group_sum[threadIdx.x] = sum;
-      __syncthreads();
-      if (threadIdx.x < cw) {
-        for (int k = 1; k < groups; ++k) {
-          const float4 v = group_sum[k * cw + ci];
-          sum.x += v.x; sum.y += v.y; sum.z += v.z; sum.w += v.w;
-        }
+  }
+  if (groups > 1) {
+    if (gi < groups) group_sum[threadIdx.x] = sum;
+    __syncthreads();
+    if (threadIdx.x < cw) {
+      for (int k = 1; k < groups; ++k) {
+        const float4 v = group_sum[k * cw + threadIdx.x];
+        sum.x += v.x; sum.y += v.y; sum.z += v.z; sum.w += v.w;
       }
     }
-    if (threadIdx.x < cw && c < n4) out[c] = sum;
+  }
+  return sum;
+}
+
+// Pass kReduceSchedule: grid 1. kReduceChunks: grid (reduce_chunks, column
+// blocks), or (p_rows, column blocks) at chunk 0. kReduceChunkSums: grid
+// (reduce_splits, column blocks). CTAs past the work exit at once. The
+// schedule, `sched` (2 * p_rows + 3 + reduce_chunks ints): start[p_rows + 1]
+// (span j's first chunk; start[p_rows] the chunks in all), the split spans'
+// count and p_rows less it, split[p_rows] (the split spans, ascending),
+// span_of[reduce_chunks] (each chunk's span).
+template <int kPass>
+__global__ void __launch_bounds__(kThreads)
+span_reduce_kernel(const int* __restrict__ runs, float* partial, float* __restrict__ acc,
+                   int* sched, int p_rows, int seg, int tile, int chunk) {
+  __shared__ float4 group_sum[kThreads];
+  int* start = sched;
+  int* counts = sched + p_rows + 1;  // split spans, p_rows less them
+  int* split = counts + 2;
+  int* span_of = split + p_rows;
+  if constexpr (kPass == kReduceSchedule) {
+    __shared__ int2 warp_tot[kWarps];
+    int base = 0, nsplit = 0;  // CTA-uniform
+    for (int j0 = 0; j0 < p_rows; j0 += kThreads) {
+      const int j = j0 + threadIdx.x;
+      int nch = 0;
+      if (j < p_rows) {
+        int slot;
+        nch = max(1, (span_tiles(runs, j, seg, slot) + chunk - 1) / chunk);
+      }
+      int2 total;
+      const int2 pre = cta_scan(make_int2(nch, nch > 1), warp_tot, total);
+      if (j < p_rows) {
+        start[j] = base + pre.x;
+        if (nch > 1) split[nsplit + pre.y] = j;
+        for (int k = 0; k < nch; ++k) span_of[base + pre.x + k] = j;
+      }
+      base += total.x;
+      nsplit += total.y;
+    }
+    if (threadIdx.x == 0) {
+      start[p_rows] = base;
+      counts[0] = nsplit;
+      counts[1] = p_rows - nsplit;
+    }
+  } else {
+    const int n4 = tile / 4;
+    const int cw = min(n4, kThreads);
+    const int c = blockIdx.y * cw + threadIdx.x % cw;
+    int j, slot0, count, stride = 1;
+    float* dst;
+    if constexpr (kPass == kReduceChunks) {
+      int k = 0, nch = 1;
+      if (chunk > 0) {
+        const int b = blockIdx.x;
+        if (b >= start[p_rows]) return;  // CTA-uniform, before any barrier
+        j = span_of[b];
+        k = b - start[j];
+        nch = start[j + 1] - start[j];
+      } else {
+        j = blockIdx.x;
+      }
+      const int n = span_tiles(runs, j, seg, slot0);
+      if (chunk > 0) {
+        slot0 += k * chunk;
+        count = min(chunk, n - k * chunk);
+      } else {
+        count = n;
+      }
+      dst = nch == 1 ? acc + static_cast<size_t>(j) * tile
+                     : partial + static_cast<size_t>(slot0) * tile;
+    } else {
+      if (static_cast<int>(blockIdx.x) >= counts[0]) return;  // CTA-uniform
+      j = split[blockIdx.x];
+      span_tiles(runs, j, seg, slot0);
+      count = start[j + 1] - start[j];
+      stride = chunk;
+      dst = acc + static_cast<size_t>(j) * tile;
+    }
+    const float4 sum = ordered_sum(reinterpret_cast<const float4*>(partial), slot0, stride,
+                                   count, n4, c, cw, kThreads / cw, group_sum);
+    if (threadIdx.x < cw && c < n4) reinterpret_cast<float4*>(dst)[c] = sum;
   }
 }
 
-inline cudaError_t launch_span_reduce(const int* runs, const float* partial, float* acc,
-                                      int p_rows, int seg, int tile, cudaStream_t stream) {
+// Kernel 2 on `stream`: acc [p_rows, tile] from the partial tiles of nseg
+// segments. chunk 0: one launch, one CTA a span. chunk > 0: the schedule,
+// chunk and chunk-sum passes, with `sched` for the schedule; the split
+// spans' chunk sums overwrite tiles of `partial` once they are read.
+inline cudaError_t launch_span_reduce(const int* runs, float* partial, float* acc, int* sched,
+                                      int nseg, int p_rows, int seg, int tile, int chunk,
+                                      cudaStream_t stream) {
   if (p_rows <= 0) return cudaSuccess;
-  const int n4 = tile / 4;
-  const int cw = std::min(n4, kThreads);
-  const dim3 grid(p_rows, (n4 + cw - 1) / cw);
-  span_reduce_kernel<<<grid, kThreads, 0, stream>>>(runs, partial, acc, seg, tile);
+  if (chunk < 0 || (chunk > 0 && sched == nullptr)) return cudaErrorInvalidValue;
+  const unsigned cols = (tile / 4 + kThreads - 1) / kThreads;  // column blocks
+  if (chunk == 0) {
+    span_reduce_kernel<kReduceChunks><<<dim3(p_rows, cols), kThreads, 0, stream>>>(
+        runs, partial, acc, sched, p_rows, seg, tile, 0);
+    return cudaGetLastError();
+  }
+  span_reduce_kernel<kReduceSchedule><<<1, kThreads, 0, stream>>>(runs, partial, acc, sched,
+                                                                  p_rows, seg, tile, chunk);
+  const dim3 chunks(static_cast<unsigned>(reduce_chunks(nseg, p_rows, chunk)), cols);
+  span_reduce_kernel<kReduceChunks><<<chunks, kThreads, 0, stream>>>(runs, partial, acc, sched,
+                                                                    p_rows, seg, tile, chunk);
+  const long long splits = reduce_splits(nseg, p_rows, chunk);
+  if (splits > 0) {
+    span_reduce_kernel<kReduceChunkSums><<<dim3(static_cast<unsigned>(splits), cols), kThreads,
+                                           0, stream>>>(runs, partial, acc, sched, p_rows, seg,
+                                                        tile, chunk);
+  }
   return cudaGetLastError();
 }
 
@@ -1246,14 +1409,15 @@ cudaError_t launch_tcn(const SpanArgs<__nv_bfloat16, Tz>& a, int nseg, size_t sm
                      : go(seg_span_tcn_kernel<Tz, kRowsOut, KX, 16>);
 }
 
-// Kernel 1 on the chosen path, one CTA per segment, then kernel 2. mm folds
-// the block-diagonal table (mm = 1: the slab as it is). `partial` holds
-// nseg + p_rows tiles. Returns a cudaError_t as int.
+// Kernel 1 on the chosen path, one CTA per segment, then kernel 2 in chunks
+// of `chunk` tiles (0: one a span). mm folds the block-diagonal table (mm =
+// 1: the slab as it is). `partial` holds nseg + p_rows tiles, `sched` the
+// span reduce's schedule. Returns a cudaError_t as int.
 template <typename Tin, typename Tz, bool kRowsOut>
 int launch(const int* runs, const int* first, const int* cnt, const void* x,
            const void* y, const void* table, void* z, void* rows_out,
-           float* partial, float* acc, int nseg, int seg, int blocks, int bw_x,
-           int bw_y, int mm, int p_rows, cudaStream_t stream) {
+           float* partial, float* acc, int* sched, int nseg, int seg, int blocks,
+           int bw_x, int bw_y, int mm, int p_rows, int chunk, cudaStream_t stream) {
   if (mm <= 0 || bw_x % mm != 0 || bw_y % mm != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1312,8 +1476,8 @@ int launch(const int* runs, const int* first, const int* cnt, const void* x,
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  return static_cast<int>(launch_span_reduce(runs, partial, acc, p_rows, seg,
-                                             a.kx * a.ky, stream));
+  return static_cast<int>(launch_span_reduce(runs, partial, acc, sched, nseg, p_rows, seg,
+                                             a.kx * a.ky, chunk, stream));
 }
 
 }  // namespace fbtt_span

@@ -24,9 +24,20 @@ unfolded ``acc``). Widths that are not multiples of ``mm`` raise.
 
 On a CUDA tensor :func:`seg_accum` launches the hand-written kernels of
 ``csrc/seg_accum.cu`` (segment-parallel partial gradient tiles, added per
-span in segment order: no float atomics, bitwise repeatable) or raises. On
+span in a fixed order: no float atomics, bitwise repeatable) or raises. On
 a CPU tensor it runs :func:`seg_accum_plain`, the same contract in plain
 PyTorch. Launches are counted in ``profiling``'s ``launches.seg_accum``.
+
+Kernel 2, the span reduce that B2, B3 and B6 share (``csrc/seg_span.cuh``),
+adds span j's partial tiles (one per segment the span meets) into
+``acc[j]``. A span of more than :func:`span_chunk` tiles (a hot core row
+under Zipf traffic meets most segments) is added in chunks of that many
+consecutive tiles, one CTA a chunk, and then its chunk sums in chunk
+order; :func:`span_reduce_sched_plain` models that order, and
+:func:`span_reduce` runs the kernel alone. While spans are on, each call
+that launches it adds its split spans to the counter
+``span_reduce.split_spans`` (on the CPU route, those the kernel would
+split).
 
 Widths the kernels take, after folding (``kx = bw_x/mm``, ``ky =
 bw_y/mm``; every dense width a multiple of 8 up to 2048): ``kx`` a
@@ -43,6 +54,7 @@ it raises when even ``mm = 1`` is not taken.
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Optional
 
 import torch
@@ -56,6 +68,8 @@ _MAX_WIDTH = 2048
 # what each value of the library's path query means
 PATH_NAMES = {3: "narrow tensor cores", 2: "tensor cores", 1: "narrow",
               0: "CUDA cores"}
+_THREADS = 256  # a CTA of kernel 2
+SPLIT_SPANS = "span_reduce.split_spans"
 
 
 def span_of_rows(runs: torch.Tensor, nza: int, p_rows: int):
@@ -116,6 +130,125 @@ def seg_accum_plain(runs, first, cnt, x, y, table, *, blocks, bw_x, bw_y,
     z = torch.where(live[:, None, None], z, torch.zeros((), device=z.device))
     acc = span_outer_sum(x, y, span, live, nb, kx, ky, p_rows)
     return acc, z.reshape(nza, blocks * bw_x).to(z_dtype)
+
+
+def span_chunk(nseg: int, p_rows: int) -> int:
+    """Tiles of one span that a CTA of kernel 2 adds, for ``nseg``
+    segments and ``p_rows`` spans; 0 for one chunk a span (kernel 2's
+    single pass). A span has at most ``nseg``
+    tiles; chunks of C take C tiles in the first pass and at most nseg / C
+    chunk sums in the second, in chains of loads that a thread group adds
+    in order. So C = ceil(sqrt(nseg + p_rows)) keeps both chains of the
+    largest span a batch can have near its square root, whatever the
+    tile's width (which sets the thread groups, dividing both alike); where
+    C reaches nseg no span splits. On the H100, kernel 2 alone over the
+    spans of Zipf(1.05) ids at pooling 20 (``check_dg0_kernel.py
+    --chunks``), device us at chunk 0 (one a span) / the rule's / the best
+    of 8 to 512: B=65536 (nseg 20480), tile 4096: 1331 / 140 (C 144) /
+    140 (128); tile 8192: 1396 / 262 / 260 (128); tile 128 (p_rows 250):
+    15.7 / 8.8 / 8.8 (128); B=4096 (nseg 1280): 48.6 / 15.4 (C 39) / 14.6
+    (32); B=512 (nseg 160): 7.6 / 9.3 (C 20) / 9.1 (16), uniform core rows
+    3.9 / 7.5: the two more launches cost ~3.6 us, and inside B6 at B=512
+    the split reads 9.9 against the single pass's 10.8."""
+    chunk = math.isqrt(max(nseg + p_rows - 1, 0)) + 1
+    return chunk if chunk < nseg else 0
+
+
+def reduce_sched_ints(nseg: int, p_rows: int, chunk: int) -> int:
+    """Ints of kernel 2's schedule at ``chunk`` (``sched`` of
+    ``csrc/seg_span.cuh``): span j's first chunk (p_rows + 1), the split
+    spans' count and p_rows less it, the split spans (p_rows), each chunk's
+    span (at most ceil((nseg + p_rows) / chunk) + p_rows chunks)."""
+    return 2 * p_rows + 3 + -(-(nseg + p_rows) // chunk) + p_rows
+
+
+def reduce_schedule(nseg: int, p_rows: int, device):
+    """``(chunk, sched)`` for a launch of kernel 2: :func:`span_chunk`'s
+    chunk and an int32 scratch for its schedule on ``device`` (None at
+    chunk 0)."""
+    chunk = span_chunk(nseg, p_rows)
+    if chunk == 0:
+        return 0, None
+    return chunk, torch.empty((reduce_sched_ints(nseg, p_rows, chunk),),
+                              dtype=torch.int32, device=device)
+
+
+def span_tiles(runs: torch.Tensor, p_rows: int, seg: int):
+    """(partial tiles of each span j < p_rows, one per segment it meets;
+    the slot of its first, s + j for its first segment s): int64 [p_rows]
+    each."""
+    st = runs[:p_rows].long()
+    en = runs[1:p_rows + 1].long()
+    n = torch.where(en > st, (en - 1) // seg - st // seg + 1,
+                    torch.zeros_like(st))
+    return n, st // seg + torch.arange(p_rows, device=runs.device)
+
+
+def count_split_spans(runs, nseg: int, p_rows: int, seg: int,
+                      sched: Optional[torch.Tensor] = None) -> None:
+    """While spans are on, add to ``span_reduce.split_spans`` the spans
+    whose tiles kernel 2 adds in more than one chunk: p_rows less the
+    count of the others that the card's schedule pass wrote to ``sched``
+    (one device operation, no synchronisation), or without ``sched`` (the
+    CPU route) the same count from ``runs``."""
+    chunk = span_chunk(nseg, p_rows)
+    if chunk == 0 or not profiling.enabled():
+        return
+    if sched is None:
+        unsplit = (span_tiles(runs, p_rows, seg)[0] <= chunk).sum()
+    else:
+        unsplit = sched[p_rows + 2]
+    profiling.count(SPLIT_SPANS, p_rows, less=unsplit)
+
+
+def span_reduce_sched_plain(runs, partial, *, p_rows, seg,
+                            chunk: Optional[int] = None):
+    """Kernel 2's schedule in plain PyTorch (the tests hold it against a
+    plain per-span sum and the card against it; no path runs it on the
+    card). ``partial`` is ``[nseg + p_rows, tile]``, span j's tiles at the
+    slots of :func:`span_tiles`; ``chunk`` defaults to :func:`span_chunk`'s.
+    Each CTA's sum, per float32 column: ``_THREADS // min(tile/4,
+    _THREADS)`` thread groups each add a contiguous range of its tiles in
+    slot order, and the groups' sums are added in group order. At chunk 0
+    one CTA adds a span's tiles into acc[j]. Else a span's tiles are cut
+    into chunks of ``chunk`` consecutive tiles: a span of one chunk (or
+    none) gets acc[j] so; a split span's chunk sums are written over each
+    chunk's first tile, then added, one CTA a span, in chunk order. Returns
+    ``(acc [p_rows, tile] float32, chunks of each span [p_rows])``."""
+    tile = partial.shape[1]
+    nseg = partial.shape[0] - p_rows
+    if chunk is None:
+        chunk = span_chunk(nseg, p_rows)
+    groups = _THREADS // min(tile // 4, _THREADS)
+    part = partial.float().clone()
+
+    def ordered(slots):
+        total = None
+        for g in range(groups):
+            s = torch.zeros(tile, dtype=torch.float32)
+            for slot in slots[len(slots) * g // groups:
+                              len(slots) * (g + 1) // groups]:
+                s = s + part[slot]
+            total = s if total is None else total + s
+        return total
+
+    n, first = span_tiles(runs.cpu(), p_rows, seg)
+    acc = torch.zeros((p_rows, tile), dtype=torch.float32)
+    nch = torch.ones(p_rows, dtype=torch.int64)
+    for j in range(p_rows):
+        nj, fj = int(n[j]), int(first[j])
+        size = chunk if chunk > 0 else max(nj, 1)
+        heads = list(range(fj, fj + max(nj, 1), size))
+        sums = [ordered(list(range(h, min(fj + nj, h + size))))
+                for h in heads]
+        nch[j] = len(heads)
+        if len(heads) == 1:
+            acc[j] = sums[0]
+            continue
+        for h, chunk_sum in zip(heads, sums):
+            part[h] = chunk_sum
+        acc[j] = ordered(heads)
+    return acc, nch
 
 
 def check_pass(name, runs, first, cnt, x, y, table, blocks, bw_x, bw_y,
@@ -204,7 +337,9 @@ def seg_accum(runs, first, cnt, x, y, table, *, blocks, bw_x, bw_y, p_rows,
     z_dtype = z_dtype or x.dtype
     check_pass("seg_accum", runs, first, cnt, x, y, table, blocks, bw_x,
                bw_y, p_rows, seg, (z_dtype,), mm)
+    nseg = first.shape[0]
     if x.device.type == "cpu":
+        count_split_spans(runs, nseg, p_rows, seg)
         return seg_accum_plain(
             runs, first, cnt, x, y, table, blocks=blocks, bw_x=bw_x,
             bw_y=bw_y, p_rows=p_rows, seg=seg, z_dtype=z_dtype, mm=mm)
@@ -216,24 +351,71 @@ def seg_accum(runs, first, cnt, x, y, table, *, blocks, bw_x, bw_y, p_rows,
     fold, _ = cached_fold("seg_accum", lib.fbtt_seg_accum_path, in_bf16, seg,
                           blocks, bw_x, bw_y, mm)
     kx, ky = bw_x // fold, bw_y // fold
-    nseg = first.shape[0]
     dev = x.device
     z = torch.empty((nseg * seg, blocks * bw_x), dtype=z_dtype, device=dev)
     acc = torch.empty((p_rows, kx, ky), dtype=torch.float32, device=dev)
     partial = torch.empty((nseg + p_rows, kx * ky), dtype=torch.float32,
                           device=dev)
+    chunk, sched = reduce_schedule(nseg, p_rows, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.fbtt_seg_accum(
             runs.data_ptr(), first.data_ptr(), cnt.data_ptr(), x.data_ptr(),
             y.data_ptr(), table.data_ptr(), z.data_ptr(), partial.data_ptr(),
-            acc.data_ptr(), nseg, seg, blocks, bw_x, bw_y, fold, p_rows,
-            int(in_bf16), int(z_dtype == torch.bfloat16), stream)
+            acc.data_ptr(), _ptr(sched), nseg, seg, blocks, bw_x, bw_y, fold,
+            p_rows, chunk, int(in_bf16), int(z_dtype == torch.bfloat16),
+            stream)
     if err != 0:
         raise RuntimeError("seg_accum launch failed: "
                            + lib.fbtt_error_string(err).decode())
     profiling.count("launches.seg_accum")
+    count_split_spans(runs, nseg, p_rows, seg, sched)
     return diag_block_sum(acc, mm // fold), z
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    """A tensor's address for ctypes, None (NULL) for no tensor."""
+    return None if t is None else t.data_ptr()
+
+
+def span_reduce(runs, partial, *, p_rows, seg):
+    """Kernel 2 alone: ``acc [p_rows, tile]`` float32, span j's partial
+    tiles of ``partial`` (``[nseg + p_rows, tile]`` float32, contiguous;
+    the tiles of :func:`span_tiles`) added as B2, B3 and B6 add them. On
+    the card the chunk sums of split spans overwrite tiles of ``partial``;
+    on the CPU it runs :func:`span_reduce_sched_plain`. Not on the lookup
+    path: for the tests and for timing the kernel."""
+    if (partial.dtype != torch.float32 or partial.dim() != 2
+            or partial.shape[0] < p_rows or partial.shape[1] % 4
+            or runs.dtype != torch.int32 or runs.shape[0] < p_rows + 1):
+        raise ValueError("span_reduce: partial must be [nseg + p_rows, tile] "
+                         "float32 with tile a multiple of 4 and runs int32 "
+                         f"with > p_rows entries, got {partial.dtype} "
+                         f"{tuple(partial.shape)}, {runs.dtype} "
+                         f"{tuple(runs.shape)}")
+    nseg, tile = partial.shape[0] - p_rows, partial.shape[1]
+    if partial.device.type == "cpu":
+        count_split_spans(runs, nseg, p_rows, seg)
+        return span_reduce_sched_plain(runs, partial, p_rows=p_rows,
+                                       seg=seg)[0]
+    if not (runs.is_contiguous() and partial.is_contiguous()) \
+            or partial.data_ptr() % 16 or runs.device != partial.device:
+        raise ValueError("span_reduce needs contiguous inputs on one device "
+                         "and 16-byte aligned tiles")
+    dev = partial.device
+    acc = torch.empty((p_rows, tile), dtype=torch.float32, device=dev)
+    chunk, sched = reduce_schedule(nseg, p_rows, dev)
+    lib = _lib()
+    with torch.cuda.device(dev):
+        err = lib.fbtt_span_reduce(
+            runs.data_ptr(), partial.data_ptr(), acc.data_ptr(), _ptr(sched),
+            nseg, seg, tile, p_rows, chunk,
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError("span_reduce launch failed: "
+                           + lib.fbtt_error_string(err).decode())
+    count_split_spans(runs, nseg, p_rows, seg, sched)
+    return acc
 
 
 
@@ -244,8 +426,10 @@ def _lib():
     if lib.fbtt_seg_accum.argtypes is None:
         p = ctypes.c_void_p
         i = ctypes.c_int
-        lib.fbtt_seg_accum.argtypes = [p] * 9 + [i] * 9 + [p]
+        lib.fbtt_seg_accum.argtypes = [p] * 10 + [i] * 10 + [p]
         lib.fbtt_seg_accum.restype = ctypes.c_int
+        lib.fbtt_span_reduce.argtypes = [p] * 4 + [i] * 5 + [p]
+        lib.fbtt_span_reduce.restype = ctypes.c_int
         lib.fbtt_seg_accum_path.argtypes = [i] * 6
         lib.fbtt_seg_accum_path.restype = ctypes.c_int
         lib.fbtt_error_string.argtypes = [ctypes.c_int]

@@ -42,10 +42,14 @@ from typing import Optional
 import torch
 
 from fbtt_embedding_tpu_torch.ops.kernels.seg_accum import (
+    _ptr,
     check_cuda,
     check_pass,
+    count_split_spans,
+    reduce_schedule,
     seg_accum_plain,
     span_of_rows,
+    span_reduce_sched_plain,
 )
 from fbtt_embedding_tpu_torch.utils import profiling
 
@@ -160,9 +164,10 @@ def seg_accum_dg0_sched_plain(runs, first, cnt, x, y, i0c, table, *,
     order), keys its rows by i0c (the sentinel span's rows, and keys
     outside ``[0, tp0)``, dropped), orders them by (key, row) and writes
     one partial row per distinct key, its rows' float32 dz0 added in row
-    order, keys ascending. Kernel 2: acc[j] = span j's tiles in segment
-    order. Kernel 3: for each chunk of :func:`dg0_chunk` segments, the
-    chunk's partials keyed r in segment order; then dG0[r] = the chunk
+    order, keys ascending. Kernel 2: acc[j] = span j's tiles in
+    :func:`span_reduce_sched_plain`'s order. Kernel 3: for each chunk of
+    :func:`dg0_chunk` segments, the chunk's partials keyed r in segment
+    order; then dG0[r] = the chunk
     sums, ``_THREADS // (x_w/4)`` groups each adding a contiguous range of
     them in chunk order, the groups' sums added in group order. Returns
     ``(acc, dG0, partial rows [nseg, seg, blocks*bw_x], their keys [nseg,
@@ -200,11 +205,11 @@ def seg_accum_dg0_sched_plain(runs, first, cnt, x, y, i0c, table, *,
                 slot += 1
             part[s, slot] = part[s, slot] + dz0[base + int(order[i])]
             part_key[s, slot] = k
-    acc = torch.zeros((p_rows, bw_x, bw_y), dtype=torch.float32)
-    for j in range(p_rows):
-        for s in range(nseg):
-            if (s, j) in tiles:
-                acc[j] = acc[j] + tiles[(s, j)]
+    partial = torch.zeros((nseg + p_rows, bw_x * bw_y), dtype=torch.float32)
+    for (s, j), tile in tiles.items():
+        partial[s + j] = tile.reshape(-1)
+    acc = span_reduce_sched_plain(runs, partial, p_rows=p_rows,
+                                  seg=seg)[0].reshape(p_rows, bw_x, bw_y)
     chunk = dg0_chunk(nseg, tp0)
     nchunk = -(-nseg // chunk)
     chunk_sum = torch.zeros((nchunk, tp0, x_w), dtype=torch.float32)
@@ -239,7 +244,9 @@ def seg_accum_dg0(runs, first, cnt, x, y, i0c, table, *, blocks, bw_x, bw_y,
                          f"on {i0c.device}")
     if tp0 < 0:
         raise ValueError(f"seg_accum_dg0: tp0 must be >= 0, got {tp0}")
+    nseg = first.shape[0]
     if x.device.type == "cpu":
+        count_split_spans(runs, nseg, p_rows, seg)
         return seg_accum_dg0_plain(
             runs, first, cnt, x, y, i0c, table, blocks=blocks, bw_x=bw_x,
             bw_y=bw_y, p_rows=p_rows, tp0=tp0, seg=seg)
@@ -255,7 +262,6 @@ def seg_accum_dg0(runs, first, cnt, x, y, i0c, table, *, blocks, bw_x, bw_y,
         raise ValueError(f"seg_accum_dg0: no kernel path takes {x.dtype} "
                          f"widths blocks={blocks}, {bw_x} x {bw_y} at seg "
                          f"{seg} (asked for path {path})")
-    nseg = first.shape[0]
     dev = x.device
     f32 = torch.float32
     acc = torch.empty((p_rows, bw_x, bw_y), dtype=f32, device=dev)
@@ -268,20 +274,22 @@ def seg_accum_dg0(runs, first, cnt, x, y, i0c, table, *, blocks, bw_x, bw_y,
                           dtype=f32, device=dev)
     dg0_part = torch.empty((nseg * seg, x_w), dtype=f32, device=dev)
     dg0_key = torch.empty((nseg * seg,), dtype=torch.int32, device=dev)
+    reduce_chunk, sched = reduce_schedule(nseg, p_rows, dev)
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.fbtt_seg_accum_dg0(
             runs.data_ptr(), first.data_ptr(), cnt.data_ptr(), x.data_ptr(),
             y.data_ptr(), i0c.data_ptr(), table.data_ptr(),
-            partial.data_ptr(), acc.data_ptr(), dg0_part.data_ptr(),
-            dg0_key.data_ptr(), partial.data_ptr(), dg0.data_ptr(), nseg,
-            seg, blocks, bw_x, bw_y, p_rows, tp0, chunk, int(in_bf16), path,
-            stream)
+            partial.data_ptr(), acc.data_ptr(), _ptr(sched),
+            dg0_part.data_ptr(), dg0_key.data_ptr(), partial.data_ptr(),
+            dg0.data_ptr(), nseg, seg, blocks, bw_x, bw_y, p_rows, tp0, chunk,
+            reduce_chunk, int(in_bf16), path, stream)
     if err != 0:
         raise RuntimeError("seg_accum_dg0 launch failed: "
                            + lib.fbtt_error_string(err).decode())
     profiling.count("launches.seg_accum_dg0")
+    count_split_spans(runs, nseg, p_rows, seg, sched)
     return acc, dg0
 
 
@@ -292,7 +300,7 @@ def _lib():
     if lib.fbtt_seg_accum_dg0.argtypes is None:
         p = ctypes.c_void_p
         i = ctypes.c_int
-        lib.fbtt_seg_accum_dg0.argtypes = [p] * 13 + [i] * 10 + [p]
+        lib.fbtt_seg_accum_dg0.argtypes = [p] * 14 + [i] * 11 + [p]
         lib.fbtt_seg_accum_dg0.restype = ctypes.c_int
         lib.fbtt_seg_accum_dg0_path.argtypes = [i] * 5
         lib.fbtt_seg_accum_dg0_path.restype = ctypes.c_int

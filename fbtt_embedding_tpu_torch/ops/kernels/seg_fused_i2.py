@@ -32,11 +32,14 @@ import ctypes
 import torch
 
 from fbtt_embedding_tpu_torch.ops.kernels.seg_accum import (
+    _ptr,
     cached_fold,
     check_cuda,
     check_pass,
+    count_split_spans,
     diag_block_sum,
     folded_slabs,
+    reduce_schedule,
     span_of_rows,
     span_outer_sum,
 )
@@ -72,7 +75,9 @@ def seg_fused_i2(runs, first, cnt, x, y, table, *, blocks, bw_x, bw_y,
     docstring."""
     check_pass("seg_fused_i2", runs, first, cnt, x, y, table, blocks, bw_x,
                bw_y, p_rows, seg, (), mm)
+    nseg = first.shape[0]
     if x.device.type == "cpu":
+        count_split_spans(runs, nseg, p_rows, seg)
         return seg_fused_i2_plain(
             runs, first, cnt, x, y, table, blocks=blocks, bw_x=bw_x,
             bw_y=bw_y, p_rows=p_rows, seg=seg, mm=mm)
@@ -84,7 +89,6 @@ def seg_fused_i2(runs, first, cnt, x, y, table, *, blocks, bw_x, bw_y,
     fold, _ = cached_fold("seg_fused_i2", lib.fbtt_seg_fused_i2_path, in_bf16,
                           seg, blocks, bw_x, bw_y, mm)
     kx, ky = bw_x // fold, bw_y // fold
-    nseg = first.shape[0]
     dev = x.device
     nza = nseg * seg
     z = torch.empty((nza, blocks * bw_x), dtype=x.dtype, device=dev)
@@ -92,17 +96,19 @@ def seg_fused_i2(runs, first, cnt, x, y, table, *, blocks, bw_x, bw_y,
     acc = torch.empty((p_rows, kx, ky), dtype=torch.float32, device=dev)
     partial = torch.empty((nseg + p_rows, kx * ky), dtype=torch.float32,
                           device=dev)
+    chunk, sched = reduce_schedule(nseg, p_rows, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.fbtt_seg_fused_i2(
             runs.data_ptr(), first.data_ptr(), cnt.data_ptr(), x.data_ptr(),
             y.data_ptr(), table.data_ptr(), z.data_ptr(), rows.data_ptr(),
-            partial.data_ptr(), acc.data_ptr(), nseg, seg, blocks, bw_x, bw_y,
-            fold, p_rows, int(in_bf16), stream)
+            partial.data_ptr(), acc.data_ptr(), _ptr(sched), nseg, seg,
+            blocks, bw_x, bw_y, fold, p_rows, chunk, int(in_bf16), stream)
     if err != 0:
         raise RuntimeError("seg_fused_i2 launch failed: "
                            + lib.fbtt_error_string(err).decode())
     profiling.count("launches.seg_fused_i2")
+    count_split_spans(runs, nseg, p_rows, seg, sched)
     return diag_block_sum(acc, mm // fold), z, rows
 
 
@@ -114,7 +120,7 @@ def _lib():
     if lib.fbtt_seg_fused_i2.argtypes is None:
         p = ctypes.c_void_p
         i = ctypes.c_int
-        lib.fbtt_seg_fused_i2.argtypes = [p] * 10 + [i] * 8 + [p]
+        lib.fbtt_seg_fused_i2.argtypes = [p] * 11 + [i] * 9 + [p]
         lib.fbtt_seg_fused_i2.restype = ctypes.c_int
         lib.fbtt_seg_fused_i2_path.argtypes = [i] * 6
         lib.fbtt_seg_fused_i2_path.restype = ctypes.c_int

@@ -20,8 +20,10 @@ Counterpart of ``fbtt_embedding_tpu.utils.profiling``:
     registry: the kernels' launches (``launches.<kernel>``, always on), the
     folded serve's CUDA graphs (``serve_graph.captures``,
     ``serve_graph.replays``, always on; ``utils.graphs``) and, while spans
-    are on, ``lookups``, ``cache_hits`` and
-    ``serve_graph.spanned_replays``. :func:`counted_apart` keeps a block's
+    are on, ``lookups``, ``cache_hits``,
+    ``serve_graph.spanned_replays`` and ``span_reduce.split_spans`` (the
+    spans the gradient passes' span reduce adds in more than one chunk;
+    ``ops.kernels.seg_accum``). :func:`counted_apart` keeps a block's
     counts out of the registry (a capture's launches).
   * :func:`span_totals`: the one readout (it synchronises once): per span
     name its count, host seconds and device seconds (the stream time

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Build, check and time kernel B6 (``seg_accum_dg0``) on a GPU.
 
-Usage: ``python3 scripts/check_dg0_kernel.py [--profile]`` from the root of
-a checkout, on a machine with one CUDA card and ``nvcc`` (~30 s).
+Usage: ``python3 scripts/check_dg0_kernel.py [--profile] [--chunks]`` from
+the root of a checkout, on a machine with one CUDA card and ``nvcc`` (~30
+s; ``--chunks`` ~1 min more).
 
 For each case (the headline i1 pass at B=512, pooling 20, with uniform and
 with Zipf(1.05)-skewed first-core rows; a tt_ndim-4 pass; two tables,
@@ -32,6 +33,15 @@ acc is held against B3's and dG0, B6's and the one-hot product's, against
 a float64 sum of B3's float32 dz0 rows (max |error| / max |dG0| <= 1e-5),
 and B6 twice bitwise; with ``--profile`` its kernels' device times beside
 B3 plus the one-hot product's.
+
+With ``--chunks``, kernel 2 alone (``span_reduce``, the span reduce B2, B3
+and B6 share) on random partial tiles over the spans of the training
+cell's i1 pass (tiles of 4096 floats, B6's there, and 8192, the DLRM
+cell's i1 tile), of its i2 pass (128, B3's folded tile), of the i1 pass at
+smaller batches of the same ids (B=512 to 8192, pooling 20) and of the
+headline B=512 i1 pass with Zipf(1.3) and with uniform core rows: its
+device time at each chunk of ``SWEEP_CHUNKS`` (0: one chunk a span, the
+single pass), the rule's (``span_chunk``) starred.
 """
 
 import sys
@@ -51,6 +61,9 @@ CASES = [  # name, blocks, bw_x, bw_y, p_rows, nza, tp0, first-core rows
 ]
 
 
+SWEEP_CHUNKS = (0, 8, 16, 32, 64, 128, 256, 512)
+
+
 def mean_ms(fn, n=20):
     import torch
 
@@ -68,13 +81,16 @@ def mean_ms(fn, n=20):
 
 
 def b6_kernel_name(full):
-    """A kernel's name, with the B6 epilogue the tensor-core kernel runs."""
+    """A kernel's name, with the B6 epilogue the tensor-core kernel runs
+    and the span reduce's pass."""
     from chip_smoke import kernel_name
 
     for tag, what in (("ZKeyed<true>", " (dz0 over y)"),
                       ("ZKeyed<false>", " (dz0 tile)")):
         if tag in full:
             return kernel_name(full) + what
+    if kernel_name(full) == "span_reduce_kernel":
+        return kernel_name(full, True)
     return kernel_name(full)
 
 
@@ -140,6 +156,58 @@ def check_train(profile, card):
                                for k, v in per.items())
                   + f"; SM {mhz} MHz) [{card}]")
     return ok
+
+
+def sweep_chunks(card):
+    """Kernel 2's device time by chunk (see the module docstring)."""
+    import numpy as np
+    import torch
+
+    from chip_smoke import DG0_TRAIN_P, device_ms, kernel_name
+    from fbtt_embedding_tpu_torch.ops.kernels import seg_accum as sa
+    from fbtt_embedding_tpu_torch.ops.kernels.tt_flat import SEG, _span_table
+
+    p0, p1, p2 = DG0_TRAIN_P
+    rng = np.random.default_rng(30)
+    ids = rng.zipf(1.05, size=65536 * 20) % (p0 * p1 * p2)
+    small = 10240
+    cases = [  # name, sorted keys, p_rows, tiles
+        ("training i1", (ids // p2) % p1, p1, (4096, 8192)),
+        ("training i2", ids % p2, p2, (128,)),
+    ] + [
+        (f"B={b} i1", (ids[:b * 20] // p2) % p1, p1, (4096,))
+        for b in (512, 1024, 2048, 4096, 8192)
+    ] + [
+        ("B=512 i1, Zipf(1.3) rows", (rng.zipf(1.3, small) - 1) % p1, p1,
+         (4096,)),
+        ("B=512 i1, uniform rows", rng.integers(0, p1, small), p1, (4096,)),
+    ]
+    rule = sa.span_chunk
+    try:
+        for name, keys, p_rows, tiles in cases:
+            nza = keys.shape[0]
+            keys = torch.as_tensor(np.sort(keys).astype(np.int32),
+                                   device="cuda")
+            runs = _span_table(keys, p_rows, nza // SEG)[0]
+            nseg = nza // SEG
+            for tile in tiles:
+                partial = torch.randn((nseg + p_rows, tile), device="cuda")
+                star = rule(nseg, p_rows)
+                cells = []
+                for chunk in sorted(set(SWEEP_CHUNKS) | {star}):
+                    sa.span_chunk = lambda *_, c=chunk: c
+                    _, per, mhz = device_ms(lambda: sa.span_reduce(
+                        runs, partial, p_rows=p_rows, seg=SEG), n=10)
+                    us = sum(v for k, v in per.items()
+                             if kernel_name(k) == "span_reduce_kernel") * 1e3
+                    cells.append(f"{chunk}{'*' if chunk == star else ''} "
+                                 f"{us:.2f}")
+                print(f"span reduce, {name} (nseg {nseg}, p_rows {p_rows}, "
+                      f"tile {tile}), us by chunk: " + ", ".join(cells)
+                      + f" (SM {mhz} MHz) [{card}]")
+                del partial
+    finally:
+        sa.span_chunk = rule
 
 
 def main():
@@ -249,6 +317,8 @@ def main():
                                        for k, v in per.items())
                           + f"; SM {mhz} MHz) [{card}]")
     ok = check_train("--profile" in sys.argv, card) and ok
+    if "--chunks" in sys.argv:
+        sweep_chunks(card)
     if not ok:
         raise SystemExit("check_dg0_kernel: FAILED")
 

@@ -19,14 +19,29 @@ and skip inside the test without a card.
   segment, so kernel 1's partials are exact and only kernel 3's order of
   adds decides the bits;
 - ``FBTT_DG0`` unset: a flat lookup's backward launches B6 once and B3
-  only above pass 1, and its gradients match "onehot"'s.
+  only above pass 1, and its gradients match "onehot"'s;
+- kernel 2, the span reduce (``span_reduce``), at the training cell's i1
+  spans (span 0 in about a quarter of the segments: split into chunks),
+  tiles of 128, 4096 and 8192 floats: twice bitwise equal, bitwise equal
+  to its schedule's plain model (``span_reduce_sched_plain``) run on a CPU
+  copy of ``partial``, within 1e-5 of max |acc| of the single pass's order,
+  never reading a slot no span owns (NaN there); B3 twice bitwise there,
+  and ``span_reduce.split_spans`` counting, while a profiler records, the
+  spans the model splits.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from fbtt_embedding_tpu_torch.ops.kernels.seg_accum import seg_accum
+from fbtt_embedding_tpu_torch.ops.kernels.seg_accum import (
+    SPLIT_SPANS,
+    seg_accum,
+    span_chunk,
+    span_reduce,
+    span_reduce_sched_plain,
+    span_tiles,
+)
 from fbtt_embedding_tpu_torch.ops.kernels.seg_accum_dg0 import (
     _THREADS,
     dg0_chunk,
@@ -85,6 +100,10 @@ def test_b6_at_the_training_shape(card):
     assert torch.equal(acc, acc2) and torch.equal(dg0, dg02)
     b3_acc, z = seg_accum(runs, first, cnt, x, y, table,
                           z_dtype=torch.float32, **kw)
+    b3_acc2, z2 = seg_accum(runs, first, cnt, x, y, table,
+                            z_dtype=torch.float32, **kw)
+    assert torch.equal(b3_acc, b3_acc2) and torch.equal(z, z2)
+    del z2
     iota = torch.arange(P[0], dtype=torch.int32, device=card)
     want = torch.matmul((i0c[:, None] == iota[None, :]).float().t(), z)
     err = ((dg0 - want).abs().max() / want.abs().max()).item()
@@ -182,3 +201,56 @@ def test_default_backward_launches_b6(card, monkeypatch):
     for a, b_ in zip(grads[None], grads["onehot"]):
         scale = b_.abs().max()
         assert ((a - b_).abs().max() / scale).item() <= 1e-5
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("tile", [128, 4096, 8192])
+def test_span_reduce_bitwise_its_schedule_model(card, tile):
+    runs, first, cnt = _train_i1_pass(3030, card)[:3]
+    nseg, p_rows = first.shape[0], P[1]
+    chunk = span_chunk(nseg, p_rows)
+    n, slot = span_tiles(runs, p_rows, SEG)
+    assert chunk > 0 and int(n.max()) > 20 * chunk  # span 0 splits
+    gen = torch.Generator(device=card)
+    gen.manual_seed(tile)
+    owned = torch.zeros(nseg + p_rows, dtype=torch.bool, device=card)
+    for j in range(p_rows):
+        owned[int(slot[j]):int(slot[j] + n[j])] = True
+    partial = torch.where(
+        owned[:, None],
+        torch.randn((nseg + p_rows, tile), generator=gen, device=card),
+        torch.full((), float("nan"), device=card))
+    got = span_reduce(runs, partial.clone(), p_rows=p_rows, seg=SEG)
+    again = span_reduce(runs, partial.clone(), p_rows=p_rows, seg=SEG)
+    assert torch.equal(got, again)
+    host = partial.cpu()
+    want, nch = span_reduce_sched_plain(runs.cpu(), host, p_rows=p_rows,
+                                        seg=SEG)
+    assert int(nch.max()) > 1
+    assert torch.equal(got.cpu(), want)
+    single, _ = span_reduce_sched_plain(runs.cpu(), host, p_rows=p_rows,
+                                        seg=SEG, chunk=0)
+    err = ((want - single).abs().max() / want.abs().max()).item()
+    assert err <= 1e-5, err
+
+
+@pytest.mark.card
+def test_split_spans_counted_on_the_card(card):
+    runs, first, cnt, x, y, i0c, table = _train_i1_pass(4040, card)
+    kw = dict(blocks=Q[0], bw_x=R[1], bw_y=Q[1] * R[2], p_rows=P[1],
+              seg=SEG)
+    nseg = first.shape[0]
+    chunk = span_chunk(nseg, P[1])
+    want = int((span_tiles(runs, P[1], SEG)[0] > chunk).sum())
+    assert want >= 1
+    profiling.reset()
+    try:
+        seg_accum_dg0(runs, first, cnt, x, y, i0c, table, tp0=P[0], **kw)
+        assert profiling.counter(SPLIT_SPANS) == 0  # no profiler: off
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]):
+            seg_accum_dg0(runs, first, cnt, x, y, i0c, table, tp0=P[0],
+                          **kw)
+        assert profiling.counter(SPLIT_SPANS) == want
+    finally:
+        profiling.reset()

@@ -48,6 +48,7 @@ from fbtt_embedding_tpu_torch.ops.fused_optim import adagrad_step, sgd_step
 from fbtt_embedding_tpu_torch.ops.indexing import multi_hot_positions
 from fbtt_embedding_tpu_torch.ops.kernels.bag_pool import bag_pool
 from fbtt_embedding_tpu_torch.ops.lookup import pooled_tt_lookup, staging_dtype
+from fbtt_embedding_tpu_torch.parallel import collectives
 from fbtt_embedding_tpu_torch.utils import profiling
 from fbtt_embedding_tpu_torch.utils._tree import leaves_with_paths, map_leaves
 from fbtt_embedding_tpu_torch.utils.init import init_tt_cores
@@ -358,22 +359,28 @@ def _adagrad(leaves, state, grads, lr, eps) -> None:
     torch._foreach_addcdiv_(leaves, grads, std, value=-lr)
 
 
-def _update_plain(weight, state, ids, weights, d_pooled, bag, optimizer, lr,
-                  eps) -> None:
-    """The plain tables' update from their pooled rows' cotangents
-    ``d_pooled [T_plain * B, D]``, in place, on the rows ``ids`` touch.
-    Lookups sorted by row; one ``bag_pool`` sums each run of a row's
-    lookups (bitwise repeatable, no host synchronisation); every lookup
-    then writes its row's new value, the same value for each lookup of a
-    row, so the scatter's order does not matter."""
+def _sum_by_row(ids, d_pooled, bag, weights, tb: int):
+    """Each row's lookups summed: the lookups sorted by row, one
+    ``bag_pool`` over each run of a row's lookups (bitwise repeatable, no
+    host synchronisation). ``(rows sorted, each one's run, sums [tb, D])``:
+    the runs' sums first, zeros past them (``tb`` at least the runs).
+    ``bag`` maps a lookup to its row of ``d_pooled`` (None: its own)."""
     n = ids.shape[0]
     rows, order = torch.sort(ids, stable=True)
     start = torch.ones(n, dtype=torch.bool, device=ids.device)
     start[1:] = rows[1:] != rows[:-1]
     run = torch.cumsum(start, 0, dtype=torch.int32) - 1
-    g = bag_pool(run, n, rows=d_pooled, slot=bag[order],
+    g = bag_pool(run, tb, rows=d_pooled,
+                 slot=order if bag is None else bag[order],
                  weights=None if weights is None else weights[order])
-    g = g[run.long()]
+    return rows, run, g
+
+
+def _rowwise_update(weight, state, rows, g, optimizer, lr, eps) -> None:
+    """The plain tables' update of the rows ``rows`` by their gradients
+    ``g [len(rows), D]``, in place: a row may come more than once, each
+    time with the same gradient, so that every write of a row is the same
+    value and the scatter's order does not matter."""
     if optimizer == "sgd":
         weight.index_put_((rows,), weight[rows] - lr * g)
         return
@@ -383,11 +390,104 @@ def _update_plain(weight, state, ids, weights, d_pooled, bag, optimizer, lr,
     weight.index_put_((rows,), weight[rows] - step)
 
 
+def _update_plain(weight, state, ids, weights, d_pooled, bag, optimizer, lr,
+                  eps) -> None:
+    """The plain tables' update from their pooled rows' cotangents
+    ``d_pooled [T_plain * B, D]``, in place, on the rows ``ids`` touch:
+    each row's lookups summed (:func:`_sum_by_row`), then every lookup
+    writes its row's new value."""
+    rows, run, g = _sum_by_row(ids, d_pooled, bag, weights, ids.shape[0])
+    _rowwise_update(weight, state, rows, g[run.long()], optimizer, lr, eps)
+
+
+class _Exchange(NamedTuple):
+    """How a data-parallel step sums the plain tables' gradients over its
+    process group, fixed by the batch size and the group's size. A table
+    whose dense gradient costs an all-reduce no more bytes than gathering
+    its rows costs (``2 rows <= world * bound``, ``bound = min(rows,
+    lookups a rank makes)``) is summed dense: ``dense_lookups`` (its
+    lookups, in the plain lookups' order) into ``dense_rows`` (the plain
+    buffer's rows of the dense gradient), lookup ``i``'s row of it ``ids[i]
+    + dense_shift[i]``. The others exchange rows: each rank sums its own
+    lookups of them (``rows_lookups``) row by row into ``bound`` slots (the
+    sum of their bounds) and gathers every rank's slots. A slot that no
+    row fills holds a zero gradient of its row in ``slot_rows`` (slot
+    ``j`` of table ``k``'s range, table ``k``'s row ``j``): a zero adds
+    nothing and leaves an untouched row's update the identity, and the
+    slots' rows differ, so no row gathers a long run of them."""
+
+    dense_lookups: torch.Tensor
+    dense_shift: torch.Tensor
+    dense_slot: torch.Tensor
+    dense_rows: torch.Tensor
+    rows_lookups: torch.Tensor
+    rows_slot: torch.Tensor
+    slot_rows: torch.Tensor
+
+    @property
+    def bound(self) -> int:
+        return self.slot_rows.shape[0]
+
+
+def _exchange(cfg: DCNv2Config, lay: _Layout, batch_size: int, world: int,
+              device) -> _Exchange:
+    offs = cfg.plain_offsets
+    dense, shift, dense_rows, rows, slot_rows = [], [], [], [], []
+    start = r_dense = 0
+    for k, f in enumerate(cfg.plain_features):
+        n_rows, n = offs[k + 1] - offs[k], batch_size * cfg.pooling[f]
+        sel = torch.arange(start, start + n, device=device)
+        start += n
+        bound = min(n_rows, n)
+        if 2 * n_rows <= world * bound:
+            dense.append(sel)
+            shift.append(torch.full((n,), r_dense - offs[k], device=device))
+            dense_rows.append(torch.arange(offs[k], offs[k + 1],
+                                           device=device))
+            r_dense += n_rows
+        else:
+            rows.append(sel)
+            slot_rows.append(torch.arange(offs[k], offs[k] + bound,
+                                          device=device))
+
+    def cat(parts):
+        return (torch.cat(parts) if parts
+                else torch.zeros(0, dtype=torch.int64, device=device))
+
+    dense_lookups, rows_lookups = cat(dense), cat(rows)
+    return _Exchange(dense_lookups, cat(shift), lay.plain_bag[dense_lookups],
+                     cat(dense_rows), rows_lookups,
+                     lay.plain_bag[rows_lookups], cat(slot_rows))
+
+
+def _plain_sums(xch: _Exchange, ids, weights, d_pooled):
+    """This rank's plain-table gradients as a data-parallel step sums
+    them: the dense tables' ``[len(xch.dense_rows), D]``, and the
+    exchanged tables' row sums in ``xch.bound`` slots with their rows
+    (``(rows [bound], sums [bound, D])``; None where no table exchanges
+    rows)."""
+    sel = xch.dense_lookups
+    g_dense = d_pooled.new_zeros((0, d_pooled.shape[1]))
+    if sel.shape[0]:   # sorted by row: bag_pool's fast route
+        rows, order = torch.sort(ids[sel] + xch.dense_shift, stable=True)
+        g_dense = bag_pool(
+            rows, xch.dense_rows.shape[0], rows=d_pooled,
+            slot=xch.dense_slot[order],
+            weights=None if weights is None else weights[sel][order])
+    if not xch.bound:
+        return g_dense, None
+    sel = xch.rows_lookups
+    rows, run, g = _sum_by_row(
+        ids[sel], d_pooled, xch.rows_slot,
+        None if weights is None else weights[sel], xch.bound)
+    return g_dense, (xch.slot_rows.scatter(0, run.long(), rows), g)
+
+
 def make_dcnv2_train_step(cfg: DCNv2Config, batch_size: int,
                           optimizer: str = "adagrad",
                           learning_rate: float = 0.005, eps: float = 1e-8,
                           device="cuda", impl: str = "auto",
-                          precision: Optional[str] = None):
+                          precision: Optional[str] = None, group=None):
     """Train step ``step(params, batch) -> (loss, logits, params)``.
 
     The mean BCE of the tower's logits; the tower's gradients and the
@@ -398,11 +498,27 @@ def make_dcnv2_train_step(cfg: DCNv2Config, batch_size: int,
     returned updated. ``loss`` (0-d) and ``logits`` (``[B]``) are device
     tensors: the step never synchronises with the host.
 
+    ``group``: a ``torch.distributed`` process group (the world's:
+    ``torch.distributed.group.WORLD``) over which the step is data
+    parallel. ``batch_size`` and ``batch`` are then this rank's block of a
+    global batch ``world`` times as large, every rank holding the same
+    ``params``, and the step is one step on the global batch: each rank's
+    gradients are scaled by ``1 / world`` (the loss is the global batch's
+    mean) and summed over the group before the same update on every rank,
+    which leaves the replicas equal. The cores', the tower's and the
+    smaller plain tables' (:class:`_Exchange`) in one ``all_reduce``; the
+    other plain tables' row by row, since row-wise Adagrad is not linear in
+    the gradient: each rank sums its lookups of a row, the ranks' row sums
+    are gathered, padded to a fixed count so that nothing waits on the
+    host, and summed again. ``loss`` and ``logits`` stay this rank's.
+
     Spans (while a profiler records): ``fbtt.step`` the root, with the
     counters ``lookups`` (every feature's) and ``tt_lookups`` (the TT
     group's); ``fbtt.tables`` the plain tables' pool and update;
     ``fbtt.dense`` the tower's forward and backward; ``fbtt.optim`` the
-    cores' and the tower's update; the TT lookup's own ``fbtt.plan``,
+    cores' and the tower's update; ``fbtt.comm`` each collective, with the
+    counters ``comm.all_reduce_bytes`` and ``comm.all_gather_bytes``
+    (``parallel.collectives``); the TT lookup's own ``fbtt.plan``,
     ``fbtt.fwd``, ``fbtt.pool`` and ``fbtt.bwd``."""
     if optimizer not in OPTIMIZERS:
         raise ValueError(f"optimizer {optimizer!r} is not one of "
@@ -414,6 +530,9 @@ def make_dcnv2_train_step(cfg: DCNv2Config, batch_size: int,
     n_all, n_tt = (batch_size * cfg.lookups(),
                    batch_size * cfg.lookups(cfg.tt_features))
     n_cores = len(cfg.tt_p_shapes)
+    if group is not None:
+        world = torch.distributed.get_world_size(group)
+        xch = _exchange(cfg, lay, batch_size, world, dev)
 
     @profiling.annotated("fbtt.step")
     def step(params: DCNv2Params, batch: DCNv2Batch):
@@ -437,14 +556,31 @@ def make_dcnv2_train_step(cfg: DCNv2Config, batch_size: int,
                                        bf16)
                 loss = bce_loss(logits, labels)
                 *g_tower, d_tt, d_plain = torch.autograd.grad(
-                    loss, live + [x_tt, x_plain])
+                    loss if group is None else loss / world,
+                    live + [x_tt, x_plain])
         g_cores = torch.autograd.grad(tt, cores, d_tt)
         state = params.optimizer_state
+        s_plain = state[n_cores] if state else None
         with torch.no_grad():
-            with profiling.annotate("fbtt.tables"):
-                _update_plain(params.plain, state[n_cores] if state else None,
-                              ids, pw, d_plain, lay.plain_bag, optimizer, lr,
-                              eps)
+            if group is None:
+                with profiling.annotate("fbtt.tables"):
+                    _update_plain(params.plain, s_plain, ids, pw, d_plain,
+                                  lay.plain_bag, optimizer, lr, eps)
+            else:
+                with profiling.annotate("fbtt.tables"):
+                    g_dense, slots = _plain_sums(xch, ids, pw, d_plain)
+                summed = collectives.all_reduce_sum(
+                    [*g_cores, *g_tower, g_dense], group)
+                g_cores, g_tower = summed[:n_cores], summed[n_cores:-1]
+                if slots is not None:
+                    slots = [collectives.all_gather_cat(t, group)
+                             for t in slots]
+                with profiling.annotate("fbtt.tables"):
+                    _rowwise_update(params.plain, s_plain, xch.dense_rows,
+                                    summed[-1], optimizer, lr, eps)
+                    if slots is not None:
+                        _update_plain(params.plain, s_plain, slots[0], None,
+                                      slots[1], None, optimizer, lr, eps)
             with profiling.annotate("fbtt.optim"):
                 leaves = [t for _, t in leaves_with_paths(_tower(params))]
                 if optimizer == "sgd":

@@ -21,9 +21,11 @@ Counterpart of ``fbtt_embedding_tpu.utils.profiling``:
     folded serve's CUDA graphs (``serve_graph.captures``,
     ``serve_graph.replays``, always on; ``utils.graphs``) and, while spans
     are on, ``lookups``, ``cache_hits``,
-    ``serve_graph.spanned_replays`` and ``span_reduce.split_spans`` (the
+    ``serve_graph.spanned_replays``, ``span_reduce.split_spans`` (the
     spans the gradient passes' span reduce adds in more than one chunk;
-    ``ops.kernels.seg_accum``). :func:`counted_apart` keeps a block's
+    ``ops.kernels.seg_accum``) and ``comm.<collective>_bytes`` (the bytes
+    this rank puts into each kind of collective; ``parallel.
+    collectives``, whose calls are ``fbtt.comm`` spans). :func:`counted_apart` keeps a block's
     counts out of the registry (a capture's launches).
   * :func:`span_totals`: the one readout (it synchronises once): per span
     name its count, host seconds and device seconds (the stream time

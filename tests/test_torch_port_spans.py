@@ -364,13 +364,14 @@ def test_readers_none_on_cpu_device_times(tmp_path):
 
 
 def test_span_names_are_the_documented_layers():
-    """Every span the port opens is one of PERF.md's ten names (the DLRM-
-    DCNv2 step's ``fbtt.dense`` and ``fbtt.tables`` among them)."""
+    """Every span the port opens is one of PERF.md's eleven names (the
+    DLRM-DCNv2 step's ``fbtt.dense`` and ``fbtt.tables``, and the
+    collectives' ``fbtt.comm``, among them)."""
     src = "".join(p.read_text() for p in
                   (ROOT / "fbtt_embedding_tpu_torch").rglob("*.py"))
     used = set(re.findall(r'annotated?\("(fbtt\.[a-z]+)"\)', src))
-    assert used == {"fbtt.step", "fbtt.serve", "fbtt.dense",
-                    "fbtt.tables"} | {f"fbtt.{x}" for x in LAYERS}
+    assert used == {"fbtt.step", "fbtt.serve", "fbtt.dense", "fbtt.tables",
+                    "fbtt.comm"} | {f"fbtt.{x}" for x in LAYERS}
     perf = (ROOT / "PERF.md").read_text()
     for name in used:
         assert f"`{name}`" in perf, name
